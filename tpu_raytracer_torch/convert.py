@@ -1,0 +1,53 @@
+"""Carry scenes and frame state from the JAX package into this one.
+
+The reference's `CompiledScene` and `FrameState` arrive as numpy arrays
+(convert each field with `np.asarray`); nothing here imports jax. Tests
+use these to feed both packages the same scene and the same mid-run
+state.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .scene.resources import CompiledScene
+
+_TABLES = ("tri_planes", "chunk_aabb", "tri_table", "mat_table",
+           "light_table", "bvh_rec", "bvh_skip", "bvh_tri")
+
+
+def _tensor(x, device, dtype=None):
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":   # ml_dtypes bf16: exact through f32
+        x, dtype = x.astype(np.float32), torch.bfloat16
+    # np.array copies: arrays from jax are read-only
+    return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+
+
+def scene_from_reference(ref, device) -> CompiledScene:
+    """A flattened reference CompiledScene whose array fields are numpy
+    -> this package's CompiledScene on `device`. The reference's 12-wide
+    quad-packed texels [L, H, W, 12] keep their first texel, [..., :3]."""
+    if ref.instanced:
+        raise ValueError("instanced scenes are not ported yet")
+    return CompiledScene(
+        **{k: _tensor(getattr(ref, k), device) for k in _TABLES},
+        materials={k: _tensor(v, device) for k, v in ref.materials.items()},
+        lights={k: _tensor(v, device) for k, v in ref.lights.items()},
+        color_tex=_tensor(np.asarray(ref.color_tex)[..., :3], device),
+        data_tex=_tensor(np.asarray(ref.data_tex)[..., :3], device),
+        num_lights=int(ref.num_lights),
+        tex_channels=frozenset(ref.tex_channels),
+    )
+
+
+def state_from_reference(state: dict, device) -> dict:
+    """Reference FrameState {"gb", "res", "accum"} (numpy) -> tensors.
+    The packed layouts are shared, seed bit patterns included."""
+    return {k: _tensor(np.asarray(state[k], np.float32), device)
+            for k in ("gb", "res", "accum")}
+
+
+def state_to_numpy(state: dict) -> dict:
+    return {k: v.detach().cpu().numpy() for k, v in state.items()}

@@ -1,0 +1,90 @@
+"""Full ReSTIR frame (src/renderer.rs:399-515;
+`tpu_raytracer/render/pipeline.py`):
+
+    G-buffer -> ReSTIR temporal -> ReSTIR spatial (+shade) -> post -> LDR
+
+State between frames is a plain dict of tensors (`init_state`): the
+packed G-buffer, the packed spatial reservoirs and the accumulation
+buffer, in the reference's layouts.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops import gbuffer as gbuffer_ops
+from ..ops import post as post_ops
+from ..ops import restir as restir_ops
+from ..parallel import views as views_mod
+
+# frames above this many pixels read G-buffer + reservoir rows through a
+# pair view instead of materializing their concatenation
+PAIR_VIEW_PIXELS = 4 * 1024 * 1024
+
+
+def init_state(width: int, height: int, device) -> dict:
+    """Fresh frame state: packed prev G-buffer + reservoirs + accum."""
+    n = width * height
+    return {
+        "gb": torch.zeros((n, gbuffer_ops.GB_COLS), dtype=torch.float32,
+                          device=device),
+        "res": restir_ops.pack_reservoirs(
+            restir_ops.empty_reservoirs(n, device)),
+        "accum": torch.zeros((n, 3), dtype=torch.float32, device=device),
+    }
+
+
+def render_band(scene, camera, frame_count: int, state, ctx,
+                static_ok: bool = False):
+    """One frame over the whole image (the reference's single-band case).
+    Returns (ldr, hdr, new_state, aux)."""
+    width, height = ctx["width"], ctx["height"]
+    n = width * height
+
+    def view(flat):
+        return views_mod.trivial_view(flat, width, height)
+
+    def comb(a, b):
+        if n > PAIR_VIEW_PIXELS:
+            return views_mod.trivial_pair_view(a, b, width, height)
+        return view(torch.cat([a, b], dim=-1))
+
+    gb = gbuffer_ops.render_gbuffer(scene, camera, width, height)
+    reservoirs_t, rays_t = restir_ops.restir_temporal(
+        scene, gb, comb(state["gb"], state["res"]), camera, frame_count,
+        ctx, static_ok=static_ok)
+
+    gb_packed = gbuffer_ops.pack_gb(gb)
+    res_t_packed = restir_ops.pack_reservoirs(reservoirs_t)
+    reservoirs_s, hdr, rays_s, diag = restir_ops.restir_spatial(
+        scene, gb, comb(gb_packed, res_t_packed), reservoirs_t, camera,
+        frame_count, ctx)
+
+    ldr, accum = post_ops.post_process(view(hdr), gb, view(gb_packed),
+                                       view(state["accum"]), frame_count)
+    new_state = {"gb": gb_packed,
+                 "res": restir_ops.pack_reservoirs(reservoirs_s),
+                 "accum": accum}
+    # the exact traversal-query count: primary rays + both path traces +
+    # every shadow and visibility ray
+    aux = {"rays": float(n) + rays_t + rays_s, **diag}
+    return ldr, hdr, new_state, aux
+
+
+def render_frame(scene, camera, frame_count: int, state, width: int,
+                 height: int, static_ok: bool = False):
+    """One complete ReSTIR frame.
+
+    scene: CompiledScene; camera: device camera uniform
+    (renderer.camera_to_device); frame_count: the accumulation counter
+    (the caller resets it on camera motion); state: from `init_state` or
+    the previous frame; static_ok: nothing (camera, scene) changed since
+    the previous frame, which enables temporal replay dedup - False is
+    always safe.
+
+    Returns (ldr [n, 3] gamma-encoded, hdr [n, 3], new_state, aux) where
+    aux["rays"] is the exact number of traversal queries (0-dim tensor).
+    """
+    ctx = restir_ops.make_ctx(width, height, state["accum"].device)
+    return render_band(scene, camera, frame_count, state, ctx,
+                       static_ok=static_ok)

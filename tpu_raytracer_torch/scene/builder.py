@@ -1,0 +1,258 @@
+"""SceneBuilder: the scene-definition API (src/scene/builder.rs:23-589).
+
+Port of `tpu_raytracer/scene/builder.py`, flattened scenes only: every
+instance's triangles move to world space in one soup, the soup is
+reordered into BVH-DFS leaf order (spatially tight 128-triangle chunks,
+the kernels' cull granularity), and materials, lights and textures become
+tables. Host work is numpy, exactly as in the reference; `build` moves
+the result onto a torch device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops import bvh as bvh_ops
+from ..ops.trace_api import pack_triangles
+from ..utils import math3d
+from . import light as light_mod
+from .geometry import Mesh
+from .material import NO_TEXTURE, Material, pack_materials
+from .resources import CompiledScene
+
+TEXTURE_SIZE = 1024  # reference: scene/mod.rs TEXTURE_WIDTH/HEIGHT = 1024
+
+
+def _oct_decode_np(e: np.ndarray) -> np.ndarray:
+    """Octahedral decode (host, matches gbuffer.wgsl:38-44)."""
+    ex, ey = e[:, 0], e[:, 1]
+    nz = 1.0 - np.abs(ex) - np.abs(ey)
+    t = np.maximum(-nz, 0.0)
+    nx = ex + np.where(ex >= 0.0, -t, t)
+    ny = ey + np.where(ey >= 0.0, -t, t)
+    n = np.stack([nx, ny, nz], axis=-1).astype(np.float32)
+    return n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-6)
+
+
+def _default_color_textures() -> list:
+    """builder.rs:41-75: 0 = white, 1 = 64-px checker, 2 = black."""
+    s = TEXTURE_SIZE
+    white = np.ones((s, s, 3), np.float32)
+    yy, xx = np.meshgrid(np.arange(s), np.arange(s), indexing="ij")
+    check = (((xx // 64) + (yy // 64)) % 2 == 0).astype(np.float32)
+    checker = np.repeat(check[:, :, None], 3, axis=2)
+    black = np.zeros((s, s, 3), np.float32)
+    return [white, checker, black]
+
+
+def _default_data_textures() -> list:
+    """builder.rs:77-91: 0 = white, 1 = flat normal, 2 = black (linear)."""
+    s = TEXTURE_SIZE
+    white = np.ones((s, s, 3), np.float32)
+    flat_normal = np.tile(
+        np.array([128 / 255.0, 128 / 255.0, 1.0], np.float32), (s, s, 1))
+    black = np.zeros((s, s, 3), np.float32)
+    return [white, flat_normal, black]
+
+
+def _cat(xs, width):
+    if xs:
+        return np.concatenate(xs, axis=0)
+    return np.zeros((0, width) if width else (0,), np.float32)
+
+
+class SceneBuilder:
+    def __init__(self):
+        self.meshes: list[Mesh] = []
+        self.materials: list[Material] = []
+        self.instances: list[tuple] = []  # (mesh_id, mat_id, transform 4x4)
+        self.lights: list = []
+        self.color_textures: list[np.ndarray] = _default_color_textures()
+        self.data_textures: list[np.ndarray] = _default_data_textures()
+
+    def add_mesh(self, mesh: Mesh) -> int:
+        self.meshes.append(mesh)
+        return len(self.meshes) - 1
+
+    def add_material(self, mat: Material) -> int:
+        self.materials.append(mat)
+        return len(self.materials) - 1
+
+    def add_instance(self, mesh_id: int, mat_id: int,
+                     transform: np.ndarray) -> int:
+        self.instances.append(
+            (mesh_id, mat_id, np.asarray(transform, np.float32)))
+        return len(self.instances) - 1
+
+    def _add_emitter(self, mesh_id, transform, color, intensity) -> None:
+        emission_factor = [c * intensity for c in color]
+        mat_id = self.add_material(
+            Material((1.0, 1.0, 1.0, 1.0))
+            .light_index(len(self.lights))
+            .emissive(emission_factor)
+            .texture(0))
+        self.add_instance(mesh_id, mat_id, transform)
+
+    def register_quad_light(self, mesh_id: int, transform: np.ndarray,
+                            color, intensity: float) -> None:
+        """builder.rs:316-351: emissive material + instance + NEE record."""
+        self._add_emitter(mesh_id, transform, color, intensity)
+        position = transform[:3, 3]
+        u = math3d.transform_vector(transform, [1.0, 0.0, 0.0]) * 0.5
+        v = math3d.transform_vector(transform, [0.0, 0.0, -1.0]) * 0.5
+        self.lights.append(light_mod.make_quad_light(
+            position, u, v, [color[0], color[1], color[2], intensity]))
+
+    def register_sphere_light(self, mesh_id: int, transform: np.ndarray,
+                              color, intensity: float) -> None:
+        """builder.rs:353-385."""
+        self._add_emitter(mesh_id, transform, color, intensity)
+        position = transform[:3, 3]
+        radius = float(np.linalg.norm(
+            math3d.transform_vector(transform, [1.0, 0.0, 0.0]))) * 0.5
+        self.lights.append(light_mod.make_sphere_light(
+            position, radius, [color[0], color[1], color[2], intensity]))
+
+    def _pack_tables(self):
+        materials = pack_materials(self.materials)
+        m = materials["base_color"].shape[0]
+        mat_table = np.zeros((m, 17), np.float32)
+        mat_table[:, 0:4] = materials["base_color"]
+        mat_table[:, 4:7] = materials["emissive_factor"]
+        for col, key in enumerate(
+                ("roughness", "metallic", "transmission", "ior",
+                 "light_index", "tex_id", "normal_tex_id",
+                 "occlusion_tex_id", "emissive_tex_id",
+                 "metallic_roughness_tex_id"), start=7):
+            mat_table[:, col] = materials[key]
+
+        channels = [name for name, key in (
+            ("color", "tex_id"), ("normal", "normal_tex_id"),
+            ("occlusion", "occlusion_tex_id"),
+            ("emissive", "emissive_tex_id"),
+            ("metallic_roughness", "metallic_roughness_tex_id"))
+            if (materials[key] != NO_TEXTURE).any()]
+
+        lights = light_mod.pack_lights(self.lights)
+        nl = lights["position"].shape[0]
+        light_table = np.zeros((nl, 15), np.float32)
+        light_table[:, 0:3] = lights["position"]
+        light_table[:, 3] = lights["type"]
+        light_table[:, 4:7] = lights["u"]
+        light_table[:, 7] = lights["area"]
+        light_table[:, 8:11] = lights["v"]
+        light_table[:, 11:15] = lights["emission"]
+        return (materials, mat_table, frozenset(channels), lights,
+                light_table)
+
+    def build(self, device) -> CompiledScene:
+        """Compile the scene onto `device` (builder.py:307-565 of the
+        reference, flattened branch)."""
+        # 1. per-mesh local triangles
+        local_v0, local_e1, local_e2, mesh_tri_off = [], [], [], []
+        t_off = 0
+        for mesh in self.meshes:
+            mesh_tri_off.append(t_off)
+            tri = mesh.indices.reshape(-1, 3)
+            p = mesh.positions
+            local_v0.append(p[tri[:, 0]])
+            local_e1.append(p[tri[:, 1]] - p[tri[:, 0]])
+            local_e2.append(p[tri[:, 2]] - p[tri[:, 0]])
+            t_off += mesh.num_triangles
+        local_v0 = _cat(local_v0, 3)
+        local_e1 = _cat(local_e1, 3)
+        local_e2 = _cat(local_e2, 3)
+
+        # 2. flatten instances to a world-space soup
+        world_v0, world_e1, world_e2 = [], [], []
+        for mesh_id, _, tf in self.instances:
+            nt = self.meshes[mesh_id].num_triangles
+            a, t = tf[:3, :3], tf[:3, 3]
+            lo = mesh_tri_off[mesh_id]
+            lv0 = local_v0[lo:lo + nt]
+            wv0 = lv0 @ a.T + t
+            wv1 = (lv0 + local_e1[lo:lo + nt]) @ a.T + t
+            wv2 = (lv0 + local_e2[lo:lo + nt]) @ a.T + t
+            world_v0.append(wv0)
+            world_e1.append(wv1 - wv0)
+            world_e2.append(wv2 - wv0)
+        world_v0 = _cat(world_v0, 3)
+        world_e1 = _cat(world_e1, 3)
+        world_e2 = _cat(world_e2, 3)
+        t_total = world_v0.shape[0]
+
+        # 2b. per-triangle shading rows; normals and tangents stay
+        # unnormalized so normalize(interp(..)) matches the reference's
+        # transform-after-interpolate order (restir.wgsl:422-431)
+        tri_table = np.zeros((max(t_total, 1), 26), np.float32)
+        row = 0
+        for mesh_id, mat_id, tf in self.instances:
+            mesh = self.meshes[mesh_id]
+            nt = mesh.num_triangles
+            nm = np.linalg.inv(tf[:3, :3]).T.astype(np.float32)
+            tri = mesh.indices.reshape(-1, 3).astype(np.int64)
+            n_world = _oct_decode_np(mesh.oct_normals) @ nm.T
+            t_world = mesh.tangents[:, :3] @ nm.T
+            blk = tri_table[row:row + nt]
+            for k in range(3):
+                blk[:, k * 3:k * 3 + 3] = n_world[tri[:, k]]
+                blk[:, 9 + k * 2:11 + k * 2] = mesh.uvs[tri[:, k]]
+                blk[:, 15 + k * 3:18 + k * 3] = t_world[tri[:, k]]
+            blk[:, 24] = mesh.tangents[tri[:, 0], 3]   # sign from v0
+            blk[:, 25] = mat_id
+            row += nt
+
+        # 3. BVH over the soup; reorder every per-triangle array into its
+        # DFS leaf order
+        wv1 = world_v0 + world_e1
+        wv2 = world_v0 + world_e2
+        tree = bvh_ops.build_bvh(
+            np.minimum(np.minimum(world_v0, wv1), wv2),
+            np.maximum(np.maximum(world_v0, wv1), wv2))
+        if t_total > 0:
+            order = tree.tri_id[tree.skip < 0].astype(np.int64)
+            inv = np.empty_like(order)
+            inv[order] = np.arange(t_total, dtype=np.int64)
+            world_v0, world_e1, world_e2 = (
+                world_v0[order], world_e1[order], world_e2[order])
+            tri_table = tri_table[order]
+            tree.tri_id[tree.skip < 0] = inv[order].astype(np.int32)
+        bvh_ops.fill_triangles(tree, world_v0, world_e1, world_e2)
+        tri_planes, chunk_aabb = pack_triangles(world_v0, world_e1, world_e2)
+
+        # shading rows carry world v0 | e1 | e2 (cols 26:35): the kernels
+        # return only (t, tri) and ops/hit.py recomputes u/v/front
+        geo = (np.concatenate([world_v0, world_e1, world_e2], axis=1)
+               if t_total > 0 else np.zeros((tri_table.shape[0], 9),
+                                            np.float32))
+        tri_table = np.concatenate([tri_table, geo], axis=1)
+
+        materials, mat_table, tex_channels, lights, light_table = \
+            self._pack_tables()
+
+        def dev(x, dtype=None):
+            return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                                   device=device)
+
+        def texels(images):
+            # bf16 texels, rounded as the reference rounds them
+            # (builder.py:551-554), so sampled values match
+            return dev(np.stack(images).astype(np.float32), torch.bfloat16)
+
+        return CompiledScene(
+            tri_planes=dev(tri_planes),
+            chunk_aabb=dev(chunk_aabb),
+            tri_table=dev(tri_table.astype(np.float32)),
+            mat_table=dev(mat_table),
+            light_table=dev(light_table),
+            bvh_rec=dev(tree.rec.astype(np.float32)),
+            bvh_skip=dev(tree.skip.astype(np.int32)),
+            bvh_tri=dev(tree.tri_id.astype(np.int32)),
+            materials={k: dev(v) for k, v in materials.items()},
+            lights={k: dev(v) for k, v in lights.items()},
+            color_tex=texels(self.color_textures),
+            data_tex=texels(self.data_textures),
+            num_lights=len(self.lights),
+            tex_channels=tex_channels,
+        )
