@@ -7,21 +7,43 @@ Phases (each prints one line; any failed check raises, so the exit code
 is non-zero):
   1. device   - a CUDA device is required; prints its name and power
                 limit as nvidia-smi reports them.
-  2. build    - builds kernels K1 (closest-hit) and K2 (any-hit) from
-                tpu_raytracer_torch/csrc/trace.cu with nvcc for sm_90a.
+  2. build    - builds kernels K1 (closest-hit), K2 (any-hit) and K4
+                (instanced closest- and any-hit) from
+                tpu_raytracer_torch/csrc/{trace,trace_inst}.cu with one
+                nvcc call for sm_90a.
   3. K1       - against its plain PyTorch version on the card: Cornell
                 512^2 primary rays and 524,288 random rays (random t_max,
                 30% dead lanes). tri equal on every lane, t within T_ULPS.
   4. K2       - against plain closest-hit `tri >= 0` on the random rays.
   5. frame    - the Cornell ReSTIR frame at 512^2 through render_frame:
                 2 warm-up + 8 timed frames (static_ok from the second
-                frame on), launch counts of both kernels, fps, Mrays/s,
-                and K1/K2 against plain at 262,144 and 524,288 rays.
+                frame on), launch counts (K1 and K2 launched, K4 not),
+                fps, Mrays/s, and K1/K2 against plain at 262,144 and
+                524,288 rays.
   6. golden   - 8 frames of the 64^2 Cornell box against
                 tests/golden/cornell_64_f8_ldr.npy, PSNR >= GOLDEN_DB.
-Then one JSON line of per-kernel results, and last the device line
-{"ok": true, "device": {...}}. Without a CUDA device it exits with 1 and
-prints no result.
+  7. K4       - the instanced gallery at full width (100 icospheres of
+                5,120 triangles, 512,004 world triangles) against the
+                plain instanced trace: 512^2 primary rays and 524,288
+                random rays inside the gallery (random t_max, 30% dead).
+                Closest-hit tri and inst equal on every lane, t within
+                T_ULPS; any-hit occlusion equal to plain, t = t_max.
+  8. gallery  - the gallery's ReSTIR frame at 512^2 through render_frame:
+                2 warm-up + 4 timed frames, both K4 entry points launched
+                and neither K1 nor K2; fps, Mrays/s; K4 against plain at
+                262,144 and 524,288 random rays.
+Then one JSON line of per-kernel results (time, plain time and bound at
+524,288 random rays; launches on each kernel's frame), and last the
+device line {"ok": true, "device": {...}}. Without a CUDA device it exits
+with 1 and prints no result.
+
+A kernel's bound is the least time the card could take for the work
+this run's rays need: the ray-triangle tests (MT_FLOPS each, counted from
+csrc/mt.cuh:intersect with an FMA as 2) in every chunk or group whose
+box the ray's final window (t_min, t_hit or t_max) passes, one test per
+occluded any-hit ray, and for K4 one transform (XFORM_FLOPS) per ray and
+instance box passed, at FP32_PEAK; or each input read once and each
+output written once at HBM_PEAK, whichever is longer.
 """
 
 import json
@@ -32,13 +54,20 @@ import time
 
 import numpy as np
 
-T_ULPS = 2          # K1 t against plain; measured 0 on the CPU twin
+T_ULPS = 2          # K1/K4 t against plain; measured 0 on the CPU twins
 GOLDEN_DB = 38.0
 WARMUP, TIMED = 2, 8
+GALLERY_WARMUP, GALLERY_TIMED = 2, 4
 WIDTH = HEIGHT = 512
 RANDOM_RAYS = 524288
 TIMED_RAYS = (262144, 524288)
 DEVICE = "cuda:0"
+# H100 SXM published peaks (NVIDIA data sheet): FP32 outside the tensor
+# cores, and HBM3
+FP32_PEAK = 67e12
+HBM_PEAK = 3.35e12
+MT_FLOPS = 46       # one ray-triangle test
+XFORM_FLOPS = 36    # one ray moved into an instance's object space
 
 
 def _card() -> str:
@@ -49,12 +78,17 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _random_rays(torch, n, device, seed=0):
+def _random_rays(torch, n, device, seed=0, lo=-0.95, hi=0.95, y=None,
+                 t_far=3.0):
+    """Origins uniform in [lo, hi]^3 (y in `y` if given), unit directions,
+    t_max uniform in (0.01, t_far), 30% dead lanes (t_max = 0)."""
     g = np.random.default_rng(seed)
-    o = g.uniform(-0.95, 0.95, (3, n)).astype(np.float32)
+    o = g.uniform(lo, hi, (3, n)).astype(np.float32)
+    if y is not None:
+        o[1] = g.uniform(*y, n)
     d = g.standard_normal((3, n)).astype(np.float32)
     d /= np.linalg.norm(d, axis=0, keepdims=True)
-    t_max = g.uniform(0.01, 3.0, n).astype(np.float32)
+    t_max = g.uniform(0.01, t_far, n).astype(np.float32)
     t_max[g.uniform(size=n) < 0.3] = 0.0            # dead lanes
     return tuple(torch.from_numpy(x).to(device) for x in (o, d, t_max))
 
@@ -77,6 +111,75 @@ def _time_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def _nbytes(*tensors):
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def _bound(flops, nbytes):
+    """(bound_ms, bound_by): the longer of the operations at FP32_PEAK and
+    the bytes at HBM_PEAK."""
+    t_ops, t_bytes = flops / FP32_PEAK, nbytes / HBM_PEAK
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def _window(torch, res, t_max):
+    """Each ray's final window end: its hit's t, else t_max."""
+    return torch.where(res["tri"] >= 0, torch.minimum(res["t"], t_max),
+                       t_max)
+
+
+def _flat_tests(trace_api, scene, o, d, t_min, t_hi):
+    """Ray-triangle tests a 128-triangle-chunk-culled sweep must make for
+    windows (t_min, t_hi): valid triangles of every chunk each ray's
+    window passes."""
+    from tpu_raytracer_torch.utils.vec3 import V3
+
+    ov, dv = V3(*o), V3(*d)
+    inv = trace_api.safe_inv(dv)
+    per_chunk = scene.tri_planes[3, 0].reshape(-1, trace_api.CT).sum(1)
+    n = 0
+    for c, box in enumerate(scene.chunk_aabb.cpu().tolist()):
+        lanes = (t_hi > 0) & trace_api.slab_pass(box, ov, inv, t_min, t_hi)
+        n += int(per_chunk[c]) * int(lanes.sum())
+    return n
+
+
+def _inst_tests(torch, trace_api, trace_inst, scene, o, d, t_min, t_hi):
+    """(ray-triangle tests, ray transforms) a sweep culled per instance
+    box and per 256-triangle object group must make for windows (t_min,
+    t_hi), in the unit order of trace_inst.trace_instanced_plain."""
+    import itertools
+
+    from tpu_raytracer_torch.utils.vec3 import V3
+
+    ov, dv = V3(*o), V3(*d)
+    inv = trace_api.safe_inv(dv)
+    per_group = scene.tri_planes[3, 0].reshape(-1, trace_inst.GROUP).sum(1)
+    per_group = per_group.cpu().tolist()
+    inst_boxes = scene.inst_aabb.cpu().tolist()
+    group_boxes = scene.obj_group_aabb.T.cpu().tolist()
+    units = zip(scene.unit_inst.cpu().tolist(),
+                scene.unit_group.cpu().tolist())
+    tests = transforms = 0
+    for i, run in itertools.groupby(units, key=lambda u: u[0]):
+        sel = (t_hi > 0) & trace_api.slab_pass(inst_boxes[i], ov, inv, t_min,
+                                                t_hi)
+        lanes = torch.nonzero(sel).squeeze(1)
+        if lanes.numel() == 0:
+            continue
+        transforms += lanes.numel()
+        oo, od = trace_inst.to_object(scene.inst_table[i],
+                                      V3(*(x[lanes] for x in ov)),
+                                      V3(*(x[lanes] for x in dv)))
+        o_inv = trace_api.safe_inv(od)
+        for _, g in run:
+            hit = trace_api.slab_pass(group_boxes[g], oo, o_inv,
+                                      t_min[lanes], t_hi[lanes])
+            tests += int(per_group[g]) * int(hit.sum())
+    return tests, transforms
+
+
 def main() -> int:
     import torch
 
@@ -92,7 +195,7 @@ def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     from tpu_raytracer_torch.models import scenes
-    from tpu_raytracer_torch.ops import gbuffer, trace_api
+    from tpu_raytracer_torch.ops import gbuffer, trace_api, trace_inst
     from tpu_raytracer_torch.render import camera, pipeline, renderer
     from tpu_raytracer_torch.runtime.build import BUILD_LOGS
     from tpu_raytracer_torch.utils.vec3 import V3
@@ -102,9 +205,9 @@ def main() -> int:
     trace_api.load_kernels()
     ptxas = [ln.strip() for ln in BUILD_LOGS.get("trace_kernels", "")
              .splitlines() if "registers" in ln or "Compiling entry" in ln]
-    print(f"build: K1+K2 from csrc/trace.cu in {time.time() - t0:.2f} s "
-          f"(nvcc sm_90a); ptxas: {' | '.join(ptxas) or 'cached'}",
-          flush=True)
+    print(f"build: K1+K2+K4 from csrc/trace.cu and csrc/trace_inst.cu in "
+          f"{time.time() - t0:.2f} s (one nvcc call, sm_90a); ptxas: "
+          f"{' | '.join(ptxas) or 'cached'}", flush=True)
 
     scene = scenes.create_cornell_box(dev)
     cam = camera.CameraController()
@@ -128,11 +231,13 @@ def main() -> int:
              torch.full((n_p,), 1000.0, device=dev))
     ro, rd, rt_max = _random_rays(torch, RANDOM_RAYS, dev)
     r_tmin = torch.full((RANDOM_RAYS,), 1e-3, device=dev)
+    r_plain = plain(ro, rd, r_tmin, rt_max)
     k1_err, k1_ulps = 0.0, 0
     for name, (o, d), (t_min, t_max) in (
             ("primary 512^2", primary, p_win),
             ("random", (ro, rd), (r_tmin, rt_max))):
-        got, want = kernel(o, d, t_min, t_max), plain(o, d, t_min, t_max)
+        got = kernel(o, d, t_min, t_max)
+        want = r_plain if o is ro else plain(o, d, t_min, t_max)
         torch.cuda.synchronize()
         g_tri, w_tri = got["tri"].cpu().numpy(), want["tri"].cpu().numpy()
         g_t, w_t = got["t"].cpu().numpy(), want["t"].cpu().numpy()
@@ -150,7 +255,7 @@ def main() -> int:
 
     # 4. K2 against plain closest-hit tri >= 0
     got = kernel(ro, rd, r_tmin, rt_max, any_hit=True)
-    want = plain(ro, rd, r_tmin, rt_max)["tri"] >= 0
+    want = r_plain["tri"] >= 0
     torch.cuda.synchronize()
     k2_bad = int(((got["tri"] >= 0) != want).sum())
     k2_err = float(k2_bad > 0)     # max |flag difference|
@@ -179,8 +284,10 @@ def main() -> int:
     torch.cuda.synchronize()
     dt = time.time() - t0
     launches = dict(trace_api.LAUNCHES)
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel was never launched: {launches}")
+    if min(launches["closest_hit"], launches["any_hit"]) <= 0 or \
+            launches["inst_closest_hit"] or launches["inst_any_hit"]:
+        raise AssertionError(f"the Cornell frame must launch K1 and K2 and "
+                             f"not K4: {launches}")
     if not (torch.isfinite(ldr).all() and ldr.min() >= 0
             and ldr.max() <= 1):
         raise AssertionError("ldr is not finite in [0, 1]")
@@ -210,6 +317,21 @@ def main() -> int:
               f"{t_plain:.4f} ms; K2 {t_k2:.4f} ms vs plain {t_plain2:.4f} ms "
               f"[{card}]", flush=True)
 
+    # bounds at the last timed size, which is all of the random rays
+    flat_io = _nbytes(ro, rd, r_tmin, rt_max, scene.tri_planes,
+                      scene.chunk_aabb) + RANDOM_RAYS * 8
+    k1_tests = _flat_tests(trace_api, scene, ro, rd, r_tmin,
+                           _window(torch, r_plain, rt_max))
+    occ = r_plain["tri"] >= 0
+    k2_tests = int(occ.sum()) + _flat_tests(
+        trace_api, scene, ro, rd, r_tmin,
+        torch.where(occ, 0.0, rt_max))
+    k1_bound = _bound(k1_tests * MT_FLOPS, flat_io)
+    k2_bound = _bound(k2_tests * MT_FLOPS, flat_io)
+    print(f"bound {RANDOM_RAYS} random rays: K1 {k1_tests} tests, "
+          f"{k1_bound[0]:.4f} ms ({k1_bound[1]}); K2 {k2_tests} tests, "
+          f"{k2_bound[0]:.4f} ms ({k2_bound[1]})", flush=True)
+
     # 6. golden
     golden = np.load(os.path.join(root, "tests", "golden",
                                   "cornell_64_f8_ldr.npy")).astype(np.float32)
@@ -229,17 +351,159 @@ def main() -> int:
           f"tests/golden/cornell_64_f8_ldr.npy (floor {GOLDEN_DB})",
           flush=True)
 
-    src = "tpu_raytracer_torch/csrc/trace.cu"
+    # 7. K4 against plain on the full-width gallery
+    t0 = time.time()
+    gal = scenes.create_instancing_gallery_scene(dev)
+    print(f"gallery: {gal.num_instances} instances, {gal.num_triangles} "
+          f"world triangles in {gal.tri_planes.shape[2]} object slots, "
+          f"{gal.unit_inst.numel()} (instance, group) units, built in "
+          f"{time.time() - t0:.2f} s", flush=True)
+
+    def k4(o, d, t_min, t_max, any_hit=False):
+        return trace_inst.trace_instanced_kernel(
+            gal.tri_planes, gal.obj_group_aabb, gal.inst_table,
+            gal.inst_aabb, gal.inst_group_span, o, d, t_min, t_max,
+            any_hit=any_hit)
+
+    def k4_plain(o, d, t_min, t_max):
+        return trace_inst.trace_instanced_plain(
+            gal.tri_planes, gal.obj_group_aabb, gal.inst_table,
+            gal.inst_aabb, gal.unit_inst, gal.unit_group, V3(*o), V3(*d),
+            t_min, t_max)
+
+    uniform = renderer.camera_to_device(
+        cam.uniform(WIDTH / HEIGHT, 0, gal.num_lights), dev)
+    po, pd = gbuffer.generate_primary_rays(uniform, WIDTH, HEIGHT)
+    g_primary = (torch.stack(list(po)).contiguous(),
+                 torch.stack(list(pd)).contiguous())
+    go, gd, gt_max = _random_rays(torch, RANDOM_RAYS, dev, seed=1, lo=-7.0,
+                                  hi=7.0, y=(-0.9, 3.0), t_far=20.0)
+    g_plain = k4_plain(go, gd, r_tmin, gt_max)
+    k4_err, k4_ulps = 0.0, 0
+    for name, (o, d), (t_min, t_max) in (
+            ("primary 512^2", g_primary, p_win),
+            ("random", (go, gd), (r_tmin, gt_max))):
+        got = k4(o, d, t_min, t_max)
+        want = g_plain if o is go else k4_plain(o, d, t_min, t_max)
+        torch.cuda.synchronize()
+        for key in ("tri", "inst"):
+            bad = int((got[key] != want[key]).sum())
+            if bad:
+                raise AssertionError(f"K4 {name}: {key} differs on {bad} "
+                                     f"lanes")
+        g_t, w_t = got["t"].cpu().numpy(), want["t"].cpu().numpy()
+        hit = want["tri"].cpu().numpy() >= 0
+        k4_ulps = max(k4_ulps, int(np.abs(_ulps(g_t, w_t)).max()))
+        k4_err = max(k4_err, float(np.abs(g_t - w_t)[hit].max(initial=0)))
+        if k4_ulps > T_ULPS:
+            raise AssertionError(f"K4 {name}: t differs by {k4_ulps} ulps")
+        print(f"K4: closest-hit equals plain on the gallery's {name} rays "
+              f"({hit.mean():.3f} hit): tri and inst equal on every lane, "
+              f"t max {k4_ulps} ulps (bound {T_ULPS}), max |dt| "
+              f"{k4_err:.3g}", flush=True)
+    got = k4(go, gd, r_tmin, gt_max, any_hit=True)
+    g_occ = g_plain["tri"] >= 0
+    torch.cuda.synchronize()
+    k4a_bad = int(((got["tri"] >= 0) != g_occ).sum())
+    k4a_err = float(k4a_bad > 0)   # max |flag difference|
+    if k4a_bad:
+        raise AssertionError(f"K4 any-hit: occlusion differs on {k4a_bad} "
+                             f"lanes")
+    if not torch.equal(got["t"], gt_max):
+        raise AssertionError("K4 any-hit: t is not t_max")
+    if not torch.equal(got["inst"] >= 0, g_occ):
+        raise AssertionError("K4 any-hit: inst is not set exactly on the "
+                             "occluded lanes")
+    print(f"K4: any-hit equals plain closest-hit tri>=0 on {RANDOM_RAYS} "
+          f"windowed gallery rays ({float(g_occ.float().mean()):.3f} "
+          f"occluded)", flush=True)
+
+    # 8. gallery frame: the instanced path
+    g_state = pipeline.init_state(WIDTH, HEIGHT, dev)
+    trace_api.reset_launch_counts()
+    rays = []
+    for i in range(GALLERY_WARMUP + GALLERY_TIMED):
+        uniform = renderer.camera_to_device(
+            cam.uniform(WIDTH / HEIGHT, i, gal.num_lights), dev)
+        ldr, hdr, g_state, aux = pipeline.render_frame(
+            gal, uniform, i, g_state, WIDTH, HEIGHT, static_ok=i > 0)
+        if i == GALLERY_WARMUP - 1:
+            torch.cuda.synchronize()
+            t0 = time.time()
+        elif i >= GALLERY_WARMUP:
+            rays.append(aux["rays"])
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    g_launches = dict(trace_api.LAUNCHES)
+    if min(g_launches["inst_closest_hit"], g_launches["inst_any_hit"]) <= 0 \
+            or g_launches["closest_hit"] or g_launches["any_hit"]:
+        raise AssertionError(f"the gallery frame must launch both K4 entry "
+                             f"points and neither K1 nor K2: {g_launches}")
+    if not (torch.isfinite(ldr).all() and ldr.min() >= 0
+            and ldr.max() <= 1):
+        raise AssertionError("gallery ldr is not finite in [0, 1]")
+    if not torch.isfinite(hdr).all():
+        raise AssertionError("gallery hdr is not finite")
+    if min(float(r) for r in rays) <= 0:
+        raise AssertionError("gallery aux['rays'] is not positive")
+    total_rays = float(sum(float(r) for r in rays))
+    print(f"gallery frame: instanced ReSTIR {WIDTH}x{HEIGHT}, "
+          f"{GALLERY_TIMED} timed frames: {GALLERY_TIMED / dt:.4f} fps, "
+          f"{total_rays / dt / 1e6:.4f} Mrays/s, "
+          f"{dt / GALLERY_TIMED * 1e3:.2f} ms/frame, "
+          f"{total_rays / GALLERY_TIMED:.0f} rays/frame; launches "
+          f"{g_launches} [{card}]", flush=True)
+
+    for n in TIMED_RAYS:
+        o, d, t_min, t_max = go[:, :n], gd[:, :n], r_tmin[:n], gt_max[:n]
+        o, d = o.contiguous(), d.contiguous()
+        t_k = _time_ms(torch, lambda: k4(o, d, t_min, t_max), 10)
+        t_ka = _time_ms(torch, lambda: k4(o, d, t_min, t_max, True), 10)
+        t_p = _time_ms(torch, lambda: k4_plain(o, d, t_min, t_max), 2)
+        t_pa = _time_ms(
+            torch, lambda: k4_plain(o, d, t_min, t_max)["tri"] >= 0, 2)
+        timings[("k4", n)] = (t_k, t_p, t_ka, t_pa)
+        print(f"timing {n} random gallery rays: K4 closest {t_k:.4f} ms vs "
+              f"plain {t_p:.4f} ms; K4 any {t_ka:.4f} ms vs plain "
+              f"{t_pa:.4f} ms [{card}]", flush=True)
+
+    inst_io = _nbytes(go, gd, r_tmin, gt_max, gal.tri_planes,
+                      gal.obj_group_aabb, gal.inst_table, gal.inst_aabb,
+                      gal.inst_group_span) + RANDOM_RAYS * 12
+    k4_tests, k4_xf = _inst_tests(torch, trace_api, trace_inst, gal, go, gd,
+                                  r_tmin, _window(torch, g_plain, gt_max))
+    k4a_tests, k4a_xf = _inst_tests(torch, trace_api, trace_inst, gal, go,
+                                    gd, r_tmin,
+                                    torch.where(g_occ, 0.0, gt_max))
+    k4a_tests += int(g_occ.sum())
+    k4_bound = _bound(k4_tests * MT_FLOPS + k4_xf * XFORM_FLOPS, inst_io)
+    k4a_bound = _bound(k4a_tests * MT_FLOPS + k4a_xf * XFORM_FLOPS, inst_io)
+    print(f"bound {RANDOM_RAYS} random gallery rays: K4 closest {k4_tests} "
+          f"tests + {k4_xf} transforms, {k4_bound[0]:.4f} ms "
+          f"({k4_bound[1]}); K4 any {k4a_tests} tests + {k4a_xf} "
+          f"transforms, {k4a_bound[0]:.4f} ms ({k4a_bound[1]})", flush=True)
+
     n = TIMED_RAYS[-1]
+
+    def entry(name, src, line, launched, err, times, bound):
+        return {"name": name, "route": "cuda",
+                "source": f"tpu_raytracer_torch/csrc/{src}",
+                "replaces": f"tpu_raytracer/ops/pallas_trace.py:{line}",
+                "launches": launched, "max_abs_err": err, "ms": times[0],
+                "plain_ms": times[1], "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": None}
+
+    k4_times = timings[("k4", n)]
     print(json.dumps({"kernels": [
-        {"name": "closest_hit", "route": "cuda", "source": src,
-         "replaces": "tpu_raytracer/ops/pallas_trace.py:392",
-         "launches": launches["closest_hit"], "max_abs_err": k1_err,
-         "ms": timings[n][0], "plain_ms": timings[n][1]},
-        {"name": "any_hit", "route": "cuda", "source": src,
-         "replaces": "tpu_raytracer/ops/pallas_trace.py:611",
-         "launches": launches["any_hit"], "max_abs_err": k2_err,
-         "ms": timings[n][2], "plain_ms": timings[n][3]},
+        entry("closest_hit", "trace.cu", 392, launches["closest_hit"],
+              k1_err, timings[n][:2], k1_bound),
+        entry("any_hit", "trace.cu", 611, launches["any_hit"], k2_err,
+              timings[n][2:], k2_bound),
+        entry("inst_closest_hit", "trace_inst.cu", 1916,
+              g_launches["inst_closest_hit"], k4_err, k4_times[:2],
+              k4_bound),
+        entry("inst_any_hit", "trace_inst.cu", 1916,
+              g_launches["inst_any_hit"], k4a_err, k4_times[2:], k4a_bound),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

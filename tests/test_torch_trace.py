@@ -198,7 +198,8 @@ def test_cpu_tensors_never_launch_kernels(scenes):
     trace_api.scene_occluded(port, _v3(o), _v3(d), 1e-3,
                              torch.from_numpy(t_max),
                              active=torch.from_numpy(active))
-    assert trace_api.LAUNCHES == {"closest_hit": 0, "any_hit": 0}
+    assert trace_api.LAUNCHES == {"closest_hit": 0, "any_hit": 0,
+                                  "inst_closest_hit": 0, "inst_any_hit": 0}
 
 
 def test_kernel_wrapper_refuses_cpu_tensors(scenes):

@@ -14,7 +14,9 @@ import torch
 from .scene.resources import CompiledScene
 
 _TABLES = ("tri_planes", "chunk_aabb", "tri_table", "mat_table",
-           "light_table", "bvh_rec", "bvh_skip", "bvh_tri")
+           "light_table", "bvh_rec", "bvh_skip", "bvh_tri", "inst_table",
+           "inst_aabb", "obj_group_aabb", "inst_group_span", "unit_inst",
+           "unit_group")
 
 
 def _tensor(x, device, dtype=None):
@@ -26,11 +28,11 @@ def _tensor(x, device, dtype=None):
 
 
 def scene_from_reference(ref, device) -> CompiledScene:
-    """A flattened reference CompiledScene whose array fields are numpy
-    -> this package's CompiledScene on `device`. The reference's 12-wide
-    quad-packed texels [L, H, W, 12] keep their first texel, [..., :3]."""
-    if ref.instanced:
-        raise ValueError("instanced scenes are not ported yet")
+    """A reference CompiledScene, flattened or instanced, whose array
+    fields are numpy -> this package's CompiledScene on `device`. The
+    reference's 12-wide quad-packed texels [L, H, W, 12] keep their first
+    texel, [..., :3]. Fields the port does not read (coef48, the refit
+    tables) stay behind."""
     return CompiledScene(
         **{k: _tensor(getattr(ref, k), device) for k in _TABLES},
         materials={k: _tensor(v, device) for k, v in ref.materials.items()},
@@ -38,7 +40,9 @@ def scene_from_reference(ref, device) -> CompiledScene:
         color_tex=_tensor(np.asarray(ref.color_tex)[..., :3], device),
         data_tex=_tensor(np.asarray(ref.data_tex)[..., :3], device),
         num_lights=int(ref.num_lights),
+        num_instances=int(ref.num_instances),
         tex_channels=frozenset(ref.tex_channels),
+        instanced=bool(ref.instanced),
     )
 
 

@@ -56,7 +56,8 @@ def render_gbuffer(scene, camera, width: int, height: int) -> dict:
     res = scene_trace(scene, ray_o, ray_d, T_MIN, T_MAX)
     valid = res["tri"] >= 0
 
-    h = reconstruct_hit(scene, res["tri"], ray_o, ray_d, res["t"])
+    h = reconstruct_hit(scene, res["tri"], ray_o, ray_d, res["t"],
+                        inst_id=res.get("inst"))
     mat = gather_material(scene, h["mat_id"])
     uv_u, uv_v = h["uv"]
 

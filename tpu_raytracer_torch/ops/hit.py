@@ -1,10 +1,12 @@
 """Hit-point reconstruction from triangle ids (restir.wgsl:383-441,
 gbuffer.wgsl:124-174; `tpu_raytracer/ops/hit.py`).
 
-The intersectors return only (t, tri). One row of the scene's shading
-table (world v0/e1/e2, per-vertex normals, uvs and tangents, material id)
-gives the exact barycentrics, facing and interpolated attributes. Rows
-are fetched with plain indexing.
+The intersectors return only (t, tri), and inst for an instanced scene.
+One row of the scene's shading table (v0/e1/e2, per-vertex normals, uvs
+and tangents, material id) gives the exact barycentrics, facing and
+interpolated attributes; an instanced scene's rows are object space and
+the instance's row maps them to world space. Rows are fetched with plain
+indexing.
 """
 
 from __future__ import annotations
@@ -21,9 +23,75 @@ def fetch_cols(table, idx):
     return list(rows.unbind(1))
 
 
-def reconstruct_hit(scene, tri_id, ray_o: V3, ray_d: V3, t):
+def _matvec9(cols, base: int, v: V3) -> V3:
+    """Per-lane 3x3 matvec: cols[base + k] are the row-major entries
+    ([R] each)."""
+    m = cols[base:base + 9]
+    return V3(m[0] * v.x + m[1] * v.y + m[2] * v.z,
+              m[3] * v.x + m[4] * v.y + m[5] * v.z,
+              m[6] * v.x + m[7] * v.y + m[8] * v.z)
+
+
+def _reconstruct_hit_instanced(scene, tri_id, inst_id, ray_o: V3,
+                               ray_d: V3, t):
+    """Instanced scene: tri_table rows are object space, shared across
+    instances; the winner's inst_table row (A^-1 | b | normal matrix |
+    det sign | mat_id) maps them. Barycentrics are recomputed in object
+    space (t is the same in both spaces: directions stay unnormalized
+    through the transform); normals and tangents interpolate in object
+    space and then go through the normal matrix."""
+    c = fetch_cols(scene.tri_table, torch.clamp(tri_id, min=0))
+    n_inst = scene.inst_table.shape[0]
+    ic = fetch_cols(scene.inst_table, torch.clamp(inst_id, 0, n_inst - 1))
+    o_obj = _matvec9(ic, 0, ray_o) + V3(ic[9], ic[10], ic[11])
+    d_obj = _matvec9(ic, 0, ray_d)
+
+    v0 = V3(c[26], c[27], c[28])
+    e1 = V3(c[29], c[30], c[31])
+    e2 = V3(c[32], c[33], c[34])
+    pvec = vec3.cross(d_obj, e2)
+    det = vec3.dot(e1, pvec)
+    det_ok = torch.abs(det) > 1e-9
+    inv_det = torch.where(det_ok, 1.0 / torch.where(det_ok, det, 1.0), 0.0)
+    tvec = o_obj - v0
+    u = vec3.dot(tvec, pvec) * inv_det
+    qvec = vec3.cross(tvec, e1)
+    v = vec3.dot(d_obj, qvec) * inv_det
+    front = det * ic[21] > 0.0
+    t = torch.where(det_ok, vec3.dot(e2, qvec) * inv_det, t)
+
+    w = 1.0 - u - v
+    n_obj = V3(c[0], c[1], c[2]) * w + V3(c[3], c[4], c[5]) * u \
+        + V3(c[6], c[7], c[8]) * v
+    normal = vec3.normalize(_matvec9(ic, 12, n_obj))
+    uv_u = c[9] * w + c[11] * u + c[13] * v
+    uv_v = c[10] * w + c[12] * u + c[14] * v
+    tg_obj = V3(c[15], c[16], c[17]) * w + V3(c[18], c[19], c[20]) * u \
+        + V3(c[21], c[22], c[23]) * v
+    tangent = vec3.normalize(_matvec9(ic, 12, tg_obj))
+
+    return {
+        "pos": ray_o + ray_d * t,
+        "normal": normal,
+        "ffnormal": vec3.where(front, normal, -normal),
+        "uv": (uv_u, uv_v),
+        "tangent": tangent,
+        "tangent_w": c[24],
+        "mat_id": ic[22].to(torch.int32),
+        "front": front,
+        "t": t,
+    }
+
+
+def reconstruct_hit(scene, tri_id, ray_o: V3, ray_d: V3, t, inst_id=None):
     """Returns dict: pos/normal/ffnormal/tangent V3, uv ([R], [R]),
-    tangent_w [R], mat_id [R] int32, front [R] bool, t [R] (exact)."""
+    tangent_w [R], mat_id [R] int32, front [R] bool, t [R] (exact).
+
+    inst_id: each lane's winning instance, required for an instanced
+    scene (tri_id is then an object triangle id)."""
+    if scene.instanced:
+        return _reconstruct_hit_instanced(scene, tri_id, inst_id, ray_o,
+                                          ray_d, t)
     c = fetch_cols(scene.tri_table, torch.clamp(tri_id, min=0))
 
     v0 = V3(c[26], c[27], c[28])

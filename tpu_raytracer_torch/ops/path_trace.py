@@ -123,9 +123,12 @@ def _shadow_only(scene, s_ray, r: int, device, num_lights: int):
         blocked = scene_occluded(scene, s_ray["origin"], s_ray["dir"],
                                  T_MIN, s_ray["t_max"],
                                  active=s_ray["active"])
-    return blocked, {
-        "t": torch.zeros((r,), dtype=torch.float32, device=device),
-        "tri": torch.full((r,), -1, dtype=torch.int32, device=device)}
+    miss = torch.full((r,), -1, dtype=torch.int32, device=device)
+    res = {"t": torch.zeros((r,), dtype=torch.float32, device=device),
+           "tri": miss}
+    if scene.instanced:
+        res["inst"] = miss
+    return blocked, res
 
 
 def _surface_color(scene, mat, uv_u, uv_v) -> V3:
@@ -238,7 +241,8 @@ def trace_path(scene, gb, view_pos, seed, active=None):
 
         ray_count = ray_count + active.to(torch.float32).sum()
         active = active & (res["tri"] >= 0)
-        h = reconstruct_hit(scene, res["tri"], origin, next_dir, res["t"])
+        h = reconstruct_hit(scene, res["tri"], origin, next_dir, res["t"],
+                            inst_id=res.get("inst"))
 
         # reconnection vertex (restir.wgsl:624-629)
         if depth == 1:

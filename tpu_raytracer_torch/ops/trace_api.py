@@ -1,18 +1,22 @@
 """Ray-scene queries: closest-hit (`scene_trace`) and occlusion
-(`scene_occluded`) over a flattened scene's triangle planes.
+(`scene_occluded`).
 
-Port of `tpu_raytracer/ops/trace_api.py`. Dispatch is by the rays'
-device and nothing else:
-  - CPU tensor: the plain PyTorch version, `trace_plain` (a chunked
-    exact-f32 Moller-Trumbore scan with a running arg-min, the twin of
-    the reference's `_trace_brute_xla`);
-  - CUDA tensor: kernel K1 (`tpurt_closest_hit`), or K2 (`tpurt_any_hit`)
-    for `any_hit=True`, from `csrc/trace.cu`. A CUDA tensor never takes
-    the plain version: the kernel launches or the call raises.
+Port of `tpu_raytracer/ops/trace_api.py`. Dispatch is by the scene's
+kind and the rays' device and nothing else:
+  - flattened scene, CPU tensor: the plain PyTorch version, `trace_plain`
+    (a chunked exact-f32 Moller-Trumbore scan with a running arg-min, the
+    twin of the reference's `_trace_brute_xla`);
+  - flattened scene, CUDA tensor: kernel K1 (`tpurt_closest_hit`), or K2
+    (`tpurt_any_hit`) for `any_hit=True`, from `csrc/trace.cu`;
+  - instanced scene: `ops/trace_inst.py`, the plain version on a CPU
+    tensor and kernel K4 on a CUDA tensor.
+A CUDA tensor never takes a plain version: the kernel launches or the
+call raises.
 
-Both paths return the reference's layout, {"t": [R] f32, "tri": [R] i32}:
-closest-hit gives (INF, -1) on a miss or a dead lane (t_max <= 0). K2
-returns tri = 1 / -1 and t = t_max, the TPU any-hit kernel's contract;
+Every path returns the reference's layout, {"t": [R] f32, "tri": [R]
+i32}, plus "inst": [R] i32 for an instanced scene: closest-hit gives
+(INF, -1) on a miss or a dead lane (t_max <= 0). The any-hit kernels
+return tri = 1 / -1 and t = t_max, the TPU any-hit kernels' contract;
 `scene_occluded` reads `tri >= 0` either way.
 """
 
@@ -35,7 +39,8 @@ DIR_EPS = 1e-12   # |d| below this is clamped before the slab test's 1/d
 
 # Launches of each kernel, counted where the wrapper launches it (and
 # nowhere else), so a run can show which kernels its main path reached.
-LAUNCHES = {"closest_hit": 0, "any_hit": 0}
+LAUNCHES = {"closest_hit": 0, "any_hit": 0, "inst_closest_hit": 0,
+            "inst_any_hit": 0}
 
 
 def reset_launch_counts() -> None:
@@ -99,14 +104,14 @@ def _dot(ax, ay, az, bx, by, bz):
 
 
 def slab_pass(box, o: V3, inv: V3, t_lo, t_hi):
-    """Conservative slab test of one chunk AABB [8] against each ray's
-    window (t_lo, t_hi), as K1 and K2 compute it. The box is padded by
-    1e-5 of its coordinates' magnitude (plus 1e-6), far above the rounding
-    of this test and of the intersection test, so a chunk holding a
-    triangle the exact test would accept is never culled (flat walls give
-    zero-thickness boxes)."""
+    """Conservative slab test of one AABB [8] (a chunk's, an instance's or
+    an object group's) against each ray's window (t_lo, t_hi), as the
+    kernels compute it. The box is padded by 1e-5 of its coordinates'
+    magnitude (plus 1e-6), far above the rounding of this test and of the
+    intersection test, so a box holding a triangle the exact test would
+    accept is never culled (flat walls give zero-thickness boxes)."""
     box = np.asarray(box, np.float32)   # f32 scalar math, as in the kernels
-    if not box[0] <= box[3]:             # empty chunk
+    if not box[0] <= box[3]:             # empty box
         return torch.zeros_like(t_lo, dtype=torch.bool)
     for k, (o_k, inv_k) in enumerate(zip(o, inv)):
         lo, hi = box[k], box[3 + k]
@@ -118,19 +123,58 @@ def slab_pass(box, o: V3, inv: V3, t_lo, t_hi):
     return t_lo <= t_hi
 
 
+def safe_inv(d: V3) -> V3:
+    """1/d per component, |d| clamped to DIR_EPS first (slab tests)."""
+    return V3(*(1.0 / torch.where(torch.abs(x) < DIR_EPS,
+                                  torch.where(x < 0.0, -DIR_EPS, DIR_EPS), x)
+                for x in d))
+
+
+def mt_argmin(tris, o: V3, d: V3, t_lo, t_hi, best):
+    """One Moller-Trumbore step: L rays against the N triangles of `tris`
+    ([4, 3, N] planes), each ray's hit kept only inside (t_lo, t_hi) and
+    below its running best. o/d hold [L] components; t_lo, t_hi, best
+    are [L]. Returns (t_new [L], k [L]): the nearest such hit and its
+    lane in `tris`, INF where there is none; an exact-t tie goes to the
+    lowest lane (argmin returns the first minimum).
+
+    The terms are those of the reference's `_trace_brute_xla`
+    (trace_api.py:74-85) with the multiply-adds that XLA:CPU fuses
+    written as explicit FMAs (`_cross`, `_dot`), so t matches the
+    reference's bit for bit, and with it every exact-t tie between
+    triangles that meet at an edge. The kernels compute the same
+    operations in the same order."""
+    ox, oy, oz = (x[:, None] for x in o)
+    dx, dy, dz = (x[:, None] for x in d)
+    t_lo, t_hi = t_lo[:, None], t_hi[:, None]
+    v0x, v0y, v0z = tris[0]
+    e1x, e1y, e1z = tris[1]
+    e2x, e2y, e2z = tris[2]
+    valid = tris[3, 0] > 0.5
+    px, py, pz = _cross(dx, dy, dz, e2x, e2y, e2z)
+    det = _dot(e1x, e1y, e1z, px, py, pz)
+    ok = torch.abs(det) > MT_EPS
+    inv_det = torch.where(ok, 1.0 / torch.where(ok, det, 1.0), 0.0)
+    tx, ty, tz = ox - v0x, oy - v0y, oz - v0z
+    u = _dot(tx, ty, tz, px, py, pz) * inv_det
+    qx, qy, qz = _cross(tx, ty, tz, e1x, e1y, e1z)
+    v = _dot(dx, dy, dz, qx, qy, qz) * inv_det
+    t = _dot(e2x, e2y, e2z, qx, qy, qz) * inv_det
+    hit = (ok & valid & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+           & (t > t_lo) & (t < t_hi) & (t < best[:, None]))
+    t_cand = torch.where(hit, t, INF)
+    k = torch.argmin(t_cand, dim=1)
+    return t_cand.gather(1, k[:, None]).squeeze(1), k
+
+
 def trace_plain(tri_planes, chunk_aabb, o: V3, d: V3, t_min, t_max):
     """Closest hit over all triangles: a scan over 128-triangle chunks with
-    a running arg-min. `t_max <= 0` marks a dead lane. Returns
-    {"t": [R] f32 (INF on a miss), "tri": [R] i32}.
+    a running arg-min (`mt_argmin`). `t_max <= 0` marks a dead lane.
+    Returns {"t": [R] f32 (INF on a miss), "tri": [R] i32}.
 
-    The Moller-Trumbore terms are those of the reference's
-    `_trace_brute_xla` (trace_api.py:74-85) with the multiply-adds that
-    XLA:CPU fuses written as explicit FMAs (`_cross`, `_dot`), so the port
-    reproduces the reference's t bit for bit and with it every exact-t
-    tie between triangles that meet at an edge. Each chunk is tested only
-    against the rays whose window passes its AABB (`slab_pass`), which
-    changes no result. K1 computes the same operations in the same
-    order."""
+    Each chunk is tested only against the rays whose window passes its
+    AABB (`slab_pass`), which changes no result. K1 computes the same
+    operations in the same order."""
     r = o.x.shape[0]
     device = o.x.device
     nc = tri_planes.shape[2] // CT
@@ -138,9 +182,7 @@ def trace_plain(tri_planes, chunk_aabb, o: V3, d: V3, t_min, t_max):
     boxes = chunk_aabb.cpu().tolist()
     t_best = torch.full((r,), INF, dtype=torch.float32, device=device)
     idx_best = torch.full((r,), -1, dtype=torch.int32, device=device)
-    inv = V3(*(1.0 / torch.where(torch.abs(x) < DIR_EPS,
-                                 torch.where(x < 0.0, -DIR_EPS, DIR_EPS), x)
-               for x in d))
+    inv = safe_inv(d)
     live = t_max > 0.0
     for c in range(nc):
         sel = live & slab_pass(boxes[c], o, inv, t_min,
@@ -148,29 +190,10 @@ def trace_plain(tri_planes, chunk_aabb, o: V3, d: V3, t_min, t_max):
         lanes = torch.nonzero(sel).squeeze(1)
         if lanes.numel() == 0:
             continue
-        ox, oy, oz = (x[lanes, None] for x in o)
-        dx, dy, dz = (x[lanes, None] for x in d)
-        t_lo, t_hi = t_min[lanes, None], t_max[lanes, None]
         best = t_best[lanes]
-        v0x, v0y, v0z = planes[0, :, c]
-        e1x, e1y, e1z = planes[1, :, c]
-        e2x, e2y, e2z = planes[2, :, c]
-        valid = planes[3, 0, c] > 0.5
-        px, py, pz = _cross(dx, dy, dz, e2x, e2y, e2z)
-        det = _dot(e1x, e1y, e1z, px, py, pz)
-        ok = torch.abs(det) > MT_EPS
-        inv_det = torch.where(ok, 1.0 / torch.where(ok, det, 1.0), 0.0)
-        tx, ty, tz = ox - v0x, oy - v0y, oz - v0z
-        u = _dot(tx, ty, tz, px, py, pz) * inv_det
-        qx, qy, qz = _cross(tx, ty, tz, e1x, e1y, e1z)
-        v = _dot(dx, dy, dz, qx, qy, qz) * inv_det
-        t = _dot(e2x, e2y, e2z, qx, qy, qz) * inv_det
-        hit = (ok & valid & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-               & (t > t_lo) & (t < t_hi) & (t < best[:, None]))
-        t_cand = torch.where(hit, t, INF)
-        # argmin returns the first minimum: ties go to the lowest id
-        k = torch.argmin(t_cand, dim=1)
-        t_new = t_cand.gather(1, k[:, None]).squeeze(1)
+        t_new, k = mt_argmin(planes[:, :, c], V3(*(x[lanes] for x in o)),
+                             V3(*(x[lanes] for x in d)), t_min[lanes],
+                             t_max[lanes], best)
         improved = t_new < best
         t_best[lanes] = torch.where(improved, t_new, best)
         idx_best[lanes] = torch.where(improved, (k + c * CT).to(torch.int32),
@@ -196,14 +219,20 @@ def _nvcc() -> str:
 
 
 def load_kernels() -> ctypes.CDLL:
-    """Build `csrc/trace.cu` with nvcc for sm_90a (at first use, cached by
-    source hash) and bind K1 and K2."""
-    lib = load_library("trace_kernels", [os.path.join(CSRC_DIR, "trace.cu")],
-                       [_nvcc(), *NVCC_FLAGS])
+    """Build the traversal kernels K1, K2 (`csrc/trace.cu`) and K4
+    (`csrc/trace_inst.cu`) into one library with one nvcc call for
+    sm_90a (at first use, cached by source hash) and bind them."""
+    lib = load_library(
+        "trace_kernels",
+        [os.path.join(CSRC_DIR, f) for f in ("trace.cu", "trace_inst.cu")],
+        [_nvcc(), *NVCC_FLAGS], headers=[os.path.join(CSRC_DIR, "mt.cuh")])
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.tpurt_closest_hit, lib.tpurt_any_hit):
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
-            ctypes.c_void_p] * 3
+        fn.restype = i32
+        fn.argtypes = [ptr] * 6 + [i32] * 2 + [ptr] * 3
+    for fn in (lib.tpurt_inst_closest_hit, lib.tpurt_inst_any_hit):
+        fn.restype = i32
+        fn.argtypes = [ptr] * 9 + [i32] * 3 + [ptr] * 4
     return lib
 
 
@@ -279,14 +308,27 @@ def scene_trace(scene, ray_o: V3, ray_d: V3, t_min, t_max, any_hit=False,
     t_max = _lanes(t_max, r, device)
     if active is not None:
         t_max = torch.where(active, t_max, 0.0)
-    if device.type == "cpu":
+    if scene.instanced:
+        # imported here: trace_inst builds on this module
+        from . import trace_inst
+        if device.type == "cpu":
+            return trace_inst.trace_instanced_plain(
+                scene.tri_planes, scene.obj_group_aabb, scene.inst_table,
+                scene.inst_aabb, scene.unit_inst, scene.unit_group, ray_o,
+                ray_d, t_min, t_max)
+    elif device.type == "cpu":
         return trace_plain(scene.tri_planes, scene.chunk_aabb, ray_o, ray_d,
                            t_min, t_max)
     o = torch.stack([ray_o.x, ray_o.y, ray_o.z])
     d = torch.stack([ray_d.x, ray_d.y, ray_d.z])
-    return trace_kernel(scene.tri_planes, scene.chunk_aabb, o, d,
-                        t_min.contiguous(), t_max.contiguous(),
-                        any_hit=any_hit)
+    t_min, t_max = t_min.contiguous(), t_max.contiguous()
+    if scene.instanced:
+        return trace_inst.trace_instanced_kernel(
+            scene.tri_planes, scene.obj_group_aabb, scene.inst_table,
+            scene.inst_aabb, scene.inst_group_span, o, d, t_min, t_max,
+            any_hit=any_hit)
+    return trace_kernel(scene.tri_planes, scene.chunk_aabb, o, d, t_min,
+                        t_max, any_hit=any_hit)
 
 
 def scene_occluded(scene, ray_o: V3, ray_d: V3, t_min, t_max, active=None):

@@ -1,0 +1,109 @@
+"""Where a frame's time goes on the card: wall time per frame, device
+kernel time by name, the device's busy share and the kernel launches
+the host issues.
+
+    python -m tpu_raytracer_torch.profile_frame --scene gallery
+
+Renders WARMUP frames at SIZE², times `--frames` frames between
+`torch.cuda.synchronize()` calls, then records the same number of frames
+under `torch.profiler` and prints one JSON line. The busy share is the
+profiled kernel time over the unprofiled wall time. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import torch
+
+from .models import scenes
+from .ops import trace_api
+from .render import camera, pipeline, renderer
+
+SIZE = 512        # the frame's width and height
+WARMUP = 3
+TOP = 8           # kernels listed, by device time
+
+# scene name -> builder in models/scenes.py, looked up when used
+SCENES = {"cornell": "create_cornell_box",
+          "gallery": "create_instancing_gallery_scene"}
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--scene", choices=sorted(SCENES), default="gallery")
+    p.add_argument("--frames", type=int, default=2)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_frame: no CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda:0")
+    scene = getattr(scenes, SCENES[args.scene])(dev)
+    cam = camera.CameraController()
+    w = h = SIZE
+    state = pipeline.init_state(w, h, dev)
+    frame = 0
+
+    def run(n):
+        nonlocal state, frame
+        for _ in range(n):
+            u = renderer.camera_to_device(
+                cam.uniform(w / h, frame, scene.num_lights), dev)
+            _, _, state, _ = pipeline.render_frame(
+                scene, u, frame, state, w, h, static_ok=frame > 0)
+            frame += 1
+        torch.cuda.synchronize()
+
+    run(WARMUP)
+    trace_api.reset_launch_counts()
+    t0 = time.time()
+    run(args.frames)
+    wall_ms = (time.time() - t0) * 1e3 / args.frames
+    traversal = {k: v / args.frames for k, v in trace_api.LAUNCHES.items()}
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.time()
+        run(args.frames)
+        prof_wall_ms = (time.time() - t0) * 1e3 / args.frames
+    avgs = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = sorted(((e.key, _device_us(e) / 1e3 / args.frames, e.count
+                       / args.frames) for e in avgs
+                      if e.device_type == cuda and _device_us(e) > 0),
+                     key=lambda k: -k[1])
+    device_ms = sum(k[1] for k in kernels)
+    launches = sum(e.count for e in avgs
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                "cudaLaunchKernelExC")) / args.frames
+    print(json.dumps({
+        "scene": args.scene, "size": SIZE, "card": card,
+        "wall_ms_per_frame": wall_ms,
+        "profiled_wall_ms_per_frame": prof_wall_ms,
+        "device_ms_per_frame": device_ms,
+        "device_busy_share": device_ms / wall_ms,
+        "host_launches_per_frame": launches,
+        "traversal_launches_per_frame": traversal,
+        "top_kernels_ms_per_frame": [
+            {"name": k[0][:80], "ms": k[1], "launches": k[2]}
+            for k in kernels[:TOP]],
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

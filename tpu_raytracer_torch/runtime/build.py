@@ -26,15 +26,16 @@ BUILD_LOGS: dict = {}
 
 
 def load_library(name: str, sources: list, command: list,
-                 timeout: float = 600.0) -> ctypes.CDLL:
+                 timeout: float = 600.0, headers=()) -> ctypes.CDLL:
     """Build (if needed) and load `name` from `sources` with `command`,
     a compiler invocation to which `-o <out> <sources>` is appended.
-    Raises if the compiler fails."""
+    `headers` are the files the sources include: they enter the hash,
+    not the command. Raises if the compiler fails."""
     with _lock:
         if name in _loaded:
             return _loaded[name]
         digest = hashlib.sha256(" ".join(command).encode())
-        for src in sources:
+        for src in [*sources, *headers]:
             with open(src, "rb") as f:
                 digest.update(f.read())
         out = os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")

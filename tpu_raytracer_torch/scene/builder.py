@@ -1,11 +1,13 @@
 """SceneBuilder: the scene-definition API (src/scene/builder.rs:23-589).
 
-Port of `tpu_raytracer/scene/builder.py`, flattened scenes only: every
-instance's triangles move to world space in one soup, the soup is
-reordered into BVH-DFS leaf order (spatially tight 128-triangle chunks,
-the kernels' cull granularity), and materials, lights and textures become
-tables. Host work is numpy, exactly as in the reference; `build` moves
-the result onto a torch device.
+Port of `tpu_raytracer/scene/builder.py`. A flattened build moves every
+instance's triangles to world space in one soup, reordered into BVH-DFS
+leaf order (spatially tight 128-triangle chunks, the kernels' cull
+granularity). An instanced build keeps one object-space block per mesh
+and each instance as a transform (`_build_instanced`). Either way
+materials, lights and textures become tables. Host work is numpy,
+exactly as in the reference; `build` moves the result onto a torch
+device.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 
 from ..ops import bvh as bvh_ops
 from ..ops.trace_api import pack_triangles
+from ..ops.trace_inst import GROUP, INST_COLS, pack_triangles_instanced
 from ..utils import math3d
 from . import light as light_mod
 from .geometry import Mesh
@@ -22,6 +25,13 @@ from .material import NO_TEXTURE, Material, pack_materials
 from .resources import CompiledScene
 
 TEXTURE_SIZE = 1024  # reference: scene/mod.rs TEXTURE_WIDTH/HEIGHT = 1024
+
+# The reference's routing caps, which its instancing="auto" rule reads
+# (tpu_raytracer/ops/trace_api.py:45, ops/pallas_trace.py:203): world
+# triangles beyond the swept path's cap, and object triangle slots within
+# its instanced kernel's VMEM-resident cap.
+BRUTE_FORCE_MAX_TRIS = 2 * 1024 * 1024
+MXUF_MAX_TP = 32 * 1024
 
 
 def _oct_decode_np(e: np.ndarray) -> np.ndarray:
@@ -146,10 +156,10 @@ class SceneBuilder:
         return (materials, mat_table, frozenset(channels), lights,
                 light_table)
 
-    def build(self, device) -> CompiledScene:
-        """Compile the scene onto `device` (builder.py:307-565 of the
-        reference, flattened branch)."""
-        # 1. per-mesh local triangles
+
+    def _local_triangles(self):
+        """Per-mesh object-space triangles, concatenated: (v0, e1, e2
+        [TL, 3], first row of each mesh)."""
         local_v0, local_e1, local_e2, mesh_tri_off = [], [], [], []
         t_off = 0
         for mesh in self.meshes:
@@ -160,9 +170,32 @@ class SceneBuilder:
             local_e1.append(p[tri[:, 1]] - p[tri[:, 0]])
             local_e2.append(p[tri[:, 2]] - p[tri[:, 0]])
             t_off += mesh.num_triangles
-        local_v0 = _cat(local_v0, 3)
-        local_e1 = _cat(local_e1, 3)
-        local_e2 = _cat(local_e2, 3)
+        return (_cat(local_v0, 3), _cat(local_e1, 3), _cat(local_e2, 3),
+                mesh_tri_off)
+
+    def build(self, device, instancing: str = "auto") -> CompiledScene:
+        """Compile the scene onto `device` (builder.py:255-565 of the
+        reference).
+
+        instancing: "auto" | "on" | "off", the reference's rule
+        (builder.py:282-305): "on" keeps one object-space block per mesh
+        and instances as transforms (`_build_instanced`); "auto" does so
+        only when flattening would pass the swept path's triangle cap
+        while the unique meshes stay within the instanced block's cap."""
+        if instancing not in ("auto", "on", "off"):
+            raise ValueError(f"instancing={instancing!r}")
+        t_world = sum(self.meshes[m].num_triangles
+                      for m, _, _ in self.instances)
+        used = sorted({m for m, _, _ in self.instances})
+        tp_obj = sum(max(-(-self.meshes[m].num_triangles // GROUP), 1)
+                     * GROUP for m in used)
+        if instancing == "on" or (
+                instancing == "auto" and t_world > BRUTE_FORCE_MAX_TRIS
+                and tp_obj <= MXUF_MAX_TP):
+            return self._build_instanced(device)
+
+        # 1. per-mesh local triangles
+        local_v0, local_e1, local_e2, mesh_tri_off = self._local_triangles()
 
         # 2. flatten instances to a world-space soup
         world_v0, world_e1, world_e2 = [], [], []
@@ -228,6 +261,114 @@ class SceneBuilder:
                                             np.float32))
         tri_table = np.concatenate([tri_table, geo], axis=1)
 
+        f, i = np.float32, np.int32
+        return self._compile(
+            device, instanced=False,
+            tri_planes=tri_planes,
+            chunk_aabb=chunk_aabb,
+            tri_table=tri_table.astype(f),
+            bvh_rec=tree.rec.astype(f),
+            bvh_skip=tree.skip.astype(i),
+            bvh_tri=tree.tri_id.astype(i),
+            # the instanced fields' empty forms (builder.py:774-786)
+            inst_table=np.zeros((0, INST_COLS), f),
+            inst_aabb=np.zeros((0, 8), f),
+            obj_group_aabb=np.zeros((8, 0), f),
+            inst_group_span=np.zeros((2, 0), i),
+            unit_inst=np.zeros((0,), i),
+            unit_group=np.zeros((0,), i))
+
+    def _build_instanced(self, device) -> CompiledScene:
+        """Two-level compile (builder.py:567-771 of the reference): one
+        object-space block per used mesh, padded to whole groups so no
+        group spans two meshes; per instance a world->object affine,
+        normal matrix, det sign and material (inst_table), a world AABB
+        and the span of its mesh's groups. Hits return (object tri,
+        instance); ops/hit.py maps the object-space attributes through
+        the instance's row."""
+        f, i = np.float32, np.int32
+        local_v0, local_e1, local_e2, mesh_tri_off = self._local_triangles()
+
+        # 1. object-space packing per used mesh: N instances of one mesh
+        # share its block
+        used = sorted({m for m, _, _ in self.instances})
+        slot = {m: k for k, m in enumerate(used)}
+        mesh_tris, obj_aabb_mesh = [], []
+        for m in used:
+            lo = mesh_tri_off[m]
+            nt = self.meshes[m].num_triangles
+            v0 = local_v0[lo:lo + nt]
+            e1 = local_e1[lo:lo + nt]
+            e2 = local_e2[lo:lo + nt]
+            mesh_tris.append((v0, e1, e2))
+            vs = np.concatenate([v0, v0 + e1, v0 + e2], axis=0)
+            obj_aabb_mesh.append((vs.min(axis=0), vs.max(axis=0)))
+        obj_planes, obj_gaabb, spans = pack_triangles_instanced(mesh_tris)
+
+        # 2. object-space shading rows [TpO, 35] at the padded offsets
+        # (object tri id = column of obj_planes); col 25 stays unused
+        tri_table = np.zeros((obj_planes.shape[2], 35), f)
+        for m in used:
+            off = int(spans[0, slot[m]]) * GROUP
+            lo = mesh_tri_off[m]
+            mesh = self.meshes[m]
+            nt = mesh.num_triangles
+            tri = mesh.indices.reshape(-1, 3).astype(np.int64)
+            n_obj = _oct_decode_np(mesh.oct_normals)
+            blk = tri_table[off:off + nt]
+            for k in range(3):
+                blk[:, k * 3:k * 3 + 3] = n_obj[tri[:, k]]
+                blk[:, 9 + k * 2:11 + k * 2] = mesh.uvs[tri[:, k]]
+                blk[:, 15 + k * 3:18 + k * 3] = mesh.tangents[tri[:, k], :3]
+            blk[:, 24] = mesh.tangents[tri[:, 0], 3]
+            blk[:, 26:29] = local_v0[lo:lo + nt]
+            blk[:, 29:32] = local_e1[lo:lo + nt]
+            blk[:, 32:35] = local_e2[lo:lo + nt]
+
+        # 3. per-instance rows, in f64 and stored as f32
+        n_inst = len(self.instances)
+        inst_table = np.zeros((max(n_inst, 1), INST_COLS), f)
+        inst_aabb = np.zeros((max(n_inst, 1), 8), f)
+        inst_span = np.zeros((2, max(n_inst, 1)), i)
+        unit_inst, unit_group = [], []
+        for inst_id, (mesh_id, mat_id, tf) in enumerate(self.instances):
+            a = tf[:3, :3].astype(np.float64)
+            t = tf[:3, 3].astype(np.float64)
+            a_inv = np.linalg.inv(a)
+            inst_table[inst_id, 0:9] = a_inv.reshape(-1)
+            inst_table[inst_id, 9:12] = -(a_inv @ t)
+            # world n = inv(A)^T @ object n
+            inst_table[inst_id, 12:21] = a_inv.T.reshape(-1)
+            inst_table[inst_id, 21] = np.sign(np.linalg.det(a)) or 1.0
+            inst_table[inst_id, 22] = mat_id
+            mn, mx = obj_aabb_mesh[slot[mesh_id]]
+            c_w = a @ ((mn + mx) * 0.5) + t
+            e_w = np.abs(a) @ ((mx - mn) * 0.5)
+            inst_aabb[inst_id, 0:3] = c_w - e_w
+            inst_aabb[inst_id, 3:6] = c_w + e_w
+            base_g, ng = (int(x) for x in spans[:, slot[mesh_id]])
+            inst_span[:, inst_id] = base_g, ng
+            unit_inst.extend([inst_id] * ng)
+            unit_group.extend(range(base_g, base_g + ng))
+
+        return self._compile(
+            device, instanced=True,
+            tri_planes=obj_planes,
+            chunk_aabb=np.zeros((1, 8), f),      # flattened only
+            tri_table=tri_table,
+            bvh_rec=np.zeros((1, 12), f),        # no world BVH: culling
+            bvh_skip=np.full((1,), -1, i),       # is per instance and
+            bvh_tri=np.zeros((1,), i),           # per object group
+            inst_table=inst_table,
+            inst_aabb=inst_aabb,
+            obj_group_aabb=obj_gaabb,
+            inst_group_span=inst_span,
+            unit_inst=np.asarray(unit_inst, i),
+            unit_group=np.asarray(unit_group, i))
+
+    def _compile(self, device, instanced: bool, **arrays) -> CompiledScene:
+        """Move the geometry `arrays` and the material, light and texture
+        tables onto `device`."""
         materials, mat_table, tex_channels, lights, light_table = \
             self._pack_tables()
 
@@ -241,18 +382,15 @@ class SceneBuilder:
             return dev(np.stack(images).astype(np.float32), torch.bfloat16)
 
         return CompiledScene(
-            tri_planes=dev(tri_planes),
-            chunk_aabb=dev(chunk_aabb),
-            tri_table=dev(tri_table.astype(np.float32)),
+            **{k: dev(v) for k, v in arrays.items()},
             mat_table=dev(mat_table),
             light_table=dev(light_table),
-            bvh_rec=dev(tree.rec.astype(np.float32)),
-            bvh_skip=dev(tree.skip.astype(np.int32)),
-            bvh_tri=dev(tree.tri_id.astype(np.int32)),
             materials={k: dev(v) for k, v in materials.items()},
             lights={k: dev(v) for k, v in lights.items()},
             color_tex=texels(self.color_textures),
             data_tex=texels(self.data_textures),
             num_lights=len(self.lights),
+            num_instances=len(self.instances),
             tex_channels=tex_channels,
+            instanced=instanced,
         )

@@ -83,3 +83,23 @@ def rotation_z(angle: float) -> np.ndarray:
 def transform_vector(m: np.ndarray, v):
     v = np.asarray(v, dtype=np.float32)
     return m[:3, :3] @ v
+
+
+def hsv_to_rgb(h: float, s: float, v: float):
+    """scenes.rs:226-246 (sector-based)."""
+    c = v * s
+    x = c * (1.0 - abs((h * 6.0) % 2.0 - 1.0))
+    m = v - c
+    if h < 1.0 / 6.0:
+        r, g, b = c, x, 0.0
+    elif h < 2.0 / 6.0:
+        r, g, b = x, c, 0.0
+    elif h < 3.0 / 6.0:
+        r, g, b = 0.0, c, x
+    elif h < 4.0 / 6.0:
+        r, g, b = 0.0, x, c
+    elif h < 5.0 / 6.0:
+        r, g, b = x, 0.0, c
+    else:
+        r, g, b = c, 0.0, x
+    return [r + m, g + m, b + m]
