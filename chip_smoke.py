@@ -7,21 +7,23 @@ Phases (each prints one line; any failed check raises, so the exit code
 is non-zero):
   1. device   - a CUDA device is required; prints its name and power
                 limit as nvidia-smi reports them.
-  2. build    - builds kernels K1 (closest-hit), K2 (any-hit) and K4
-                (instanced closest- and any-hit) from
-                tpu_raytracer_torch/csrc/{trace,trace_inst}.cu with one
-                nvcc call for sm_90a.
+  2. build    - builds kernels K1 (closest-hit), K2 (any-hit), K3
+                (streamed closest- and any-hit) and K4 (instanced closest-
+                and any-hit) from tpu_raytracer_torch/csrc/{trace,
+                trace_stream,trace_inst}.cu with one nvcc call for sm_90a.
   3. K1       - against its plain PyTorch version on the card: Cornell
                 512^2 primary rays and 524,288 random rays (random t_max,
                 30% dead lanes). tri equal on every lane, t within T_ULPS.
   4. K2       - against plain closest-hit `tri >= 0` on the random rays.
   5. frame    - the Cornell ReSTIR frame at 512^2 through render_frame:
                 2 warm-up + 8 timed frames (static_ok from the second
-                frame on), launch counts (K1 and K2 launched, K4 not),
-                fps, Mrays/s, and K1/K2 against plain at 262,144 and
+                frame on), launch counts (K1 and K2 launched, K3 and K4
+                not), fps, Mrays/s, and K1/K2 against plain at 262,144 and
                 524,288 rays.
   6. golden   - 8 frames of the 64^2 Cornell box against
-                tests/golden/cornell_64_f8_ldr.npy, PSNR >= GOLDEN_DB.
+                tests/golden/cornell_64_f8_ldr.npy and 4 frames of the 48^2
+                restir scene (100 sphere lights) against
+                tests/golden/restir_48_f4_ldr.npy, PSNR >= GOLDEN_DB.
   7. K4       - the instanced gallery at full width (100 icospheres of
                 5,120 triangles, 512,004 world triangles) against the
                 plain instanced trace: 512^2 primary rays and 524,288
@@ -32,8 +34,23 @@ is non-zero):
                 2 warm-up + 4 timed frames, both K4 entry points launched
                 and neither K1 nor K2; fps, Mrays/s; K4 against plain at
                 262,144 and 524,288 random rays.
+  9. K3       - the dense knot (bench.py config 6: 100,804 world
+                triangles in 100,864 slots, loaded from the generated .glb
+                through the glTF loader) against the plain versions: 512^2
+                primary rays and 524,288 random rays in the knot's box
+                (random t_max, 30% dead). Closest-hit tri equal on every
+                lane and t within T_ULPS against the streamed twin and the
+                chunk scan; any-hit occlusion equal, t = t_max. K1 is
+                timed on the same rays and scene beside K3 (a check of
+                STREAM_MIN_TP on this card, not a yardstick).
+ 10. knot     - the knot's ReSTIR frame at 512^2: 2 warm-up + 4 timed
+                frames, both K3 entry points launched and none of K1, K2
+                and K4; fps, Mrays/s.
+ 11. bunny    - the bunny scene's (config 3, 15,372 triangles) frame at
+                512^2: 2 warm-up + 4 timed frames, K1 and K2 launched,
+                neither K3 nor K4.
 Then one JSON line of per-kernel results (time, plain time and bound at
-524,288 random rays; launches on each kernel's frame), and last the
+524,288 random rays; launches on each kernel's frames), and last the
 device line {"ok": true, "device": {...}}. Without a CUDA device it exits
 with 1 and prints no result.
 
@@ -43,7 +60,9 @@ csrc/mt.cuh:intersect with an FMA as 2) in every chunk or group whose
 box the ray's final window (t_min, t_hit or t_max) passes, one test per
 occluded any-hit ray, and for K4 one transform (XFORM_FLOPS) per ray and
 instance box passed, at FP32_PEAK; or each input read once and each
-output written once at HBM_PEAK, whichever is longer.
+output written once at HBM_PEAK, whichever is longer. K3 does the
+work K1 does (its worklist, sort and exit only skip work), so both take
+the same bound.
 """
 
 import json
@@ -57,7 +76,8 @@ import numpy as np
 T_ULPS = 2          # K1/K4 t against plain; measured 0 on the CPU twins
 GOLDEN_DB = 38.0
 WARMUP, TIMED = 2, 8
-GALLERY_WARMUP, GALLERY_TIMED = 2, 4
+GALLERY_WARMUP, GALLERY_TIMED = 2, 4   # also the knot and bunny frames
+KNOT_TRIANGLES = 100804   # 420 x 120 x 2 knot + floor + light quads
 WIDTH = HEIGHT = 512
 RANDOM_RAYS = 524288
 TIMED_RAYS = (262144, 524288)
@@ -80,8 +100,9 @@ def _card() -> str:
 
 def _random_rays(torch, n, device, seed=0, lo=-0.95, hi=0.95, y=None,
                  t_far=3.0):
-    """Origins uniform in [lo, hi]^3 (y in `y` if given), unit directions,
-    t_max uniform in (0.01, t_far), 30% dead lanes (t_max = 0)."""
+    """Origins uniform in [lo, hi]^3 (lo and hi scalars, or [3, 1] arrays
+    for a box; y in `y` if given), unit directions, t_max uniform in
+    (0.01, t_far), 30% dead lanes (t_max = 0)."""
     g = np.random.default_rng(seed)
     o = g.uniform(lo, hi, (3, n)).astype(np.float32)
     if y is not None:
@@ -109,6 +130,19 @@ def _time_ms(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _time_once(torch, fn):
+    """(fn(), its device time in ms) for one call that is slow enough
+    to time alone."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def _nbytes(*tensors):
@@ -180,6 +214,90 @@ def _inst_tests(torch, trace_api, trace_inst, scene, o, d, t_min, t_hi):
     return tests, transforms
 
 
+def _run_frames(torch, scene, dev, warmup, timed, name, on, off):
+    """The main path: `warmup` + `timed` ReSTIR frames of `scene` at
+    WIDTH x HEIGHT through render_frame (static_ok from the second frame
+    on), with the launch counts set to 0 just before. Checks the output
+    and that the kernels `on` launched and those `off` did not. Returns
+    (seconds of the timed frames, rays per timed frame, launches)."""
+    from tpu_raytracer_torch.ops import trace_api
+    from tpu_raytracer_torch.render import camera, pipeline, renderer
+
+    cam = camera.CameraController()
+    state = pipeline.init_state(WIDTH, HEIGHT, dev)
+    trace_api.reset_launch_counts()
+    rays = []
+    for i in range(warmup + timed):
+        uniform = renderer.camera_to_device(
+            cam.uniform(WIDTH / HEIGHT, i, scene.num_lights), dev)
+        ldr, hdr, state, aux = pipeline.render_frame(
+            scene, uniform, i, state, WIDTH, HEIGHT, static_ok=i > 0)
+        if i == warmup - 1:
+            torch.cuda.synchronize()
+            t0 = time.time()
+        elif i >= warmup:
+            rays.append(aux["rays"])
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = dict(trace_api.LAUNCHES)
+    if min(launches[k] for k in on) <= 0 or any(launches[k] for k in off):
+        raise AssertionError(f"the {name} frame must launch {on} and none "
+                             f"of {off}: {launches}")
+    if not (torch.isfinite(ldr).all() and ldr.min() >= 0
+            and ldr.max() <= 1):
+        raise AssertionError(f"{name} ldr is not finite in [0, 1]")
+    if not torch.isfinite(hdr).all():
+        raise AssertionError(f"{name} hdr is not finite")
+    rays = [float(r) for r in rays]
+    if min(rays) <= 0:
+        raise AssertionError(f"{name} aux['rays'] is not positive")
+    return dt, rays, launches
+
+
+def _frame_line(what, timed, dt, rays, launches, card):
+    total = sum(rays)
+    return (f"{what} {WIDTH}x{HEIGHT}, {timed} timed frames: "
+            f"{timed / dt:.4f} fps, {total / dt / 1e6:.4f} Mrays/s, "
+            f"{dt / timed * 1e3:.2f} ms/frame, {total / timed:.0f} "
+            f"rays/frame; launches {launches} [{card}]")
+
+
+def _golden_psnr(torch, scene, dev, size, frames, path):
+    """PSNR of `frames` frames at size^2 against the golden LDR image."""
+    from tpu_raytracer_torch.render import camera, pipeline, renderer
+
+    golden = np.load(path).astype(np.float32)
+    cam = camera.CameraController()
+    state = pipeline.init_state(size, size, dev)
+    for f in range(frames):
+        u = renderer.camera_to_device(cam.uniform(1.0, f, scene.num_lights),
+                                      dev)
+        ldr, _, state, _ = pipeline.render_frame(scene, u, f, state, size,
+                                                 size)
+    mse = float(np.mean((ldr.cpu().numpy().astype(np.float64)
+                         - golden) ** 2))
+    psnr = float("inf") if mse <= 0 else 10.0 * np.log10(1.0 / mse)
+    if not psnr >= GOLDEN_DB:
+        raise AssertionError(f"golden {os.path.basename(path)}: PSNR "
+                             f"{psnr:.2f} dB < {GOLDEN_DB}")
+    return psnr
+
+
+def _check_closest(name, got, want, hit_keys=("tri",)):
+    """Raise unless `got` has `want`'s hit keys on every lane and t within
+    T_ULPS; returns (max ulps, max |dt| on hit lanes, hit share)."""
+    for key in hit_keys:
+        bad = int((got[key] != want[key]).sum())
+        if bad:
+            raise AssertionError(f"{name}: {key} differs on {bad} lanes")
+    g_t, w_t = got["t"].cpu().numpy(), want["t"].cpu().numpy()
+    hit = want["tri"].cpu().numpy() >= 0
+    ulps = int(np.abs(_ulps(g_t, w_t)).max())
+    if ulps > T_ULPS:
+        raise AssertionError(f"{name}: t differs by {ulps} ulps")
+    return ulps, float(np.abs(g_t - w_t)[hit].max(initial=0)), hit.mean()
+
+
 def main() -> int:
     import torch
 
@@ -194,25 +312,35 @@ def main() -> int:
 
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
-    from tpu_raytracer_torch.models import scenes
-    from tpu_raytracer_torch.ops import gbuffer, trace_api, trace_inst
-    from tpu_raytracer_torch.render import camera, pipeline, renderer
+    from tpu_raytracer_torch.models import dense_asset, scenes
+    from tpu_raytracer_torch.ops import (gbuffer, trace_api, trace_inst,
+                                         trace_stream)
+    from tpu_raytracer_torch.render import camera, renderer
     from tpu_raytracer_torch.runtime.build import BUILD_LOGS
     from tpu_raytracer_torch.utils.vec3 import V3
+
+    flat_kernels = ["closest_hit", "any_hit"]
+    stream_kernels = ["stream_closest_hit", "stream_any_hit"]
+    inst_kernels = ["inst_closest_hit", "inst_any_hit"]
 
     # 2. build
     t0 = time.time()
     trace_api.load_kernels()
     ptxas = [ln.strip() for ln in BUILD_LOGS.get("trace_kernels", "")
              .splitlines() if "registers" in ln or "Compiling entry" in ln]
-    print(f"build: K1+K2+K4 from csrc/trace.cu and csrc/trace_inst.cu in "
-          f"{time.time() - t0:.2f} s (one nvcc call, sm_90a); ptxas: "
-          f"{' | '.join(ptxas) or 'cached'}", flush=True)
+    print(f"build: K1+K2+K3+K4 from csrc/trace.cu, csrc/trace_stream.cu and "
+          f"csrc/trace_inst.cu in {time.time() - t0:.2f} s (one nvcc call, "
+          f"sm_90a); ptxas: {' | '.join(ptxas) or 'cached'}", flush=True)
 
     scene = scenes.create_cornell_box(dev)
     cam = camera.CameraController()
-    uniform = renderer.camera_to_device(
-        cam.uniform(WIDTH / HEIGHT, 0, scene.num_lights), dev)
+
+    def primary_rays(s):
+        uniform = renderer.camera_to_device(
+            cam.uniform(WIDTH / HEIGHT, 0, s.num_lights), dev)
+        po, pd = gbuffer.generate_primary_rays(uniform, WIDTH, HEIGHT)
+        return (torch.stack(list(po)).contiguous(),
+                torch.stack(list(pd)).contiguous())
 
     def kernel(o, d, t_min, t_max, any_hit=False):
         return trace_api.trace_kernel(scene.tri_planes, scene.chunk_aabb,
@@ -223,9 +351,7 @@ def main() -> int:
                                      V3(*o), V3(*d), t_min, t_max)
 
     # 3. K1 against plain
-    po, pd = gbuffer.generate_primary_rays(uniform, WIDTH, HEIGHT)
-    primary = (torch.stack(list(po)).contiguous(),
-               torch.stack(list(pd)).contiguous())
+    primary = primary_rays(scene)
     n_p = primary[0].shape[1]
     p_win = (torch.full((n_p,), 1e-3, device=dev),
              torch.full((n_p,), 1000.0, device=dev))
@@ -239,16 +365,8 @@ def main() -> int:
         got = kernel(o, d, t_min, t_max)
         want = r_plain if o is ro else plain(o, d, t_min, t_max)
         torch.cuda.synchronize()
-        g_tri, w_tri = got["tri"].cpu().numpy(), want["tri"].cpu().numpy()
-        g_t, w_t = got["t"].cpu().numpy(), want["t"].cpu().numpy()
-        bad = int((g_tri != w_tri).sum())
-        if bad:
-            raise AssertionError(f"K1 {name}: tri differs on {bad} lanes")
-        hit = w_tri >= 0
-        k1_ulps = max(k1_ulps, int(np.abs(_ulps(g_t, w_t)).max()))
-        k1_err = max(k1_err, float(np.abs(g_t - w_t)[hit].max(initial=0)))
-        if k1_ulps > T_ULPS:
-            raise AssertionError(f"K1 {name}: t differs by {k1_ulps} ulps")
+        ulps, err, _ = _check_closest(f"K1 {name}", got, want)
+        k1_ulps, k1_err = max(k1_ulps, ulps), max(k1_err, err)
     print(f"K1: closest-hit equals plain on {n_p} primary + {RANDOM_RAYS} "
           f"random rays: tri equal on every lane, t max {k1_ulps} ulps "
           f"(bound {T_ULPS}), max |dt| {k1_err:.3g}", flush=True)
@@ -267,40 +385,12 @@ def main() -> int:
           f"windowed rays ({float(want.float().mean()):.3f} occluded)",
           flush=True)
 
-    # 5. frame: the main path
-    state = pipeline.init_state(WIDTH, HEIGHT, dev)
-    trace_api.reset_launch_counts()
-    rays = []
-    for i in range(WARMUP + TIMED):
-        uniform = renderer.camera_to_device(
-            cam.uniform(WIDTH / HEIGHT, i, scene.num_lights), dev)
-        ldr, hdr, state, aux = pipeline.render_frame(
-            scene, uniform, i, state, WIDTH, HEIGHT, static_ok=i > 0)
-        if i == WARMUP - 1:
-            torch.cuda.synchronize()
-            t0 = time.time()
-        elif i >= WARMUP:
-            rays.append(aux["rays"])
-    torch.cuda.synchronize()
-    dt = time.time() - t0
-    launches = dict(trace_api.LAUNCHES)
-    if min(launches["closest_hit"], launches["any_hit"]) <= 0 or \
-            launches["inst_closest_hit"] or launches["inst_any_hit"]:
-        raise AssertionError(f"the Cornell frame must launch K1 and K2 and "
-                             f"not K4: {launches}")
-    if not (torch.isfinite(ldr).all() and ldr.min() >= 0
-            and ldr.max() <= 1):
-        raise AssertionError("ldr is not finite in [0, 1]")
-    if not torch.isfinite(hdr).all():
-        raise AssertionError("hdr is not finite")
-    total_rays = float(sum(float(r) for r in rays))
-    if min(float(r) for r in rays) <= 0:
-        raise AssertionError("aux['rays'] is not positive")
-    fps = TIMED / dt
-    print(f"frame: Cornell ReSTIR {WIDTH}x{HEIGHT}, {TIMED} timed frames: "
-          f"{fps:.4f} fps, {total_rays / dt / 1e6:.4f} Mrays/s, "
-          f"{dt / TIMED * 1e3:.2f} ms/frame, {total_rays / TIMED:.0f} "
-          f"rays/frame; launches {launches} [{card}]", flush=True)
+    # 5. frame: the Cornell path
+    dt, rays, launches = _run_frames(torch, scene, dev, WARMUP, TIMED,
+                                     "Cornell", on=flat_kernels,
+                                     off=stream_kernels + inst_kernels)
+    print("frame: " + _frame_line("Cornell ReSTIR", TIMED, dt, rays,
+                                  launches, card), flush=True)
 
     timings = {}
     for n in TIMED_RAYS:
@@ -333,23 +423,17 @@ def main() -> int:
           f"{k2_bound[0]:.4f} ms ({k2_bound[1]})", flush=True)
 
     # 6. golden
-    golden = np.load(os.path.join(root, "tests", "golden",
-                                  "cornell_64_f8_ldr.npy")).astype(np.float32)
-    gcam = camera.CameraController()
-    gstate = pipeline.init_state(64, 64, dev)
-    for f in range(8):
-        u = renderer.camera_to_device(
-            gcam.uniform(1.0, f, scene.num_lights), dev)
-        gldr, _, gstate, _ = pipeline.render_frame(scene, u, f, gstate,
-                                                   64, 64)
-    mse = float(np.mean((gldr.cpu().numpy().astype(np.float64)
-                         - golden) ** 2))
-    psnr = float("inf") if mse <= 0 else 10.0 * np.log10(1.0 / mse)
-    if not psnr >= GOLDEN_DB:
-        raise AssertionError(f"golden PSNR {psnr:.2f} dB < {GOLDEN_DB}")
+    golden_dir = os.path.join(root, "tests", "golden")
+    psnr = _golden_psnr(torch, scene, dev, 64, 8,
+                        os.path.join(golden_dir, "cornell_64_f8_ldr.npy"))
+    restir = scenes.create_restir_scene(dev)
+    r_psnr = _golden_psnr(torch, restir, dev, 48, 4,
+                          os.path.join(golden_dir, "restir_48_f4_ldr.npy"))
     print(f"golden: 64x64 Cornell, 8 frames: PSNR {psnr:.2f} dB vs "
-          f"tests/golden/cornell_64_f8_ldr.npy (floor {GOLDEN_DB})",
-          flush=True)
+          f"tests/golden/cornell_64_f8_ldr.npy; 48x48 restir ({restir.num_lights} "
+          f"lights, {restir.num_triangles} triangles), 4 frames: PSNR "
+          f"{r_psnr:.2f} dB vs tests/golden/restir_48_f4_ldr.npy (floor "
+          f"{GOLDEN_DB})", flush=True)
 
     # 7. K4 against plain on the full-width gallery
     t0 = time.time()
@@ -371,11 +455,7 @@ def main() -> int:
             gal.inst_aabb, gal.unit_inst, gal.unit_group, V3(*o), V3(*d),
             t_min, t_max)
 
-    uniform = renderer.camera_to_device(
-        cam.uniform(WIDTH / HEIGHT, 0, gal.num_lights), dev)
-    po, pd = gbuffer.generate_primary_rays(uniform, WIDTH, HEIGHT)
-    g_primary = (torch.stack(list(po)).contiguous(),
-                 torch.stack(list(pd)).contiguous())
+    g_primary = primary_rays(gal)
     go, gd, gt_max = _random_rays(torch, RANDOM_RAYS, dev, seed=1, lo=-7.0,
                                   hi=7.0, y=(-0.9, 3.0), t_far=20.0)
     g_plain = k4_plain(go, gd, r_tmin, gt_max)
@@ -386,19 +466,11 @@ def main() -> int:
         got = k4(o, d, t_min, t_max)
         want = g_plain if o is go else k4_plain(o, d, t_min, t_max)
         torch.cuda.synchronize()
-        for key in ("tri", "inst"):
-            bad = int((got[key] != want[key]).sum())
-            if bad:
-                raise AssertionError(f"K4 {name}: {key} differs on {bad} "
-                                     f"lanes")
-        g_t, w_t = got["t"].cpu().numpy(), want["t"].cpu().numpy()
-        hit = want["tri"].cpu().numpy() >= 0
-        k4_ulps = max(k4_ulps, int(np.abs(_ulps(g_t, w_t)).max()))
-        k4_err = max(k4_err, float(np.abs(g_t - w_t)[hit].max(initial=0)))
-        if k4_ulps > T_ULPS:
-            raise AssertionError(f"K4 {name}: t differs by {k4_ulps} ulps")
+        ulps, err, hit = _check_closest(f"K4 {name}", got, want,
+                                        ("tri", "inst"))
+        k4_ulps, k4_err = max(k4_ulps, ulps), max(k4_err, err)
         print(f"K4: closest-hit equals plain on the gallery's {name} rays "
-              f"({hit.mean():.3f} hit): tri and inst equal on every lane, "
+              f"({hit:.3f} hit): tri and inst equal on every lane, "
               f"t max {k4_ulps} ulps (bound {T_ULPS}), max |dt| "
               f"{k4_err:.3g}", flush=True)
     got = k4(go, gd, r_tmin, gt_max, any_hit=True)
@@ -419,40 +491,12 @@ def main() -> int:
           f"occluded)", flush=True)
 
     # 8. gallery frame: the instanced path
-    g_state = pipeline.init_state(WIDTH, HEIGHT, dev)
-    trace_api.reset_launch_counts()
-    rays = []
-    for i in range(GALLERY_WARMUP + GALLERY_TIMED):
-        uniform = renderer.camera_to_device(
-            cam.uniform(WIDTH / HEIGHT, i, gal.num_lights), dev)
-        ldr, hdr, g_state, aux = pipeline.render_frame(
-            gal, uniform, i, g_state, WIDTH, HEIGHT, static_ok=i > 0)
-        if i == GALLERY_WARMUP - 1:
-            torch.cuda.synchronize()
-            t0 = time.time()
-        elif i >= GALLERY_WARMUP:
-            rays.append(aux["rays"])
-    torch.cuda.synchronize()
-    dt = time.time() - t0
-    g_launches = dict(trace_api.LAUNCHES)
-    if min(g_launches["inst_closest_hit"], g_launches["inst_any_hit"]) <= 0 \
-            or g_launches["closest_hit"] or g_launches["any_hit"]:
-        raise AssertionError(f"the gallery frame must launch both K4 entry "
-                             f"points and neither K1 nor K2: {g_launches}")
-    if not (torch.isfinite(ldr).all() and ldr.min() >= 0
-            and ldr.max() <= 1):
-        raise AssertionError("gallery ldr is not finite in [0, 1]")
-    if not torch.isfinite(hdr).all():
-        raise AssertionError("gallery hdr is not finite")
-    if min(float(r) for r in rays) <= 0:
-        raise AssertionError("gallery aux['rays'] is not positive")
-    total_rays = float(sum(float(r) for r in rays))
-    print(f"gallery frame: instanced ReSTIR {WIDTH}x{HEIGHT}, "
-          f"{GALLERY_TIMED} timed frames: {GALLERY_TIMED / dt:.4f} fps, "
-          f"{total_rays / dt / 1e6:.4f} Mrays/s, "
-          f"{dt / GALLERY_TIMED * 1e3:.2f} ms/frame, "
-          f"{total_rays / GALLERY_TIMED:.0f} rays/frame; launches "
-          f"{g_launches} [{card}]", flush=True)
+    dt, rays, g_launches = _run_frames(
+        torch, gal, dev, GALLERY_WARMUP, GALLERY_TIMED, "gallery",
+        on=inst_kernels, off=flat_kernels + stream_kernels)
+    print("gallery frame: " + _frame_line("instanced ReSTIR", GALLERY_TIMED,
+                                          dt, rays, g_launches, card),
+          flush=True)
 
     for n in TIMED_RAYS:
         o, d, t_min, t_max = go[:, :n], gd[:, :n], r_tmin[:n], gt_max[:n]
@@ -482,6 +526,131 @@ def main() -> int:
           f"tests + {k4_xf} transforms, {k4_bound[0]:.4f} ms "
           f"({k4_bound[1]}); K4 any {k4a_tests} tests + {k4a_xf} "
           f"transforms, {k4a_bound[0]:.4f} ms ({k4a_bound[1]})", flush=True)
+    del gal, g_plain, go, gd, gt_max
+
+    # 9. K3 against the plain versions on the full-width knot
+    t0 = time.time()
+    knot = scenes.create_dense_knot_scene(dev)
+    if knot.num_triangles != KNOT_TRIANGLES:
+        raise AssertionError(f"the knot scene holds {knot.num_triangles} "
+                             f"world triangles, not {KNOT_TRIANGLES}: did "
+                             f"the .glb load?")
+    tp = knot.tri_planes.shape[2]
+    grp, units = trace_stream.stream_units(tp // trace_api.CT)
+    print(f"knot: {knot.num_triangles} world triangles in {tp} slots "
+          f"(> STREAM_MIN_TP {trace_api.STREAM_MIN_TP}: K3's route), "
+          f"{units} units of {grp} chunk(s), textures "
+          f"{sorted(knot.tex_channels)}, built in {time.time() - t0:.2f} s",
+          flush=True)
+
+    def k3(o, d, t_min, t_max, any_hit=False):
+        return trace_stream.trace_stream_kernel(
+            knot.tri_planes, knot.chunk_aabb, o, d, t_min, t_max,
+            any_hit=any_hit)
+
+    def k3_plain(o, d, t_min, t_max, any_hit=False):
+        return trace_stream.trace_stream_plain(
+            knot.tri_planes, knot.chunk_aabb, V3(*o), V3(*d), t_min, t_max,
+            any_hit=any_hit)
+
+    def knot_scan(o, d, t_min, t_max):
+        return trace_api.trace_plain(knot.tri_planes, knot.chunk_aabb,
+                                     V3(*o), V3(*d), t_min, t_max)
+
+    def k1_knot(o, d, t_min, t_max, any_hit=False):
+        return trace_api.trace_kernel(knot.tri_planes, knot.chunk_aabb, o, d,
+                                      t_min, t_max, any_hit=any_hit)
+
+    k_primary = primary_rays(knot)
+    pos = dense_asset.knot_mesh()[0] * 1.1 + np.float32([0.0, 1.2, 0.0])
+    lo, hi = pos.min(0)[:, None], pos.max(0)[:, None]
+    ko, kd, kt_max = _random_rays(torch, RANDOM_RAYS, dev, seed=2, lo=lo,
+                                  hi=hi, t_far=float(np.linalg.norm(hi - lo)))
+    k3_plain_r, k3_plain_ms = _time_once(
+        torch, lambda: k3_plain(ko, kd, r_tmin, kt_max))
+    k3a_plain_r, k3a_plain_ms = _time_once(
+        torch, lambda: k3_plain(ko, kd, r_tmin, kt_max, True))
+    k3_err, k3_ulps, k3a_bad = 0.0, 0, 0
+    for name, (o, d), (t_min, t_max) in (
+            ("primary 512^2", k_primary, p_win),
+            ("random", (ko, kd), (r_tmin, kt_max))):
+        got = k3(o, d, t_min, t_max)
+        got_a = k3(o, d, t_min, t_max, any_hit=True)
+        if o is ko:
+            want, want_a = k3_plain_r, k3a_plain_r
+        else:
+            want = k3_plain(o, d, t_min, t_max)
+            want_a = k3_plain(o, d, t_min, t_max, any_hit=True)
+        scan = knot_scan(o, d, t_min, t_max)
+        torch.cuda.synchronize()
+        for ref_name, ref in (("streamed twin", want), ("chunk scan", scan)):
+            ulps, err, hit = _check_closest(f"K3 {name} vs {ref_name}", got,
+                                            ref)
+            k3_ulps, k3_err = max(k3_ulps, ulps), max(k3_err, err)
+        for ref_name, ref in (("streamed twin", want_a["tri"] >= 0),
+                              ("chunk scan", scan["tri"] >= 0)):
+            bad = int(((got_a["tri"] >= 0) != ref).sum())
+            k3a_bad = max(k3a_bad, bad)
+            if bad:
+                raise AssertionError(f"K3 any-hit {name} vs {ref_name}: "
+                                     f"occlusion differs on {bad} lanes")
+        if not torch.equal(got_a["t"], t_max):
+            raise AssertionError(f"K3 any-hit {name}: t is not t_max")
+        print(f"K3: on the knot's {name} rays ({hit:.3f} hit) closest-hit "
+              f"equals the streamed twin and the chunk scan: tri equal on "
+              f"every lane, t max {k3_ulps} ulps (bound {T_ULPS}), max "
+              f"|dt| {k3_err:.3g}; any-hit occlusion equal, t = t_max",
+              flush=True)
+    k3a_err = float(k3a_bad > 0)   # max |flag difference|
+
+    # K3 beside K1 on the same scene and rays
+    for name, (o, d), (t_min, t_max) in (
+            ("primary 512^2", k_primary, p_win),
+            (f"{TIMED_RAYS[0]} random", (ko[:, :TIMED_RAYS[0]].contiguous(),
+                                        kd[:, :TIMED_RAYS[0]].contiguous()),
+             (r_tmin[:TIMED_RAYS[0]], kt_max[:TIMED_RAYS[0]])),
+            (f"{RANDOM_RAYS} random", (ko, kd), (r_tmin, kt_max))):
+        t = [_time_ms(torch, lambda a=a: fn(o, d, t_min, t_max, a), 10)
+             for fn in (k3, k1_knot) for a in (False, True)]
+        timings[("k3", name)] = t
+        print(f"timing knot {name} rays: closest K3 {t[0]:.4f} ms vs K1 "
+              f"{t[2]:.4f} ms; any K3 {t[1]:.4f} ms vs K2 {t[3]:.4f} ms "
+              f"[{card}]", flush=True)
+    print(f"timing knot {RANDOM_RAYS} random rays, plain: streamed twin "
+          f"closest {k3_plain_ms:.4f} ms, any {k3a_plain_ms:.4f} ms [{card}]",
+          flush=True)
+
+    knot_io = _nbytes(ko, kd, r_tmin, kt_max, knot.tri_planes,
+                      knot.chunk_aabb) + RANDOM_RAYS * 8
+    k3_tests = _flat_tests(trace_api, knot, ko, kd, r_tmin,
+                           _window(torch, k3_plain_r, kt_max))
+    k_occ = k3a_plain_r["tri"] >= 0
+    k3a_tests = int(k_occ.sum()) + _flat_tests(
+        trace_api, knot, ko, kd, r_tmin, torch.where(k_occ, 0.0, kt_max))
+    k3_bound = _bound(k3_tests * MT_FLOPS, knot_io)
+    k3a_bound = _bound(k3a_tests * MT_FLOPS, knot_io)
+    print(f"bound {RANDOM_RAYS} random knot rays: K3 closest {k3_tests} "
+          f"tests, {k3_bound[0]:.4f} ms ({k3_bound[1]}); K3 any {k3a_tests} "
+          f"tests, {k3a_bound[0]:.4f} ms ({k3a_bound[1]})", flush=True)
+    del k3_plain_r, k3a_plain_r
+
+    # 10. knot frame: the streamed path
+    dt, rays, k_launches = _run_frames(
+        torch, knot, dev, GALLERY_WARMUP, GALLERY_TIMED, "knot",
+        on=stream_kernels, off=flat_kernels + inst_kernels)
+    print("knot frame: " + _frame_line("dense knot ReSTIR", GALLERY_TIMED,
+                                       dt, rays, k_launches, card),
+          flush=True)
+    del knot
+
+    # 11. bunny frame: a second flattened scene on K1/K2's route
+    bunny = scenes.create_bunny_scene(dev)
+    dt, rays, b_launches = _run_frames(
+        torch, bunny, dev, GALLERY_WARMUP, GALLERY_TIMED, "bunny",
+        on=flat_kernels, off=stream_kernels + inst_kernels)
+    print(f"bunny frame ({bunny.num_triangles} triangles): "
+          + _frame_line("bunny ReSTIR", GALLERY_TIMED, dt, rays, b_launches,
+                        card), flush=True)
 
     n = TIMED_RAYS[-1]
 
@@ -494,6 +663,7 @@ def main() -> int:
                 "bound_by": bound[1], "library_ms": None}
 
     k4_times = timings[("k4", n)]
+    k3_times = timings[("k3", f"{RANDOM_RAYS} random")]
     print(json.dumps({"kernels": [
         entry("closest_hit", "trace.cu", 392, launches["closest_hit"],
               k1_err, timings[n][:2], k1_bound),
@@ -504,6 +674,12 @@ def main() -> int:
               k4_bound),
         entry("inst_any_hit", "trace_inst.cu", 1916,
               g_launches["inst_any_hit"], k4a_err, k4_times[2:], k4a_bound),
+        entry("stream_closest_hit", "trace_stream.cu", 800,
+              k_launches["stream_closest_hit"], k3_err,
+              (k3_times[0], k3_plain_ms), k3_bound),
+        entry("stream_any_hit", "trace_stream.cu", 800,
+              k_launches["stream_any_hit"], k3a_err,
+              (k3_times[1], k3a_plain_ms), k3a_bound),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

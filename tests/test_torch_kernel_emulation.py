@@ -1,13 +1,16 @@
-"""The CUDA kernels K1, K2 and K4, built with g++ under the host emulation
-`csrc/host/emulation/cuda_runtime.h`, against their plain versions.
+"""The CUDA kernels K1, K2, K3 and K4, built with g++ under the host
+emulation `csrc/host/emulation/cuda_runtime.h`, against their plain
+versions.
 
 A CUDA kernel cannot run here; this holds the kernels' own source (its
 control flow, culling, staging and tie order) to the plain versions on
 the CPU, so a logic fault shows before a chip run. It says nothing of
 what nvcc accepts or of speed: `chip_smoke.py` checks the real build on
-the card. Tolerance: tri and inst equal on every lane and t bit-equal
-(measured: equal; the emulation's fmaf and -ffp-contract=off round as
-the kernels' __fmaf_rn and -fmad=false).
+the card. K3 is also built with a smaller worklist (TPURT_MAX_UNITS),
+so that its units of several chunks run on a small scene. Tolerance:
+tri and inst equal on every lane and t bit-equal (measured: equal; the
+emulation's fmaf and -ffp-contract=off round as the kernels' __fmaf_rn
+and -fmad=false).
 """
 
 import ctypes
@@ -20,8 +23,9 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_dense import layered_scene
 from tpu_raytracer_torch.models import scenes
-from tpu_raytracer_torch.ops import trace_api, trace_inst
+from tpu_raytracer_torch.ops import trace_api, trace_inst, trace_stream
 from tpu_raytracer_torch.runtime.build import CSRC_DIR
 from tpu_raytracer_torch.utils.vec3 import V3
 
@@ -32,14 +36,14 @@ RAYS = 1024
 torch.set_num_threads(1)
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+def _build(out, names, defines=()):
+    """g++ build of csrc/<name>.cu for each name, the launches rewritten
+    for the emulation, into one library in `out`."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build the emulated kernels")
-    out = tmp_path_factory.mktemp("emulated")
     sources = []
-    for name in ("trace", "trace_inst"):
+    for name in names:
         with open(os.path.join(CSRC_DIR, f"{name}.cu")) as f:
             src = f.read()
         src, n = re.subn(r"(\w+)<<<([^,]+),\s*(\w+),\s*0,.*?>>>\(",
@@ -50,18 +54,30 @@ def lib(tmp_path_factory):
     so = out / "libemulated.so"
     subprocess.run(
         [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
-         "-pthread", "-I", os.path.join(CSRC_DIR, "host", "emulation"),
+         "-pthread", *(f"-D{x}" for x in defines),
+         "-I", os.path.join(CSRC_DIR, "host", "emulation"),
          "-I", CSRC_DIR, "-o", str(so), *map(str, sources)],
         check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(so))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.tpurt_closest_hit, lib.tpurt_any_hit):
-        fn.restype = i32
-        fn.argtypes = [ptr] * 6 + [i32] * 2 + [ptr] * 3
-    for fn in (lib.tpurt_inst_closest_hit, lib.tpurt_inst_any_hit):
-        fn.restype = i32
-        fn.argtypes = [ptr] * 9 + [i32] * 3 + [ptr] * 4
+    for name in ("tpurt_closest_hit", "tpurt_any_hit",
+                 "tpurt_stream_closest_hit", "tpurt_stream_any_hit"):
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.restype = i32
+            fn.argtypes = [ptr] * 6 + [i32] * 2 + [ptr] * 3
+    for name in ("tpurt_inst_closest_hit", "tpurt_inst_any_hit"):
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.restype = i32
+            fn.argtypes = [ptr] * 9 + [i32] * 3 + [ptr] * 4
     return lib
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    return _build(tmp_path_factory.mktemp("emulated"),
+                  ("trace", "trace_stream", "trace_inst"))
 
 
 def _rays(seed, lo, hi, t_far):
@@ -101,6 +117,106 @@ def test_flattened_kernels_match_plain(lib, any_hit):
              scene.tri_planes.shape[2], t.data_ptr(), tri.data_ptr(), None)
     assert err == 0
     _check({"t": t, "tri": tri}, want, t_max, any_hit)
+
+
+@pytest.fixture(scope="module")
+def layered():
+    return layered_scene()
+
+
+def _run_flat(fn, planes, aabb, o, d, t_min, t_max):
+    n = o.shape[1]
+    t = torch.empty(n)
+    tri = torch.empty(n, dtype=torch.int32)
+    err = fn(o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
+             planes.data_ptr(), aabb.data_ptr(), n, planes.shape[2],
+             t.data_ptr(), tri.data_ptr(), None)
+    assert err == 0
+    return {"t": t, "tri": tri}
+
+
+def _layered_rays(layered, rays):
+    planes, aabb, coherent = layered
+    if rays == "random":
+        o, d, t_min, t_max = _rays(2, -3.0, 3.0, 12.0)
+        o[2] -= 2.0
+        return o, d, t_min, t_max
+    return coherent
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("rays", ["random", "coherent"])
+def test_streamed_kernel_matches_plain(lib, layered, rays, any_hit):
+    """K3 on the layered scene past STREAM_MIN_TP slots: random rays, and
+    the coherent rays whose blocks leave early and hit the exact-t tie
+    across two units (tests/test_torch_dense.py:layered_scene)."""
+    planes, aabb, _ = layered
+    o, d, t_min, t_max = _layered_rays(layered, rays)
+    want = trace_stream.trace_stream_plain(planes, aabb, V3(*o), V3(*d),
+                                           t_min, t_max, any_hit=any_hit)
+    fn = (lib.tpurt_stream_any_hit if any_hit
+          else lib.tpurt_stream_closest_hit)
+    got = _run_flat(fn, planes, aabb, o, d, t_min, t_max)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert (want["tri"] >= 0).any()
+
+
+@pytest.fixture(scope="module", params=[128, 64], ids=["grp4", "grp8"])
+def small_worklist(request, tmp_path_factory):
+    """K3 built with a worklist of 128 or 64 units: the layered scene's
+    257 chunks then make units of 4 or 8 chunks, the last one short."""
+    out = tmp_path_factory.mktemp(f"emulated_units{request.param}")
+    return request.param, _build(out, ("trace_stream",),
+                                 (f"TPURT_MAX_UNITS={request.param}",))
+
+
+def _last_chunk_rays(planes, seed, n=128):
+    """n rays down from z = 9.5, above the layered scene, each at the
+    centroid of one triangle of the last chunk: they hit the top slab in
+    that chunk or beside it."""
+    g = np.random.default_rng(seed)
+    tris = planes[:, :, -trace_api.CT:]
+    target = tris[0][:, :n] + (tris[1][:, :n] + tris[2][:, :n]) / 3
+    o = target.clone()
+    o[0:2] += torch.from_numpy(
+        g.uniform(-0.3, 0.3, (2, n)).astype(np.float32))
+    o[2] = 9.5
+    d = target - o
+    d /= d.norm(dim=0, keepdim=True)
+    return o, d, torch.full((n,), 1e-3), torch.full((n,), 12.0)
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("rays", ["random", "coherent"])
+def test_streamed_kernel_multi_chunk_units(small_worklist, layered,
+                                           monkeypatch, rays, any_hit):
+    """K3 with units of several chunks equals its twin under the same cap
+    and the chunk scan. The random rays are one block of random rays and
+    one aimed at the short last unit, which some of them hit."""
+    max_units, slib = small_worklist
+    monkeypatch.setattr(trace_stream, "MAX_UNITS", max_units)
+    planes, aabb, _ = layered
+    nc = planes.shape[2] // trace_api.CT
+    grp, units = trace_stream.stream_units(nc)
+    assert grp == {128: 4, 64: 8}[max_units] and nc % grp
+    o, d, t_min, t_max = _layered_rays(layered, rays)
+    if rays == "random":
+        o, d, t_min, t_max = (
+            torch.cat([a[..., :128], b], dim=-1).contiguous()
+            for a, b in zip((o, d, t_min, t_max),
+                            _last_chunk_rays(planes, 3)))
+    want = trace_stream.trace_stream_plain(planes, aabb, V3(*o), V3(*d),
+                                           t_min, t_max, any_hit=any_hit)
+    scan = trace_api.trace_plain(planes, aabb, V3(*o), V3(*d), t_min, t_max)
+    fn = (slib.tpurt_stream_any_hit if any_hit
+          else slib.tpurt_stream_closest_hit)
+    got = _run_flat(fn, planes, aabb, o, d, t_min, t_max)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    _check(got, scan, t_max, any_hit)
+    if rays == "random":      # hits in the last, short unit's chunk
+        assert (scan["tri"] >= (units - 1) * grp * trace_api.CT).any()
 
 
 @pytest.fixture(scope="module")

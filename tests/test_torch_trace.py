@@ -199,7 +199,9 @@ def test_cpu_tensors_never_launch_kernels(scenes):
                              torch.from_numpy(t_max),
                              active=torch.from_numpy(active))
     assert trace_api.LAUNCHES == {"closest_hit": 0, "any_hit": 0,
-                                  "inst_closest_hit": 0, "inst_any_hit": 0}
+                                  "inst_closest_hit": 0, "inst_any_hit": 0,
+                                  "stream_closest_hit": 0,
+                                  "stream_any_hit": 0}
 
 
 def test_kernel_wrapper_refuses_cpu_tensors(scenes):

@@ -6,6 +6,8 @@
 //   - __syncthreads() and __syncthreads_or() on a std::barrier;
 //   - __shared__ is function-static storage, shared by the block's
 //     threads because only one block runs at a time;
+//   - cp.async (<cuda_pipeline.h>) is a plain copy, made at once; commit
+//     and wait are no-ops;
 //   - a launch `k<<<grid, block, 0, stream>>>(args)` must be rewritten
 //     to `emu_launch(k, grid, block)(args)` before compiling.
 // Build with -std=c++20 -ffp-contract=off (as nvcc's -fmad=false).
@@ -15,6 +17,7 @@
 #include <barrier>
 #include <cmath>
 #include <cstdint>
+#include <cstring>
 #include <thread>
 #include <vector>
 
@@ -24,6 +27,7 @@
 #define __launch_bounds__(x)
 #define __restrict__
 #define __shared__ static
+#define __align__(n) __attribute__((aligned(n)))
 
 struct dim3 {
     unsigned x = 1, y = 1, z = 1;
@@ -35,6 +39,23 @@ inline int cudaGetLastError() { return 0; }
 inline float __ldg(const float* p) { return *p; }
 inline int32_t __ldg(const int32_t* p) { return *p; }
 inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
+inline unsigned __float_as_uint(float x) {
+    unsigned u;
+    std::memcpy(&u, &x, sizeof u);
+    return u;
+}
+inline float __uint_as_float(unsigned u) {
+    float x;
+    std::memcpy(&x, &u, sizeof x);
+    return x;
+}
+inline int min(int a, int b) { return a < b ? a : b; }
+
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n) {
+    std::memcpy(dst, src, n);
+}
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(size_t) {}
 
 inline std::barrier<>* emu_barrier;
 inline std::atomic<int> emu_or{0};

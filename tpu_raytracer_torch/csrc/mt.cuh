@@ -1,12 +1,14 @@
 // Device code shared by the traversal kernels (trace.cu: K1, K2;
-// trace_inst.cu: K4): the ray record, the padded slab test, staging of
-// triangle planes into shared memory, and the exact-f32 Moller-Trumbore
-// test. One copy, so every kernel runs the same arithmetic.
+// trace_inst.cu: K4; trace_stream.cu: K3): the ray record, the padded
+// slab test and its entry distance, staging of triangle planes into
+// shared memory, and the exact-f32 Moller-Trumbore test. One copy, so
+// every kernel runs the same arithmetic.
 //
 // The arithmetic is the plain versions' (ops/trace_api.py: slab_pass,
-// mt_argmin), operation for operation: the multiply-adds that XLA:CPU
-// fuses in the reference are explicit __fmaf_rn calls, and the library
-// is built with -fmad=false so the compiler contracts nothing else.
+// slab_entry, mt_argmin), operation for operation: the multiply-adds
+// that XLA:CPU fuses in the reference are explicit __fmaf_rn calls, and
+// the library is built with -fmad=false so the compiler contracts
+// nothing else.
 
 #pragma once
 
@@ -53,27 +55,50 @@ __device__ __forceinline__ Ray load_ray(const float* o, const float* d,
     return ray;
 }
 
-// Conservative slab test of one AABB against the window (t_lo, t_hi).
-// box[k * stride] is min x, y, z for k = 0..2 and max x, y, z for
-// k = 3..5 (stride 1 for [N, 8] rows, N for [8, N] columns). The box is
-// padded by 1e-5 of its coordinates' magnitude (plus 1e-6), far above
-// the rounding of both this test and the intersection test, so a box
-// holding a triangle that the exact test would accept is never culled -
-// flat walls give zero-thickness boxes. An empty box (min > max) fails.
-__device__ __forceinline__ bool slab_pass(const float* __restrict__ box,
-                                          int stride, const Ray& ray,
-                                          float t_lo, float t_hi) {
-    if (!(__ldg(box) <= __ldg(box + 3 * stride))) return false;
+// The window (t_lo, t_hi) clipped to the padded slabs of one AABB;
+// false for an empty box (min > max). box[k * stride] is min x, y, z for
+// k = 0..2 and max x, y, z for k = 3..5 (stride 1 for [N, 8] rows, N for
+// [8, N] columns). The box is padded by 1e-5 of its coordinates'
+// magnitude (plus 1e-6), far above the rounding of both this test and
+// the intersection test, so a box holding a triangle that the exact test
+// would accept is never culled - flat walls give zero-thickness boxes.
+// LDG reads the box through the read-only cache, so it must lie in
+// global memory; plain loads take registers or shared memory too.
+template <bool LDG>
+__device__ __forceinline__ bool slab_window(const float* __restrict__ box,
+                                            int stride, const Ray& ray,
+                                            float& t_lo, float& t_hi) {
+    auto at = [box](int i) { return LDG ? __ldg(box + i) : box[i]; };
+    if (!(at(0) <= at(3 * stride))) return false;
     for (int k = 0; k < 3; ++k) {
-        float lo = __ldg(box + k * stride);
-        float hi = __ldg(box + (3 + k) * stride);
+        float lo = at(k * stride);
+        float hi = at((3 + k) * stride);
         float pad = 1e-5f * (fabsf(lo) + fabsf(hi)) + 1e-6f;
         float a = (lo - pad - ray.o[k]) * ray.inv[k];
         float b = (hi + pad - ray.o[k]) * ray.inv[k];
         t_lo = fmaxf(t_lo, fminf(a, b));
         t_hi = fminf(t_hi, fmaxf(a, b));
     }
-    return t_lo <= t_hi;
+    return true;
+}
+
+// Conservative slab test of one AABB in global memory against the window
+// (t_lo, t_hi).
+__device__ __forceinline__ bool slab_pass(const float* __restrict__ box,
+                                          int stride, const Ray& ray,
+                                          float t_lo, float t_hi) {
+    return slab_window<true>(box, stride, ray, t_lo, t_hi) && t_lo <= t_hi;
+}
+
+// The test of slab_pass, returning the entry t of the window into the box
+// where it passes, else INF_T: a lower bound on the t of any hit inside
+// the box that the window admits. `box` may lie in any memory.
+__device__ __forceinline__ float slab_entry(const float* box, int stride,
+                                            const Ray& ray, float t_lo,
+                                            float t_hi) {
+    return slab_window<false>(box, stride, ray, t_lo, t_hi) && t_lo <= t_hi
+               ? t_lo
+               : INF_T;
 }
 
 // The block's THREADS threads stage triangles first .. first + N - 1 of

@@ -9,7 +9,8 @@ import numpy as np
 from ..scene.builder import SceneBuilder
 from ..scene.geometry import (create_crystal, create_cube, create_plane,
                               create_sphere)
-from ..scene.material import Material
+from ..scene.loader import load_gltf
+from ..scene.material import NO_TEXTURE, Material
 from ..utils.math3d import hsv_to_rgb, rotation_x, rotation_y, rotation_z, \
     scale, translation
 
@@ -96,3 +97,152 @@ def create_instancing_gallery_scene(device, n: int = 100, subdiv: int = 4):
         z = (gz - (side - 1) / 2) * 1.5
         b.add_instance(dense_id, mat, translation([x, -0.5, z]) @ scale(0.5))
     return b.build(device, instancing="on")
+
+
+def create_restir_scene(device):
+    """scenes.rs:133-223: 100 colored sphere lights on a 10x10 grid over
+    a floor, before a wall, around a metal cube. 32,016 triangles."""
+    b = SceneBuilder()
+    plane_id = b.add_mesh(create_plane())
+    sphere_id = b.add_mesh(create_sphere(2))
+    cube_id = b.add_mesh(create_cube())
+
+    mat_floor = b.add_material(
+        Material((0.73, 0.73, 0.73, 1.0)).roughness(0.99))
+    mat_wall = b.add_material(
+        Material((0.73, 0.73, 0.73, 1.0)).roughness(0.99))
+    mat_metal = b.add_material(Material((1.0, 1.0, 1.0, 1.0)).metallic(0.2))
+
+    b.add_instance(plane_id, mat_floor, translation([0, -1, 0]) @ scale(10.0))
+    b.add_instance(plane_id, mat_wall,
+                   translation([0, 5, -5]) @ rotation_x(PI / 2) @ scale(10.0))
+
+    rows = cols = 10
+    spacing, light_radius, strength = 1.0, 0.05, 20.0
+    for r in range(rows):
+        for c in range(cols):
+            x = (c - cols / 2.0) * spacing
+            z = (r - rows / 2.0) * spacing
+            y = -0.9
+            color = hsv_to_rgb((r * cols + c) / (rows * cols), 0.8, 1.0)
+            mat_id = b.add_material(
+                Material((color[0], color[1], color[2], 1.0))
+                .light_index(r * cols + c)
+                .emissive([ch * strength for ch in color]))
+            b.add_instance(sphere_id, mat_id,
+                           translation([x, y, z]) @ scale(light_radius))
+            b.add_sphere_light([x, y, z], light_radius,
+                               [color[0], color[1], color[2], strength])
+
+    b.add_instance(cube_id, mat_metal, translation([0, -0.5, 0]) @ scale(0.5))
+    return b.build(device)
+
+
+def create_bunny_scene(device, subdiv_fallback: int = 4):
+    """BASELINE config 3: a dense mesh on a pedestal inside the Cornell
+    shell. With no bunny asset, three instances of an icosphere of
+    subdivision `subdiv_fallback` stand in (15,372 triangles at 4)."""
+    b = SceneBuilder()
+    plane_id = b.add_mesh(create_plane())
+    dense_id = b.add_mesh(create_sphere(subdiv_fallback))
+
+    mat_white = b.add_material(Material((0.73, 0.73, 0.73, 1.0)))
+    mat_red = b.add_material(Material((0.65, 0.05, 0.05, 1.0)))
+    mat_green = b.add_material(Material((0.12, 0.45, 0.15, 1.0)))
+    mat_body = b.add_material(Material((0.8, 0.7, 0.5, 1.0)).roughness(0.4))
+
+    b.add_instance(plane_id, mat_white, translation([0, -1, 0]) @ scale(2.0))
+    b.add_instance(plane_id, mat_white,
+                   translation([0, 1, 0]) @ rotation_x(PI) @ scale(2.0))
+    b.add_instance(plane_id, mat_white,
+                   translation([0, 0, -1]) @ rotation_x(PI / 2) @ scale(2.0))
+    b.add_instance(plane_id, mat_red,
+                   translation([-1, 0, 0]) @ rotation_z(-PI / 2) @ scale(2.0))
+    b.add_instance(plane_id, mat_green,
+                   translation([1, 0, 0]) @ rotation_z(PI / 2) @ scale(2.0))
+    b.register_quad_light(
+        plane_id, translation([0, 0.99, 0]) @ rotation_x(PI) @ scale(0.5),
+        [1.0, 1.0, 1.0], 10.0)
+    b.add_instance(dense_id, mat_body,
+                   translation([0.0, -0.6, 0.0]) @ scale(0.8))
+    b.add_instance(dense_id, mat_body,
+                   translation([-0.55, -0.8, 0.4]) @ scale(0.4))
+    b.add_instance(dense_id, mat_body,
+                   translation([0.55, -0.8, -0.4]) @ scale(0.4))
+    return b.build(device)
+
+
+def add_gltf_to_builder(b: SceneBuilder, meshes, materials, images,
+                        mat_indices, transform):
+    """Register loaded glTF content (builder.rs:191-314): each image once
+    per array it lands in (colour images sRGB-decoded into the colour
+    array, the rest linear into the data array), the materials with
+    their texture ids remapped, the meshes, and one instance per
+    primitive with its material."""
+    color_map: dict = {}
+    data_map: dict = {}
+
+    def remap(img_idx, srgb):
+        cache = color_map if srgb else data_map
+        if img_idx not in cache:
+            cache[img_idx] = (b.add_color_texture(images[img_idx], srgb=True)
+                              if srgb else b.add_data_texture(images[img_idx]))
+        return cache[img_idx]
+
+    mat_ids = []
+    for mat in materials:
+        if mat.tex_id != NO_TEXTURE:
+            mat.texture(remap(mat.tex_id, srgb=True))
+        if mat.normal_tex_id != NO_TEXTURE:
+            mat.normal_texture(remap(mat.normal_tex_id, srgb=False))
+        if mat.occlusion_tex_id != NO_TEXTURE:
+            mat.occlusion_texture(remap(mat.occlusion_tex_id, srgb=False))
+        if mat.emissive_tex_id != NO_TEXTURE:
+            mat.emissive_texture(remap(mat.emissive_tex_id, srgb=True))
+        if mat.metallic_roughness_tex_id != NO_TEXTURE:
+            mat.metallic_roughness_texture(
+                remap(mat.metallic_roughness_tex_id, srgb=False))
+        mat_ids.append(b.add_material(mat))
+
+    mesh_ids = [b.add_mesh(m) for m in meshes]
+    for i, mesh_id in enumerate(mesh_ids):
+        mat_slot = mat_indices[i] if i < len(mat_indices) else 0
+        mat_id = mat_ids[mat_slot] if mat_slot < len(mat_ids) else 0
+        b.add_instance(mesh_id, mat_id, transform)
+    return mesh_ids, mat_ids
+
+
+def create_gltf_scene(device, path: str, model_transform,
+                      light_transform):
+    """scenes.rs:249-319: a glTF asset on a 10x floor under a quad light
+    ([1, 1, 1] x 15). A file that fails to load leaves the floor-and-light
+    scene, with a printed note, as the reference does (scenes.rs:313)."""
+    b = SceneBuilder()
+    plane_id = b.add_mesh(create_plane())
+    mat_floor = b.add_material(
+        Material((0.73, 0.73, 0.73, 1.0)).roughness(0.99))
+    b.add_instance(plane_id, mat_floor, translation([0, -1, 0]) @ scale(10.0))
+    b.register_quad_light(plane_id, light_transform, [1.0, 1.0, 1.0], 15.0)
+    try:
+        meshes, materials, images, mat_indices = load_gltf(path)
+        add_gltf_to_builder(b, meshes, materials, images, mat_indices,
+                            model_transform)
+    except Exception as e:  # noqa: BLE001 - the reference's fallback
+        print(f"glTF load failed ({e}); rendering empty scene")
+    return b.build(device)
+
+
+def create_dense_knot_scene(device, path: str = None):
+    """bench.py config 6: the 100,800-triangle textured trefoil knot
+    (base-color, normal and metallic-roughness textures) loaded through
+    the glTF loader from the generated asset (models/dense_asset.py),
+    on the floor under a quad light: 100,804 world triangles."""
+    from .dense_asset import ensure_dense_asset
+
+    if path is None:
+        path = ensure_dense_asset()
+    return create_gltf_scene(
+        device, path,
+        model_transform=translation([0, 1.2, 0]) @ scale(1.1),
+        light_transform=(translation([0, 5.0, 0]) @ rotation_x(PI)
+                         @ scale(1.5)))

@@ -7,7 +7,10 @@ kind and the rays' device and nothing else:
     (a chunked exact-f32 Moller-Trumbore scan with a running arg-min, the
     twin of the reference's `_trace_brute_xla`);
   - flattened scene, CUDA tensor: kernel K1 (`tpurt_closest_hit`), or K2
-    (`tpurt_any_hit`) for `any_hit=True`, from `csrc/trace.cu`;
+    (`tpurt_any_hit`) for `any_hit=True`, from `csrc/trace.cu`; past
+    STREAM_MIN_TP triangle slots, kernel K3 (`ops/trace_stream.py`,
+    `csrc/trace_stream.cu`), both queries, which sweeps entry-sorted
+    per-block worklists front to back with an early exit;
   - instanced scene: `ops/trace_inst.py`, the plain version on a CPU
     tensor and kernel K4 on a CUDA tensor.
 A CUDA tensor never takes a plain version: the kernel launches or the
@@ -36,11 +39,16 @@ INF = 3.0e38
 CT = 128          # triangles per chunk: the kernels' cull granularity
 MT_EPS = 1e-9
 DIR_EPS = 1e-12   # |d| below this is clamped before the slab test's 1/d
+# Flattened scenes with more triangle slots than this take K3 on the card:
+# the reference's route to its streamed kernel (MXUF_MAX_TP,
+# tpu_raytracer/ops/pallas_trace.py:1554-1559), set by the TPU's VMEM,
+# not yet by a measurement on the H100.
+STREAM_MIN_TP = 32 * 1024
 
 # Launches of each kernel, counted where the wrapper launches it (and
 # nowhere else), so a run can show which kernels its main path reached.
 LAUNCHES = {"closest_hit": 0, "any_hit": 0, "inst_closest_hit": 0,
-            "inst_any_hit": 0}
+            "inst_any_hit": 0, "stream_closest_hit": 0, "stream_any_hit": 0}
 
 
 def reset_launch_counts() -> None:
@@ -103,6 +111,19 @@ def _dot(ax, ay, az, bx, by, bz):
     return fma(az, bz, fma(ay, by, ax * bx))
 
 
+def _slab_window(box, o: V3, inv: V3, t_lo, t_hi):
+    """The window (t_lo, t_hi) clipped to the padded slabs of a box [8]
+    (min xyz, max xyz) that is not empty, in f32 as the kernels clip it."""
+    for k, (o_k, inv_k) in enumerate(zip(o, inv)):
+        lo, hi = box[k], box[3 + k]
+        pad = np.float32(1e-5) * (abs(lo) + abs(hi)) + np.float32(1e-6)
+        a = (float(lo - pad) - o_k) * inv_k
+        b = (float(hi + pad) - o_k) * inv_k
+        t_lo = torch.maximum(t_lo, torch.minimum(a, b))
+        t_hi = torch.minimum(t_hi, torch.maximum(a, b))
+    return t_lo, t_hi
+
+
 def slab_pass(box, o: V3, inv: V3, t_lo, t_hi):
     """Conservative slab test of one AABB [8] (a chunk's, an instance's or
     an object group's) against each ray's window (t_lo, t_hi), as the
@@ -113,14 +134,19 @@ def slab_pass(box, o: V3, inv: V3, t_lo, t_hi):
     box = np.asarray(box, np.float32)   # f32 scalar math, as in the kernels
     if not box[0] <= box[3]:             # empty box
         return torch.zeros_like(t_lo, dtype=torch.bool)
-    for k, (o_k, inv_k) in enumerate(zip(o, inv)):
-        lo, hi = box[k], box[3 + k]
-        pad = np.float32(1e-5) * (abs(lo) + abs(hi)) + np.float32(1e-6)
-        a = (float(lo - pad) - o_k) * inv_k
-        b = (float(hi + pad) - o_k) * inv_k
-        t_lo = torch.maximum(t_lo, torch.minimum(a, b))
-        t_hi = torch.minimum(t_hi, torch.maximum(a, b))
+    t_lo, t_hi = _slab_window(box, o, inv, t_lo, t_hi)
     return t_lo <= t_hi
+
+
+def slab_entry(box, o: V3, inv: V3, t_lo, t_hi):
+    """The padded slab test of `slab_pass`, returning each ray's entry t
+    into the box where it passes, else INF: a lower bound on the t of any
+    hit inside the box that the window admits (mt.cuh:slab_entry)."""
+    box = np.asarray(box, np.float32)
+    if not box[0] <= box[3]:
+        return torch.full_like(t_lo, INF)
+    t_lo, t_hi = _slab_window(box, o, inv, t_lo, t_hi)
+    return torch.where(t_lo <= t_hi, t_lo, INF)
 
 
 def safe_inv(d: V3) -> V3:
@@ -136,7 +162,9 @@ def mt_argmin(tris, o: V3, d: V3, t_lo, t_hi, best):
     below its running best. o/d hold [L] components; t_lo, t_hi, best
     are [L]. Returns (t_new [L], k [L]): the nearest such hit and its
     lane in `tris`, INF where there is none; an exact-t tie goes to the
-    lowest lane (argmin returns the first minimum).
+    lowest lane (argmin returns the first minimum). Leading batch
+    dimensions broadcast: rays [B, L] against tris [4, 3, B, 1, N] give
+    [B, L] results.
 
     The terms are those of the reference's `_trace_brute_xla`
     (trace_api.py:74-85) with the multiply-adds that XLA:CPU fuses
@@ -144,9 +172,9 @@ def mt_argmin(tris, o: V3, d: V3, t_lo, t_hi, best):
     reference's bit for bit, and with it every exact-t tie between
     triangles that meet at an edge. The kernels compute the same
     operations in the same order."""
-    ox, oy, oz = (x[:, None] for x in o)
-    dx, dy, dz = (x[:, None] for x in d)
-    t_lo, t_hi = t_lo[:, None], t_hi[:, None]
+    ox, oy, oz = (x[..., None] for x in o)
+    dx, dy, dz = (x[..., None] for x in d)
+    t_lo, t_hi = t_lo[..., None], t_hi[..., None]
     v0x, v0y, v0z = tris[0]
     e1x, e1y, e1z = tris[1]
     e2x, e2y, e2z = tris[2]
@@ -161,10 +189,10 @@ def mt_argmin(tris, o: V3, d: V3, t_lo, t_hi, best):
     v = _dot(dx, dy, dz, qx, qy, qz) * inv_det
     t = _dot(e2x, e2y, e2z, qx, qy, qz) * inv_det
     hit = (ok & valid & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-           & (t > t_lo) & (t < t_hi) & (t < best[:, None]))
+           & (t > t_lo) & (t < t_hi) & (t < best[..., None]))
     t_cand = torch.where(hit, t, INF)
-    k = torch.argmin(t_cand, dim=1)
-    return t_cand.gather(1, k[:, None]).squeeze(1), k
+    k = torch.argmin(t_cand, dim=-1)
+    return t_cand.gather(-1, k[..., None]).squeeze(-1), k
 
 
 def trace_plain(tri_planes, chunk_aabb, o: V3, d: V3, t_min, t_max):
@@ -219,15 +247,18 @@ def _nvcc() -> str:
 
 
 def load_kernels() -> ctypes.CDLL:
-    """Build the traversal kernels K1, K2 (`csrc/trace.cu`) and K4
-    (`csrc/trace_inst.cu`) into one library with one nvcc call for
-    sm_90a (at first use, cached by source hash) and bind them."""
+    """Build the traversal kernels K1, K2 (`csrc/trace.cu`), K3
+    (`csrc/trace_stream.cu`) and K4 (`csrc/trace_inst.cu`) into one
+    library with one nvcc call for sm_90a (at first use, cached by source
+    hash) and bind them."""
     lib = load_library(
         "trace_kernels",
-        [os.path.join(CSRC_DIR, f) for f in ("trace.cu", "trace_inst.cu")],
+        [os.path.join(CSRC_DIR, f)
+         for f in ("trace.cu", "trace_stream.cu", "trace_inst.cu")],
         [_nvcc(), *NVCC_FLAGS], headers=[os.path.join(CSRC_DIR, "mt.cuh")])
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.tpurt_closest_hit, lib.tpurt_any_hit):
+    for fn in (lib.tpurt_closest_hit, lib.tpurt_any_hit,
+               lib.tpurt_stream_closest_hit, lib.tpurt_stream_any_hit):
         fn.restype = i32
         fn.argtypes = [ptr] * 6 + [i32] * 2 + [ptr] * 3
     for fn in (lib.tpurt_inst_closest_hit, lib.tpurt_inst_any_hit):
@@ -327,6 +358,11 @@ def scene_trace(scene, ray_o: V3, ray_d: V3, t_min, t_max, any_hit=False,
             scene.tri_planes, scene.obj_group_aabb, scene.inst_table,
             scene.inst_aabb, scene.inst_group_span, o, d, t_min, t_max,
             any_hit=any_hit)
+    if scene.tri_planes.shape[2] > STREAM_MIN_TP:
+        # imported here: trace_stream builds on this module
+        from .trace_stream import trace_stream_kernel
+        return trace_stream_kernel(scene.tri_planes, scene.chunk_aabb, o, d,
+                                   t_min, t_max, any_hit=any_hit)
     return trace_kernel(scene.tri_planes, scene.chunk_aabb, o, d, t_min,
                         t_max, any_hit=any_hit)
 

@@ -2,7 +2,7 @@
 kernel time by name, the device's busy share and the kernel launches
 the host issues.
 
-    python -m tpu_raytracer_torch.profile_frame --scene gallery
+    python -m tpu_raytracer_torch.profile_frame --scene knot
 
 Renders WARMUP frames at SIZE², times `--frames` frames between
 `torch.cuda.synchronize()` calls, then records the same number of frames
@@ -28,8 +28,10 @@ WARMUP = 3
 TOP = 8           # kernels listed, by device time
 
 # scene name -> builder in models/scenes.py, looked up when used
-SCENES = {"cornell": "create_cornell_box",
-          "gallery": "create_instancing_gallery_scene"}
+SCENES = {"bunny": "create_bunny_scene",
+          "cornell": "create_cornell_box",
+          "gallery": "create_instancing_gallery_scene",
+          "knot": "create_dense_knot_scene"}
 
 
 def _device_us(evt) -> float:

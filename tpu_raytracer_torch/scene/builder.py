@@ -45,6 +45,30 @@ def _oct_decode_np(e: np.ndarray) -> np.ndarray:
     return n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-6)
 
 
+def _srgb_to_linear(x: np.ndarray) -> np.ndarray:
+    """Exact piecewise sRGB EOTF (as hardware Rgba8UnormSrgb decodes)."""
+    x = x.astype(np.float32) / 255.0
+    return np.where(x <= 0.04045, x / 12.92, ((x + 0.055) / 1.055) ** 2.4)
+
+
+def _prep_texture(img: np.ndarray, srgb: bool) -> np.ndarray:
+    """An image [H, W], [H, W, C] -> [TEXTURE_SIZE, TEXTURE_SIZE, 3] f32,
+    linear. uint8 colour is sRGB-decoded, uint8 data is scaled to [0, 1],
+    anything else is taken as it is. The reference Lanczos-resizes other
+    sizes through PIL; the port takes TEXTURE_SIZE^2 images only."""
+    img = np.asarray(img)
+    if img.ndim == 2:
+        img = img[:, :, None].repeat(3, axis=2)
+    img = img[:, :, :3]
+    if img.shape[0] != TEXTURE_SIZE or img.shape[1] != TEXTURE_SIZE:
+        raise ValueError(
+            f"texture is {img.shape[1]}x{img.shape[0]}: only "
+            f"{TEXTURE_SIZE}x{TEXTURE_SIZE} images are taken (no resize)")
+    if img.dtype == np.uint8:
+        return _srgb_to_linear(img) if srgb else img.astype(np.float32) / 255.0
+    return img.astype(np.float32)
+
+
 def _default_color_textures() -> list:
     """builder.rs:41-75: 0 = white, 1 = 64-px checker, 2 = black."""
     s = TEXTURE_SIZE
@@ -95,6 +119,23 @@ class SceneBuilder:
             (mesh_id, mat_id, np.asarray(transform, np.float32)))
         return len(self.instances) - 1
 
+    def add_color_texture(self, img: np.ndarray, srgb: bool = True) -> int:
+        self.color_textures.append(_prep_texture(img, srgb=srgb))
+        return len(self.color_textures) - 1
+
+    def add_data_texture(self, img: np.ndarray) -> int:
+        self.data_textures.append(_prep_texture(img, srgb=False))
+        return len(self.data_textures) - 1
+
+    def add_quad_light(self, position, u, v, emission) -> int:
+        self.lights.append(light_mod.make_quad_light(position, u, v, emission))
+        return len(self.lights) - 1
+
+    def add_sphere_light(self, center, radius, emission) -> int:
+        self.lights.append(
+            light_mod.make_sphere_light(center, radius, emission))
+        return len(self.lights) - 1
+
     def _add_emitter(self, mesh_id, transform, color, intensity) -> None:
         emission_factor = [c * intensity for c in color]
         mat_id = self.add_material(
@@ -111,8 +152,8 @@ class SceneBuilder:
         position = transform[:3, 3]
         u = math3d.transform_vector(transform, [1.0, 0.0, 0.0]) * 0.5
         v = math3d.transform_vector(transform, [0.0, 0.0, -1.0]) * 0.5
-        self.lights.append(light_mod.make_quad_light(
-            position, u, v, [color[0], color[1], color[2], intensity]))
+        self.add_quad_light(position, u, v,
+                            [color[0], color[1], color[2], intensity])
 
     def register_sphere_light(self, mesh_id: int, transform: np.ndarray,
                               color, intensity: float) -> None:
@@ -121,8 +162,8 @@ class SceneBuilder:
         position = transform[:3, 3]
         radius = float(np.linalg.norm(
             math3d.transform_vector(transform, [1.0, 0.0, 0.0]))) * 0.5
-        self.lights.append(light_mod.make_sphere_light(
-            position, radius, [color[0], color[1], color[2], intensity]))
+        self.add_sphere_light(position, radius,
+                              [color[0], color[1], color[2], intensity])
 
     def _pack_tables(self):
         materials = pack_materials(self.materials)
@@ -155,7 +196,6 @@ class SceneBuilder:
         light_table[:, 11:15] = lights["emission"]
         return (materials, mat_table, frozenset(channels), lights,
                 light_table)
-
 
     def _local_triangles(self):
         """Per-mesh object-space triangles, concatenated: (v0, e1, e2

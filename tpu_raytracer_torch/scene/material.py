@@ -63,6 +63,22 @@ class Material:
         self.tex_id = int(tex_id)
         return self
 
+    def normal_texture(self, tex_id: int) -> "Material":
+        self.normal_tex_id = int(tex_id)
+        return self
+
+    def occlusion_texture(self, tex_id: int) -> "Material":
+        self.occlusion_tex_id = int(tex_id)
+        return self
+
+    def emissive_texture(self, tex_id: int) -> "Material":
+        self.emissive_tex_id = int(tex_id)
+        return self
+
+    def metallic_roughness_texture(self, tex_id: int) -> "Material":
+        self.metallic_roughness_tex_id = int(tex_id)
+        return self
+
 
 def pack_materials(materials: list) -> dict:
     """Pack a material list into SoA numpy arrays (the device-side table).
