@@ -8,16 +8,18 @@ is non-zero):
   1. device   - a CUDA device is required; prints its name and power
                 limit as nvidia-smi reports them.
   2. build    - builds kernels K1 (closest-hit), K2 (any-hit), K3
-                (streamed closest- and any-hit) and K4 (instanced closest-
-                and any-hit) from tpu_raytracer_torch/csrc/{trace,
-                trace_stream,trace_inst}.cu with one nvcc call for sm_90a.
+                (streamed closest- and any-hit), K4 (instanced closest-
+                and any-hit), K5 (the vpu sweep) and K6 (the tensor-core
+                test) from tpu_raytracer_torch/csrc/{trace,trace_stream,
+                trace_inst,trace_vpu,trace_mxu}.cu for sm_90a with one
+                nvcc call.
   3. K1       - against its plain PyTorch version on the card: Cornell
                 512^2 primary rays and 524,288 random rays (random t_max,
                 30% dead lanes). tri equal on every lane, t within T_ULPS.
   4. K2       - against plain closest-hit `tri >= 0` on the random rays.
   5. frame    - the Cornell ReSTIR frame at 512^2 through render_frame:
                 2 warm-up + 8 timed frames (static_ok from the second
-                frame on), launch counts (K1 and K2 launched, K3 and K4
+                frame on), launch counts (K1 and K2 launched, K3-K6
                 not), fps, Mrays/s, and K1/K2 against plain at 262,144 and
                 524,288 rays.
   6. golden   - 8 frames of the 64^2 Cornell box against
@@ -42,13 +44,38 @@ is non-zero):
                 lane and t within T_ULPS against the streamed twin and the
                 chunk scan; any-hit occlusion equal, t = t_max. K1 is
                 timed on the same rays and scene beside K3 (a check of
-                STREAM_MIN_TP on this card, not a yardstick).
+                MXUF_MAX_TP on this card, not a yardstick).
  10. knot     - the knot's ReSTIR frame at 512^2: 2 warm-up + 4 timed
                 frames, both K3 entry points launched and none of K1, K2
                 and K4; fps, Mrays/s.
  11. bunny    - the bunny scene's (config 3, 15,372 triangles) frame at
                 512^2: 2 warm-up + 4 timed frames, K1 and K2 launched,
                 neither K3 nor K4.
+ 12. K5       - the vpu sweep against its plain version (the same
+                worklists) and against K1, on Cornell's 512^2 primary
+                rays, 524,288 random Cornell rays and 524,288 random rays
+                in the bunny scene: tri equal on every lane, t within
+                T_ULPS. Timed beside K1 with its worklist prepass.
+ 13. K6       - each variant (mxu3, mxu1, mxuw with units of 8 chunks,
+                the in-kernel cull's closest- and any-hit) on the same
+                rays, against its plain version (at most PLAIN_DIFF lanes
+                of a ray set differ in hit/miss and at most PLAIN_DIFF in
+                tri; relative t error < PLAIN_REL where tri agrees) and
+                against K1 within the reference's bf16 tolerance (hit/miss
+                and tri agreement > AGREE, median relative t error <
+                MEDIAN_REL; mxu1's only printed), with the count and
+                relative t margin of the lanes that disagree. Timed on the
+                random Cornell rays.
+ 14. modes    - the Cornell ReSTIR frame at 512^2, MODE_WARMUP +
+                MODE_TIMED frames, under vpu (K5 launched; K1-K4 not),
+                mxu3 and mxuw (K6 closest-hit and K2; not K1), and the
+                in-kernel cull (both K6 entries; not K1 or K2): fps,
+                Mrays/s, and PSNR against the same frame of phase 5's
+                default run, >= VPU_DB under vpu (K5 returns K1's hits)
+                and >= GOLDEN_DB otherwise. mxu1 renders no frame (the
+                reference calls it broken for rendering): one scene_trace
+                call on the primary rays counts its launch.
+ 15. golden   - the 64^2 Cornell golden under mxu3, PSNR >= GOLDEN_DB.
 Then one JSON line of per-kernel results (time, plain time and bound at
 524,288 random rays; launches on each kernel's frames), and last the
 device line {"ok": true, "device": {...}}. Without a CUDA device it exits
@@ -62,7 +89,14 @@ occluded any-hit ray, and for K4 one transform (XFORM_FLOPS) per ray and
 instance box passed, at FP32_PEAK; or each input read once and each
 output written once at HBM_PEAK, whichever is longer. K3 does the
 work K1 does (its worklist, sort and exit only skip work), so both take
-the same bound.
+the same bound, and K5 (the same test over a looser cull) takes it too.
+K6's bound is the longest of three: its products, 2 x 16 x 4 x 128 x
+passes FLOP for each ray and chunk the ray's window passes, at
+BF16_PEAK (the H100 SXM's dense bf16 tensor rate, 989 TFLOP/s, NVIDIA
+data sheet); its window tests, WINDOW_FLOPS for each such ray and valid
+triangle, at FP32_PEAK; and its bytes (rays, coefficient table,
+worklists or group boxes, outputs) at HBM_PEAK. Any-hit counts one test
+and one chunk for an occluded ray, as K2's bound does.
 """
 
 import json
@@ -86,8 +120,25 @@ DEVICE = "cuda:0"
 # cores, and HBM3
 FP32_PEAK = 67e12
 HBM_PEAK = 3.35e12
+BF16_PEAK = 989e12  # dense bf16 on the tensor cores
 MT_FLOPS = 46       # one ray-triangle test
 XFORM_FLOPS = 36    # one ray moved into an instance's object space
+WINDOW_FLOPS = 15   # one window test on K6's products (csrc/trace_mxu.cu)
+MODE_WARMUP, MODE_TIMED = 2, 4     # the Cornell frames under a mode
+VPU_DB = 60.0       # vpu against the default frame (K5 returns K1's hits)
+# K6 against K1: the reference's tolerance for its bf16 modes
+# (tests/test_mxu_kernel.py:40-52)
+AGREE, MEDIAN_REL = 0.999, 1e-4
+# K6 against its plain version, per ray set: lanes that may differ in
+# hit/miss and (separately) in tri, and the max relative t error where tri
+# agrees; measured 0, 0 and 5.94e-5 on the card (PERF.md, PR 4)
+PLAIN_DIFF, PLAIN_REL = 8, 1e-4
+# K6's variants: (name, mode, grp (None: the in-kernel cull's 2 or 4),
+# passes, in-kernel cull, the TPU kernel's line)
+MXU_VARIANTS = (("mxu3", "mxu3", 1, 3, False, 1186),
+                ("mxu1", "mxu1", 1, 1, False, 1186),
+                ("mxuw8", "mxuw", 8, 3, False, 1070),
+                ("incull", "mxuf2", None, 3, True, 701))
 
 
 def _card() -> str:
@@ -164,19 +215,31 @@ def _window(torch, res, t_max):
 
 
 def _flat_tests(trace_api, scene, o, d, t_min, t_hi):
-    """Ray-triangle tests a 128-triangle-chunk-culled sweep must make for
-    windows (t_min, t_hi): valid triangles of every chunk each ray's
-    window passes."""
+    """(ray-triangle tests, ray-chunk pairs) a 128-triangle-chunk-culled
+    sweep must make for windows (t_min, t_hi): valid triangles of every
+    chunk each ray's window passes, and those chunks."""
     from tpu_raytracer_torch.utils.vec3 import V3
 
     ov, dv = V3(*o), V3(*d)
     inv = trace_api.safe_inv(dv)
     per_chunk = scene.tri_planes[3, 0].reshape(-1, trace_api.CT).sum(1)
-    n = 0
+    n = pairs = 0
     for c, box in enumerate(scene.chunk_aabb.cpu().tolist()):
         lanes = (t_hi > 0) & trace_api.slab_pass(box, ov, inv, t_min, t_hi)
         n += int(per_chunk[c]) * int(lanes.sum())
-    return n
+        pairs += int(lanes.sum())
+    return n, pairs
+
+
+def _mxu_bound(tests, pairs, passes, nbytes):
+    """(bound_ms, bound_by) of K6: the longest of its products (16 x 4
+    x 128 multiply-adds per ray and chunk, a pass each) at BF16_PEAK, its
+    window tests at FP32_PEAK and its bytes at HBM_PEAK."""
+    t_dot = pairs * 2 * 16 * 4 * 128 * passes / BF16_PEAK
+    t_ops = max(t_dot, tests * WINDOW_FLOPS / FP32_PEAK)
+    t_bytes = nbytes / HBM_PEAK
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
 
 
 def _inst_tests(torch, trace_api, trace_inst, scene, o, d, t_min, t_hi):
@@ -219,19 +282,21 @@ def _run_frames(torch, scene, dev, warmup, timed, name, on, off):
     WIDTH x HEIGHT through render_frame (static_ok from the second frame
     on), with the launch counts set to 0 just before. Checks the output
     and that the kernels `on` launched and those `off` did not. Returns
-    (seconds of the timed frames, rays per timed frame, launches)."""
+    (seconds of the timed frames, rays per timed frame, launches, every
+    frame's ldr)."""
     from tpu_raytracer_torch.ops import trace_api
     from tpu_raytracer_torch.render import camera, pipeline, renderer
 
     cam = camera.CameraController()
     state = pipeline.init_state(WIDTH, HEIGHT, dev)
     trace_api.reset_launch_counts()
-    rays = []
+    rays, ldrs = [], []
     for i in range(warmup + timed):
         uniform = renderer.camera_to_device(
             cam.uniform(WIDTH / HEIGHT, i, scene.num_lights), dev)
         ldr, hdr, state, aux = pipeline.render_frame(
             scene, uniform, i, state, WIDTH, HEIGHT, static_ok=i > 0)
+        ldrs.append(ldr)
         if i == warmup - 1:
             torch.cuda.synchronize()
             t0 = time.time()
@@ -251,7 +316,7 @@ def _run_frames(torch, scene, dev, warmup, timed, name, on, off):
     rays = [float(r) for r in rays]
     if min(rays) <= 0:
         raise AssertionError(f"{name} aux['rays'] is not positive")
-    return dt, rays, launches
+    return dt, rays, launches, ldrs
 
 
 def _frame_line(what, timed, dt, rays, launches, card):
@@ -260,6 +325,12 @@ def _frame_line(what, timed, dt, rays, launches, card):
             f"{timed / dt:.4f} fps, {total / dt / 1e6:.4f} Mrays/s, "
             f"{dt / timed * 1e3:.2f} ms/frame, {total / timed:.0f} "
             f"rays/frame; launches {launches} [{card}]")
+
+
+def _psnr(a, b):
+    """PSNR in dB of two images in [0, 1]; inf when they are equal."""
+    mse = float(np.mean((np.asarray(a, np.float64) - b) ** 2))
+    return float("inf") if mse <= 0 else 10.0 * np.log10(1.0 / mse)
 
 
 def _golden_psnr(torch, scene, dev, size, frames, path):
@@ -274,9 +345,7 @@ def _golden_psnr(torch, scene, dev, size, frames, path):
                                       dev)
         ldr, _, state, _ = pipeline.render_frame(scene, u, f, state, size,
                                                  size)
-    mse = float(np.mean((ldr.cpu().numpy().astype(np.float64)
-                         - golden) ** 2))
-    psnr = float("inf") if mse <= 0 else 10.0 * np.log10(1.0 / mse)
+    psnr = _psnr(ldr.cpu().numpy(), golden)
     if not psnr >= GOLDEN_DB:
         raise AssertionError(f"golden {os.path.basename(path)}: PSNR "
                              f"{psnr:.2f} dB < {GOLDEN_DB}")
@@ -298,6 +367,44 @@ def _check_closest(name, got, want, hit_keys=("tri",)):
     return ulps, float(np.abs(g_t - w_t)[hit].max(initial=0)), hit.mean()
 
 
+def _compare(got, want):
+    """Agreement of two closest-hit answers: hit/miss agreement, tri
+    agreement where both hit, the median and max relative t error and max
+    |dt| where tri agrees, and on the lanes that disagree their count and
+    the largest relative t margin between the two answers."""
+    g_tri, w_tri = got["tri"].cpu().numpy(), want["tri"].cpu().numpy()
+    g_t, w_t = (x["t"].cpu().numpy().astype(np.float64) for x in (got, want))
+    g_hit, w_hit = g_tri >= 0, w_tri >= 0
+    both = g_hit & w_hit
+    same = both & (g_tri == w_tri)
+    flip = both & (g_tri != w_tri)
+    scale = np.maximum(np.abs(w_t), 1e-6)
+    rel = np.abs(g_t - w_t) / scale
+    return {"hit": float((g_hit == w_hit).mean()),
+            "tri": float(same.sum() / max(both.sum(), 1)),
+            "median": float(np.median(rel[same])) if same.any() else 0.0,
+            "max": float(rel[same].max(initial=0)),
+            "abs": float(np.abs(g_t - w_t)[same].max(initial=0)),
+            "hit_diff": int((g_hit != w_hit).sum()),
+            "tri_diff": int(flip.sum()),
+            "margin": float(rel[flip].max(initial=0))}
+
+
+def _check_agree(name, cmp, any_hit):
+    """Raise unless `cmp` (from _compare) meets the bf16 tolerance."""
+    if not (cmp["hit"] > AGREE and (any_hit or (
+            cmp["tri"] > AGREE and cmp["median"] < MEDIAN_REL))):
+        raise AssertionError(f"{name}: outside tolerance: {cmp}")
+
+
+def _check_plain(name, cmp, any_hit):
+    """Raise unless `cmp` (from _compare, K6 against its plain version)
+    is within PLAIN_DIFF lanes and PLAIN_REL."""
+    if not (cmp["hit_diff"] <= PLAIN_DIFF and (any_hit or (
+            cmp["tri_diff"] <= PLAIN_DIFF and cmp["max"] < PLAIN_REL))):
+        raise AssertionError(f"{name}: outside tolerance: {cmp}")
+
+
 def main() -> int:
     import torch
 
@@ -314,7 +421,8 @@ def main() -> int:
     sys.path.insert(0, root)
     from tpu_raytracer_torch.models import dense_asset, scenes
     from tpu_raytracer_torch.ops import (gbuffer, trace_api, trace_inst,
-                                         trace_stream)
+                                         trace_mxu, trace_stream, trace_vpu,
+                                         worklist)
     from tpu_raytracer_torch.render import camera, renderer
     from tpu_raytracer_torch.runtime.build import BUILD_LOGS
     from tpu_raytracer_torch.utils.vec3 import V3
@@ -322,15 +430,20 @@ def main() -> int:
     flat_kernels = ["closest_hit", "any_hit"]
     stream_kernels = ["stream_closest_hit", "stream_any_hit"]
     inst_kernels = ["inst_closest_hit", "inst_any_hit"]
+    vpu_kernels = ["vpu_closest_hit"]
+    mxu_kernels = ["mxu_closest_hit", "mxu_any_hit"]
+    every = (flat_kernels + stream_kernels + inst_kernels + vpu_kernels
+             + mxu_kernels)
 
     # 2. build
     t0 = time.time()
     trace_api.load_kernels()
     ptxas = [ln.strip() for ln in BUILD_LOGS.get("trace_kernels", "")
              .splitlines() if "registers" in ln or "Compiling entry" in ln]
-    print(f"build: K1+K2+K3+K4 from csrc/trace.cu, csrc/trace_stream.cu and "
-          f"csrc/trace_inst.cu in {time.time() - t0:.2f} s (one nvcc call, "
-          f"sm_90a); ptxas: {' | '.join(ptxas) or 'cached'}", flush=True)
+    print(f"build: K1-K6 from csrc/{{trace,trace_stream,trace_inst,"
+          f"trace_vpu,trace_mxu}}.cu in {time.time() - t0:.2f} s (one nvcc "
+          f"call, sm_90a); ptxas: {' | '.join(ptxas) or 'cached'}",
+          flush=True)
 
     scene = scenes.create_cornell_box(dev)
     cam = camera.CameraController()
@@ -386,9 +499,9 @@ def main() -> int:
           flush=True)
 
     # 5. frame: the Cornell path
-    dt, rays, launches = _run_frames(torch, scene, dev, WARMUP, TIMED,
-                                     "Cornell", on=flat_kernels,
-                                     off=stream_kernels + inst_kernels)
+    dt, rays, launches, c_ldrs = _run_frames(
+        torch, scene, dev, WARMUP, TIMED, "Cornell", on=flat_kernels,
+        off=[k for k in every if k not in flat_kernels])
     print("frame: " + _frame_line("Cornell ReSTIR", TIMED, dt, rays,
                                   launches, card), flush=True)
 
@@ -410,12 +523,11 @@ def main() -> int:
     # bounds at the last timed size, which is all of the random rays
     flat_io = _nbytes(ro, rd, r_tmin, rt_max, scene.tri_planes,
                       scene.chunk_aabb) + RANDOM_RAYS * 8
-    k1_tests = _flat_tests(trace_api, scene, ro, rd, r_tmin,
-                           _window(torch, r_plain, rt_max))
+    k1_tests, k1_pairs = _flat_tests(trace_api, scene, ro, rd, r_tmin,
+                                     _window(torch, r_plain, rt_max))
     occ = r_plain["tri"] >= 0
-    k2_tests = int(occ.sum()) + _flat_tests(
-        trace_api, scene, ro, rd, r_tmin,
-        torch.where(occ, 0.0, rt_max))
+    k2_tests, k2_pairs = (x + int(occ.sum()) for x in _flat_tests(
+        trace_api, scene, ro, rd, r_tmin, torch.where(occ, 0.0, rt_max)))
     k1_bound = _bound(k1_tests * MT_FLOPS, flat_io)
     k2_bound = _bound(k2_tests * MT_FLOPS, flat_io)
     print(f"bound {RANDOM_RAYS} random rays: K1 {k1_tests} tests, "
@@ -491,7 +603,7 @@ def main() -> int:
           f"occluded)", flush=True)
 
     # 8. gallery frame: the instanced path
-    dt, rays, g_launches = _run_frames(
+    dt, rays, g_launches, _ = _run_frames(
         torch, gal, dev, GALLERY_WARMUP, GALLERY_TIMED, "gallery",
         on=inst_kernels, off=flat_kernels + stream_kernels)
     print("gallery frame: " + _frame_line("instanced ReSTIR", GALLERY_TIMED,
@@ -538,7 +650,7 @@ def main() -> int:
     tp = knot.tri_planes.shape[2]
     grp, units = trace_stream.stream_units(tp // trace_api.CT)
     print(f"knot: {knot.num_triangles} world triangles in {tp} slots "
-          f"(> STREAM_MIN_TP {trace_api.STREAM_MIN_TP}: K3's route), "
+          f"(> MXUF_MAX_TP {trace_api.MXUF_MAX_TP}: K3's route), "
           f"{units} units of {grp} chunk(s), textures "
           f"{sorted(knot.tex_channels)}, built in {time.time() - t0:.2f} s",
           flush=True)
@@ -623,10 +735,10 @@ def main() -> int:
     knot_io = _nbytes(ko, kd, r_tmin, kt_max, knot.tri_planes,
                       knot.chunk_aabb) + RANDOM_RAYS * 8
     k3_tests = _flat_tests(trace_api, knot, ko, kd, r_tmin,
-                           _window(torch, k3_plain_r, kt_max))
+                           _window(torch, k3_plain_r, kt_max))[0]
     k_occ = k3a_plain_r["tri"] >= 0
     k3a_tests = int(k_occ.sum()) + _flat_tests(
-        trace_api, knot, ko, kd, r_tmin, torch.where(k_occ, 0.0, kt_max))
+        trace_api, knot, ko, kd, r_tmin, torch.where(k_occ, 0.0, kt_max))[0]
     k3_bound = _bound(k3_tests * MT_FLOPS, knot_io)
     k3a_bound = _bound(k3a_tests * MT_FLOPS, knot_io)
     print(f"bound {RANDOM_RAYS} random knot rays: K3 closest {k3_tests} "
@@ -635,7 +747,7 @@ def main() -> int:
     del k3_plain_r, k3a_plain_r
 
     # 10. knot frame: the streamed path
-    dt, rays, k_launches = _run_frames(
+    dt, rays, k_launches, _ = _run_frames(
         torch, knot, dev, GALLERY_WARMUP, GALLERY_TIMED, "knot",
         on=stream_kernels, off=flat_kernels + inst_kernels)
     print("knot frame: " + _frame_line("dense knot ReSTIR", GALLERY_TIMED,
@@ -645,12 +757,184 @@ def main() -> int:
 
     # 11. bunny frame: a second flattened scene on K1/K2's route
     bunny = scenes.create_bunny_scene(dev)
-    dt, rays, b_launches = _run_frames(
+    dt, rays, b_launches, _ = _run_frames(
         torch, bunny, dev, GALLERY_WARMUP, GALLERY_TIMED, "bunny",
         on=flat_kernels, off=stream_kernels + inst_kernels)
     print(f"bunny frame ({bunny.num_triangles} triangles): "
           + _frame_line("bunny ReSTIR", GALLERY_TIMED, dt, rays, b_launches,
                         card), flush=True)
+
+    # 12. K5 against its plain version and K1
+    bo, bd, bt_max = _random_rays(torch, RANDOM_RAYS, dev, seed=3)
+    ray_sets = [("Cornell primary 512^2", scene, primary, p_win),
+                (f"Cornell {RANDOM_RAYS} random", scene, (ro, rd),
+                 (r_tmin, rt_max)),
+                (f"bunny {RANDOM_RAYS} random", bunny, (bo, bd),
+                 (r_tmin, bt_max))]
+    k1_ref = {name: trace_api.trace_kernel(s.tri_planes, s.chunk_aabb, o, d,
+                                           t_min, t_max)
+              for name, s, (o, d), (t_min, t_max) in ray_sets}
+    k5_ulps, k5_err = 0, 0.0
+    for name, s, (o, d), (t_min, t_max) in ray_sets:
+        wl = trace_vpu.vpu_worklists(s.chunk_aabb, V3(*o), V3(*d), t_min,
+                                     t_max)
+        got = trace_vpu.vpu_kernel(s.tri_planes, *wl, o, d, t_min, t_max)
+        want = trace_vpu.trace_vpu_plain(s.tri_planes, *wl, V3(*o), V3(*d),
+                                         t_min, t_max)
+        torch.cuda.synchronize()
+        for ref_name, ref in (("plain", want), ("K1", k1_ref[name])):
+            ulps, err, hit = _check_closest(f"K5 {name} vs {ref_name}", got,
+                                            ref)
+            k5_ulps, k5_err = max(k5_ulps, ulps), max(k5_err, err)
+        print(f"K5: on {name} rays ({hit:.3f} hit, worklists of "
+              f"{float(wl[0].float().mean()):.2f} chunks a block) equals its "
+              f"plain version and K1: tri equal on every lane, t max "
+              f"{k5_ulps} ulps (bound {T_ULPS}), max |dt| {k5_err:.3g}",
+              flush=True)
+
+    # 13. K6, each variant, against its plain version and K1
+    tables = {"Cornell": trace_mxu.kernel_table(scene.tri_planes),
+              "bunny": trace_mxu.kernel_table(bunny.tri_planes)}
+
+    def k6_inputs(s, grp, incull, o, d, t_min, t_max):
+        """(kernel inputs, units of the plain version) of a variant."""
+        if incull:
+            boxes = worklist.group_boxes(s.chunk_aabb, grp)
+            return ((boxes, None, None), trace_mxu.incull_units(
+                boxes, V3(*o), V3(*d), t_min, t_max))
+        counts, unit_list = trace_mxu.mxu_worklists(
+            s.chunk_aabb, grp, V3(*o), V3(*d), t_min, t_max)
+        return ((None, counts, unit_list),
+                trace_mxu.worklist_units(counts, unit_list))
+
+    k6 = {}     # (variant, any_hit) -> max |dt| or flag error, timings
+    for vname, _, grp, passes, incull, _ in MXU_VARIANTS:
+        for any_hit in ((False, True) if incull else (False,)):
+            key = (vname, any_hit)
+            err = 0.0
+            for name, s, (o, d), (t_min, t_max) in ray_sets:
+                table = tables[name.split()[0]]
+                g = grp or (2 if s.chunk_aabb.shape[0] <= 48 else 4)
+                args, units = k6_inputs(s, g, incull, o, d, t_min, t_max)
+                got = trace_mxu.mxu_kernel(table, *args, o, d, t_min, t_max,
+                                           g, passes, incull, any_hit)
+                want = trace_mxu.trace_mxu_plain(table, units, g, V3(*o),
+                                                 V3(*d), t_min, t_max,
+                                                 passes, any_hit)
+                k1 = k1_ref[name]
+                if any_hit:
+                    k1 = {"t": t_max,
+                          "tri": torch.where(k1["tri"] >= 0, 1, -1)}
+                torch.cuda.synchronize()
+                if any_hit and not torch.equal(got["t"], t_max):
+                    raise AssertionError(f"K6 {vname} any-hit: t is not "
+                                         f"t_max")
+                cmp = _compare(got, want)
+                cmp_k1 = _compare(got, k1)
+                _check_plain(f"K6 {vname} {name} vs plain", cmp, any_hit)
+                if vname != "mxu1":
+                    _check_agree(f"K6 {vname} {name} vs K1", cmp_k1, any_hit)
+                err = max(err, float(cmp["hit_diff"] > 0) if any_hit
+                          else cmp["abs"])
+                print(f"K6 {vname}{' any-hit' if any_hit else ''} (grp {g}, "
+                      f"{passes} pass{'es' if passes > 1 else ''}) on {name} "
+                      f"rays: vs plain hit {cmp['hit']:.6f} "
+                      f"({cmp['hit_diff']} lanes), tri {cmp['tri']:.6f} "
+                      f"({cmp['tri_diff']} lanes, margin "
+                      f"{cmp['margin']:.3g}), t rel median "
+                      f"{cmp['median']:.3g} max {cmp['max']:.3g}; vs K1 hit "
+                      f"{cmp_k1['hit']:.6f} ({cmp_k1['hit_diff']} lanes), "
+                      f"tri {cmp_k1['tri']:.6f} ({cmp_k1['tri_diff']} "
+                      f"lanes, margin {cmp_k1['margin']:.3g})", flush=True)
+            k6[key] = [err]
+
+    # timing at all of Cornell's random rays, where K1's bound is taken
+    c_rays = (ro, rd, r_tmin, rt_max)
+    c_v3 = (V3(*ro), V3(*rd), r_tmin, rt_max)
+    wl = trace_vpu.vpu_worklists(scene.chunk_aabb, *c_v3)
+    k5_ms = _time_ms(torch, lambda: trace_vpu.vpu_kernel(
+        scene.tri_planes, *wl, *c_rays), 20)
+    k5_prepass_ms = _time_ms(
+        torch, lambda: trace_vpu.vpu_worklists(scene.chunk_aabb, *c_v3), 20)
+    k5_plain_ms = _time_ms(torch, lambda: trace_vpu.trace_vpu_plain(
+        scene.tri_planes, *wl, *c_v3), 3)
+    print(f"timing {RANDOM_RAYS} random Cornell rays: K5 {k5_ms:.4f} ms vs "
+          f"K1 {timings[RANDOM_RAYS][0]:.4f} ms; worklist prepass "
+          f"{k5_prepass_ms:.4f} ms; plain {k5_plain_ms:.4f} ms [{card}]",
+          flush=True)
+    c_io = (_nbytes(ro, rd, r_tmin, rt_max, tables["Cornell"])
+            + RANDOM_RAYS * 8)
+    for vname, _, grp, passes, incull, _ in MXU_VARIANTS:
+        g = grp or 2
+        args, units = k6_inputs(scene, g, incull, *c_rays)
+        for any_hit in ((False, True) if incull else (False,)):
+            ms = _time_ms(torch, lambda: trace_mxu.mxu_kernel(
+                tables["Cornell"], *args, *c_rays, g, passes, incull,
+                any_hit), 20)
+            plain_ms = _time_ms(torch, lambda: trace_mxu.trace_mxu_plain(
+                tables["Cornell"], units, g, *c_v3, passes, any_hit), 3)
+            prepass_ms = _time_ms(torch, lambda: (
+                worklist.group_boxes(scene.chunk_aabb, g) if incull
+                else trace_mxu.mxu_worklists(scene.chunk_aabb, g, *c_v3)),
+                20)
+            tests, pairs = ((k2_tests, k2_pairs) if any_hit
+                            else (k1_tests, k1_pairs))
+            nbytes = c_io + _nbytes(*(a for a in args if a is not None))
+            bound = _mxu_bound(tests, pairs, passes, nbytes)
+            k6[(vname, any_hit)] += [ms, plain_ms, bound]
+            print(f"timing {RANDOM_RAYS} random Cornell rays: K6 {vname}"
+                  f"{' any-hit' if any_hit else ''} {ms:.4f} ms vs "
+                  f"{'K2' if any_hit else 'K1'} "
+                  f"{timings[RANDOM_RAYS][2 if any_hit else 0]:.4f} ms; "
+                  f"{'group boxes' if incull else 'worklist prepass'} "
+                  f"{prepass_ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
+                  f"{bound[0]:.4f} ms ({bound[1]}) [{card}]", flush=True)
+
+    # 14. the Cornell frame under each mode, against the same frame of
+    # phase 5's default run
+    ldr_default = c_ldrs[MODE_WARMUP + MODE_TIMED - 1].cpu().numpy()
+    del c_ldrs
+    mode_launches = {}
+    for mode, kernel, incull, on, floor in (
+            ("vpu", "vpu", False, vpu_kernels, VPU_DB),
+            ("mxu3", "mxu3", False, ["mxu_closest_hit", "any_hit"],
+             GOLDEN_DB),
+            ("mxuw8", "mxuw", False, ["mxu_closest_hit", "any_hit"],
+             GOLDEN_DB),
+            ("incull", "mxuf2", True, mxu_kernels, GOLDEN_DB)):
+        s = scenes.create_cornell_box(dev, kernel=kernel, incull=incull)
+        dt, rays, m_launches, ldrs = _run_frames(
+            torch, s, dev, MODE_WARMUP, MODE_TIMED, f"Cornell {mode}", on=on,
+            off=[k for k in every if k not in on])
+        p = _psnr(ldrs[-1].cpu().numpy(), ldr_default)
+        if not p >= floor:
+            raise AssertionError(f"Cornell {mode} frame: PSNR {p:.2f} dB "
+                                 f"against the default frame < {floor}")
+        mode_launches[mode] = m_launches
+        print(f"mode frame {mode}: "
+              + _frame_line(f"Cornell ReSTIR under {kernel}"
+                            f"{' + in-kernel cull' if incull else ''}",
+                            MODE_TIMED, dt, rays, m_launches, card)
+              + f"; PSNR {p:.2f} dB against the default frame (floor "
+              f"{floor})", flush=True)
+    # mxu1 renders no frame (the reference's own note: broken for
+    # rendering); its launches are those of one scene_trace call
+    s = scenes.create_cornell_box(dev, kernel="mxu1")
+    trace_api.reset_launch_counts()
+    trace_api.scene_trace(s, V3(*primary[0]), V3(*primary[1]), *p_win)
+    torch.cuda.synchronize()
+    mode_launches["mxu1"] = dict(trace_api.LAUNCHES)
+    print(f"mxu1: one scene_trace call on the primary rays: launches "
+          f"{mode_launches['mxu1']}", flush=True)
+
+    # 15. the 64^2 golden under mxu3
+    m_psnr = _golden_psnr(torch, scenes.create_cornell_box(dev,
+                                                           kernel="mxu3"),
+                          dev, 64, 8,
+                          os.path.join(golden_dir, "cornell_64_f8_ldr.npy"))
+    print(f"golden under mxu3: 64x64 Cornell, 8 frames: PSNR {m_psnr:.2f} dB "
+          f"vs tests/golden/cornell_64_f8_ldr.npy (floor {GOLDEN_DB})",
+          flush=True)
 
     n = TIMED_RAYS[-1]
 
@@ -680,6 +964,14 @@ def main() -> int:
         entry("stream_any_hit", "trace_stream.cu", 800,
               k_launches["stream_any_hit"], k3a_err,
               (k3_times[1], k3a_plain_ms), k3a_bound),
+        entry("vpu_closest_hit", "trace_vpu.cu", 1257,
+              mode_launches["vpu"]["vpu_closest_hit"], k5_err,
+              (k5_ms, k5_plain_ms), k1_bound),
+        *(entry(f"mxu_{'any' if a else 'closest'}_hit[{v}]", "trace_mxu.cu",
+                line, mode_launches[v][f"mxu_{'any' if a else 'closest'}_hit"],
+                k6[(v, a)][0], k6[(v, a)][1:3], k6[(v, a)][3])
+          for v, _, _, _, incull, line in MXU_VARIANTS
+          for a in ((False, True) if incull else (False,))),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

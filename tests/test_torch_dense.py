@@ -423,7 +423,7 @@ def test_knot_counts(knot):
     ref, port = knot
     assert port.num_triangles == 100804
     assert port.tri_planes.shape == (4, 3, 100864)      # 788 chunks
-    assert port.tri_planes.shape[2] > trace_api.STREAM_MIN_TP
+    assert port.tri_planes.shape[2] > trace_api.MXUF_MAX_TP
     assert trace_stream.stream_units(788) == (1, 788)
     assert port.num_lights == ref.num_lights == 1
     assert port.tex_channels == ref.tex_channels == frozenset(
@@ -432,13 +432,13 @@ def test_knot_counts(knot):
 
 
 def test_flat_scene_counts(flat_scenes):
-    """Both stay on K1's route: at or under STREAM_MIN_TP slots."""
+    """Both stay on K1's route: at or under MXUF_MAX_TP slots."""
     bunny, restir = flat_scenes["bunny"][1], flat_scenes["restir"][1]
     assert bunny.num_triangles == 15372
     assert bunny.tri_planes.shape[2] == 121 * 128
     assert restir.num_triangles == 32016 and restir.num_lights == 100
     for s in (bunny, restir):
-        assert s.tri_planes.shape[2] <= trace_api.STREAM_MIN_TP
+        assert s.tri_planes.shape[2] <= trace_api.MXUF_MAX_TP
 
 
 def test_knot_load_failure_leaves_floor_and_light(tmp_path, capsys):
@@ -557,7 +557,7 @@ TIE_IDS = (3 * 128 + 5, 60 * 128 + 7)   # one triangle, in two units
 
 
 def layered_scene(rays=512):
-    """Four z-slabs of random triangles just past STREAM_MIN_TP slots (as
+    """Four z-slabs of random triangles just past MXUF_MAX_TP slots (as
     tests/test_mxu_kernel.py:197-244 builds for the reference's streamed
     kernel), and coherent rays along +z from z = -1 whose blocks can
     leave after the first slab.
@@ -571,7 +571,7 @@ def layered_scene(rays=512):
     Returns (tri_planes, chunk_aabb, (o, d, t_min, t_max)): o and d
     [3, rays], 20% dead lanes."""
     g = np.random.default_rng(23)
-    per = (trace_api.STREAM_MIN_TP + trace_api.CT) // 4
+    per = (trace_api.MXUF_MAX_TP + trace_api.CT) // 4
     v0, e1, e2 = [], [], []
     for z in (1.0, 3.0, 5.0, 7.0):
         v = g.standard_normal((per, 3)).astype(np.float32)
@@ -612,7 +612,7 @@ def test_layered_scene_exact_sweep(layered):
     """The plain scan meets the reference's exact sweep on the layered
     scene, and the tie goes to the lower id."""
     planes, aabb, (o, d, t_min, t_max) = layered
-    assert planes.shape[2] > trace_api.STREAM_MIN_TP
+    assert planes.shape[2] > trace_api.MXUF_MAX_TP
     want = jax.jit(ref_trace._trace_brute_xla)(
         jnp.asarray(planes.numpy()), jnp.asarray(o.numpy().T),
         jnp.asarray(d.numpy().T), 1e-3, jnp.asarray(t_max.numpy()))

@@ -1,6 +1,5 @@
-"""The CUDA kernels K1, K2, K3 and K4, built with g++ under the host
-emulation `csrc/host/emulation/cuda_runtime.h`, against their plain
-versions.
+"""The CUDA kernels K1-K6, built with g++ under the host emulation
+`csrc/host/emulation/cuda_runtime.h`, against their plain versions.
 
 A CUDA kernel cannot run here; this holds the kernels' own source (its
 control flow, culling, staging and tie order) to the plain versions on
@@ -10,7 +9,8 @@ the card. K3 is also built with a smaller worklist (TPURT_MAX_UNITS),
 so that its units of several chunks run on a small scene. Tolerance:
 tri and inst equal on every lane and t bit-equal (measured: equal; the
 emulation's fmaf and -ffp-contract=off round as the kernels' __fmaf_rn
-and -fmad=false).
+and -fmad=false; its tensor-core product sums the exact bf16 products
+in f64 and rounds once, as K6's plain version does).
 """
 
 import ctypes
@@ -25,7 +25,8 @@ import torch
 
 from test_torch_dense import layered_scene
 from tpu_raytracer_torch.models import scenes
-from tpu_raytracer_torch.ops import trace_api, trace_inst, trace_stream
+from tpu_raytracer_torch.ops import (trace_api, trace_inst, trace_mxu,
+                                     trace_stream, trace_vpu, worklist)
 from tpu_raytracer_torch.runtime.build import CSRC_DIR
 from tpu_raytracer_torch.utils.vec3 import V3
 
@@ -60,24 +61,30 @@ def _build(out, names, defines=()):
         check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(so))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name in ("tpurt_closest_hit", "tpurt_any_hit",
-                 "tpurt_stream_closest_hit", "tpurt_stream_any_hit"):
+    signatures = {
+        "tpurt_closest_hit": [ptr] * 6 + [i32] * 2 + [ptr] * 3,
+        "tpurt_any_hit": [ptr] * 6 + [i32] * 2 + [ptr] * 3,
+        "tpurt_stream_closest_hit": [ptr] * 6 + [i32] * 2 + [ptr] * 3,
+        "tpurt_stream_any_hit": [ptr] * 6 + [i32] * 2 + [ptr] * 3,
+        "tpurt_inst_closest_hit": [ptr] * 9 + [i32] * 3 + [ptr] * 4,
+        "tpurt_inst_any_hit": [ptr] * 9 + [i32] * 3 + [ptr] * 4,
+        "tpurt_vpu_closest_hit": [ptr] * 7 + [i32] * 2 + [ptr] * 3,
+        "tpurt_mxu_closest_hit": [ptr] * 8 + [i32] * 5 + [ptr] * 3,
+        "tpurt_mxu_any_hit": [ptr] * 8 + [i32] * 3 + [ptr] * 3,
+    }
+    for name, argtypes in signatures.items():
         if hasattr(lib, name):
             fn = getattr(lib, name)
             fn.restype = i32
-            fn.argtypes = [ptr] * 6 + [i32] * 2 + [ptr] * 3
-    for name in ("tpurt_inst_closest_hit", "tpurt_inst_any_hit"):
-        if hasattr(lib, name):
-            fn = getattr(lib, name)
-            fn.restype = i32
-            fn.argtypes = [ptr] * 9 + [i32] * 3 + [ptr] * 4
+            fn.argtypes = argtypes
     return lib
 
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
     return _build(tmp_path_factory.mktemp("emulated"),
-                  ("trace", "trace_stream", "trace_inst"))
+                  ("trace", "trace_stream", "trace_inst", "trace_vpu",
+                   "trace_mxu"))
 
 
 def _rays(seed, lo, hi, t_far):
@@ -147,7 +154,7 @@ def _layered_rays(layered, rays):
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
 @pytest.mark.parametrize("rays", ["random", "coherent"])
 def test_streamed_kernel_matches_plain(lib, layered, rays, any_hit):
-    """K3 on the layered scene past STREAM_MIN_TP slots: random rays, and
+    """K3 on the layered scene past MXUF_MAX_TP slots: random rays, and
     the coherent rays whose blocks leave early and hit the exact-t tie
     across two units (tests/test_torch_dense.py:layered_scene)."""
     planes, aabb, _ = layered
@@ -247,3 +254,76 @@ def test_instanced_kernel_matches_plain(lib, galleries, which, any_hit):
              inst.data_ptr(), None)
     assert err == 0
     _check({"t": t, "tri": tri, "inst": inst}, want, t_max, any_hit)
+
+
+@pytest.fixture(scope="module")
+def cornell():
+    return scenes.create_cornell_box("cpu")
+
+
+def test_vpu_kernel_matches_plain(lib, cornell):
+    """K5 walks the worklists of `trace_vpu.vpu_worklists` and equals its
+    plain version and K1's plain scan on every lane."""
+    o, d, t_min, t_max = _rays(0, -0.95, 0.95, 3.0)
+    counts, chunk_list = trace_vpu.vpu_worklists(cornell.chunk_aabb, V3(*o),
+                                                 V3(*d), t_min, t_max)
+    want = trace_vpu.trace_vpu_plain(cornell.tri_planes, counts, chunk_list,
+                                     V3(*o), V3(*d), t_min, t_max)
+    t = torch.empty(RAYS)
+    tri = torch.empty(RAYS, dtype=torch.int32)
+    err = lib.tpurt_vpu_closest_hit(
+        o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
+        cornell.tri_planes.data_ptr(), counts.data_ptr(),
+        chunk_list.data_ptr(), RAYS, cornell.tri_planes.shape[2],
+        t.data_ptr(), tri.data_ptr(), None)
+    assert err == 0
+    _check({"t": t, "tri": tri}, want, t_max, False)
+    _check(want, trace_api.trace_plain(cornell.tri_planes, cornell.chunk_aabb,
+                                       V3(*o), V3(*d), t_min, t_max),
+           t_max, False)
+
+
+# (mode, grp, passes, incull, any_hit): every K6 variant a route takes, on
+# Cornell's 11 chunks (mxuw's units of 8 and incull's groups of 2 end short)
+K6_VARIANTS = [("mxu3", 1, 3, False, False), ("mxu1", 1, 1, False, False),
+               ("mxuw", 8, 3, False, False), ("incull", 2, 3, True, False),
+               ("incull_any", 2, 3, True, True)]
+
+
+@pytest.mark.parametrize("mode,grp,passes,incull,any_hit", K6_VARIANTS,
+                         ids=[v[0] for v in K6_VARIANTS])
+def test_mxu_kernel_matches_plain(lib, cornell, mode, grp, passes, incull,
+                                  any_hit):
+    """K6 under the emulation's mma (exact products summed in f64, one
+    rounding, as the plain version sums them) equals its plain version
+    bit for bit: the fragment layout, the worklist or in-kernel cull and
+    the window test all match."""
+    o, d, t_min, t_max = _rays(0, -0.95, 0.95, 3.0)
+    table = trace_mxu.kernel_table(cornell.tri_planes)
+    nc = cornell.chunk_aabb.shape[0]
+    if incull:
+        boxes = worklist.group_boxes(cornell.chunk_aabb, grp)
+        units = trace_mxu.incull_units(boxes, V3(*o), V3(*d), t_min, t_max)
+        args = (boxes.data_ptr(), None, None)
+    else:
+        counts, unit_list = trace_mxu.mxu_worklists(
+            cornell.chunk_aabb, grp, V3(*o), V3(*d), t_min, t_max)
+        units = trace_mxu.worklist_units(counts, unit_list)
+        args = (None, counts.data_ptr(), unit_list.data_ptr())
+    want = trace_mxu.trace_mxu_plain(table, units, grp, V3(*o), V3(*d),
+                                     t_min, t_max, passes, any_hit)
+    t = torch.empty(RAYS)
+    tri = torch.empty(RAYS, dtype=torch.int32)
+    common = (o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
+              table.data_ptr(), *args, RAYS, nc, grp)
+    if any_hit:
+        err = lib.tpurt_mxu_any_hit(*common, t.data_ptr(), tri.data_ptr(),
+                                    None)
+    else:
+        err = lib.tpurt_mxu_closest_hit(*common, passes, int(incull),
+                                        t.data_ptr(), tri.data_ptr(), None)
+    assert err == 0
+    got = {"t": t, "tri": tri}
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert (want["tri"] >= 0).any()

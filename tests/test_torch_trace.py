@@ -198,10 +198,11 @@ def test_cpu_tensors_never_launch_kernels(scenes):
     trace_api.scene_occluded(port, _v3(o), _v3(d), 1e-3,
                              torch.from_numpy(t_max),
                              active=torch.from_numpy(active))
-    assert trace_api.LAUNCHES == {"closest_hit": 0, "any_hit": 0,
-                                  "inst_closest_hit": 0, "inst_any_hit": 0,
-                                  "stream_closest_hit": 0,
-                                  "stream_any_hit": 0}
+    assert set(trace_api.LAUNCHES) >= {"closest_hit", "any_hit",
+                                       "inst_closest_hit", "inst_any_hit",
+                                       "stream_closest_hit",
+                                       "stream_any_hit"}
+    assert not any(trace_api.LAUNCHES.values()), trace_api.LAUNCHES
 
 
 def test_kernel_wrapper_refuses_cpu_tensors(scenes):

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ops.trace_api import check_mode
+from .ops.trace_mxu import mode_table
 from .scene.resources import CompiledScene
 
 _TABLES = ("tri_planes", "chunk_aabb", "tri_table", "mat_table",
@@ -27,14 +29,17 @@ def _tensor(x, device, dtype=None):
     return torch.as_tensor(np.array(x), dtype=dtype, device=device)
 
 
-def scene_from_reference(ref, device) -> CompiledScene:
+def scene_from_reference(ref, device, kernel: str = "mxuf2",
+                         incull: bool = False) -> CompiledScene:
     """A reference CompiledScene, flattened or instanced, whose array
-    fields are numpy -> this package's CompiledScene on `device`. The
-    reference's 12-wide quad-packed texels [L, H, W, 12] keep their first
-    texel, [..., :3]. Fields the port does not read (coef48, the refit
-    tables) stay behind."""
+    fields are numpy -> this package's CompiledScene on `device`, under
+    the trace-kernel mode (kernel, incull) with the coefficient table K6
+    reads built for it. The reference's 12-wide quad-packed texels
+    [L, H, W, 12] keep their first texel, [..., :3]. Fields the port does
+    not read (coef48, the refit tables) stay behind."""
+    tables = {k: _tensor(getattr(ref, k), device) for k in _TABLES}
     return CompiledScene(
-        **{k: _tensor(getattr(ref, k), device) for k in _TABLES},
+        **tables,
         materials={k: _tensor(v, device) for k, v in ref.materials.items()},
         lights={k: _tensor(v, device) for k, v in ref.lights.items()},
         color_tex=_tensor(np.asarray(ref.color_tex)[..., :3], device),
@@ -43,6 +48,10 @@ def scene_from_reference(ref, device) -> CompiledScene:
         num_instances=int(ref.num_instances),
         tex_channels=frozenset(ref.tex_channels),
         instanced=bool(ref.instanced),
+        kernel=check_mode(kernel),
+        incull=bool(incull),
+        coef48_t=mode_table(tables["tri_planes"], kernel, incull,
+                            bool(ref.instanced)),
     )
 
 

@@ -8,6 +8,10 @@
 //     threads because only one block runs at a time;
 //   - cp.async (<cuda_pipeline.h>) is a plain copy, made at once; commit
 //     and wait are no-ops;
+//   - the warp-level bf16 product of csrc/mma.cuh (mma_split) exchanges
+//     the fragments through a static buffer between two barriers and sums
+//     each output's exact products in f64, rounding once to f32; every
+//     thread of the block must call it the same number of times;
 //   - a launch `k<<<grid, block, 0, stream>>>(args)` must be rewritten
 //     to `emu_launch(k, grid, block)(args)` before compiling.
 // Build with -std=c++20 -ffp-contract=off (as nvcc's -fmad=false).
@@ -21,6 +25,7 @@
 #include <thread>
 #include <vector>
 
+#define TPURT_HOST_EMULATION 1
 #define __global__
 #define __device__
 #define __forceinline__ inline
@@ -33,11 +38,13 @@ struct dim3 {
     unsigned x = 1, y = 1, z = 1;
     dim3(unsigned a = 1) : x(a) {}
 };
-inline thread_local dim3 threadIdx, blockIdx;
+inline thread_local dim3 threadIdx, blockIdx, gridDim;
 using cudaStream_t = void*;
+constexpr int cudaErrorInvalidValue = 1;
 inline int cudaGetLastError() { return 0; }
 inline float __ldg(const float* p) { return *p; }
 inline int32_t __ldg(const int32_t* p) { return *p; }
+inline uint32_t __ldg(const uint32_t* p) { return *p; }
 inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
 inline unsigned __float_as_uint(float x) {
     unsigned u;
@@ -72,6 +79,62 @@ inline int __syncthreads_or(int p) {
     return r;
 }
 
+// mma_split (csrc/mma.cuh): c[m][n] = A_m . B_n over K = 16 for a warp's
+// mt row tiles of 16 and nq column tiles of 8, from bf16 hi/lo fragments in
+// the PTX ISA's m16n8k16 layout; passes 3 sums hi*hi + hi*lo + lo*hi.
+constexpr int EMU_MAX_MT = 4, EMU_MAX_NQ = 4;
+struct EmuFrags {
+    uint32_t a[2][EMU_MAX_MT][4];      // [hi | lo][m][register]
+    uint32_t b[2][EMU_MAX_NQ][2];
+};
+
+inline float emu_bf16(uint32_t word, int half) {
+    const unsigned bits = (word >> (16 * half)) & 0xffffu;
+    return __uint_as_float(bits << 16);
+}
+
+inline void emu_mma_split(int passes, int mt, int nq, float* c,
+                          const uint32_t* a_hi, const uint32_t* a_lo,
+                          const uint32_t* b_hi, const uint32_t* b_lo) {
+    static EmuFrags frags[1024];
+    const unsigned tid = threadIdx.x;
+    __syncthreads();                 // the last call's reads are done
+    EmuFrags& mine = frags[tid];
+    std::memcpy(mine.a[0], a_hi, sizeof(uint32_t) * 4 * mt);
+    std::memcpy(mine.a[1], a_lo, sizeof(uint32_t) * 4 * mt);
+    std::memcpy(mine.b[0], b_hi, sizeof(uint32_t) * 2 * nq);
+    std::memcpy(mine.b[1], b_lo, sizeof(uint32_t) * 2 * nq);
+    __syncthreads();
+    const unsigned warp = tid / 32 * 32, g = tid % 32 / 4, q = tid % 4;
+    // A[row][k] of row tile m, operand half s (0 hi, 1 lo)
+    auto a_at = [&](int s, int m, int row, int k) {
+        const EmuFrags& f = frags[warp + (row % 8) * 4 + (k % 8) / 2];
+        return emu_bf16(f.a[s][m][row / 8 + 2 * (k / 8)], k % 2);
+    };
+    // B[k][col] of column tile n
+    auto b_at = [&](int s, int n, int k, int col) {
+        const EmuFrags& f = frags[warp + col * 4 + (k % 8) / 2];
+        return emu_bf16(f.b[s][n][k / 8], k % 2);
+    };
+    for (int m = 0; m < mt; ++m) {
+        for (int n = 0; n < nq; ++n) {
+            for (int e = 0; e < 4; ++e) {
+                const int row = g + 8 * (e / 2), col = 2 * q + e % 2;
+                double s = 0.0;
+                for (int k = 0; k < 16; ++k) {
+                    const double ah = a_at(0, m, row, k), bh = b_at(0, n, k, col);
+                    s += ah * bh;
+                    if (passes == 3) {
+                        s += ah * double(b_at(1, n, k, col));
+                        s += double(a_at(1, m, row, k)) * bh;
+                    }
+                }
+                c[(m * nq + n) * 4 + e] = static_cast<float>(s);
+            }
+        }
+    }
+}
+
 template <class F>
 struct EmuLaunch {
     F f;
@@ -87,6 +150,7 @@ struct EmuLaunch {
                 threads.emplace_back([&, t, b] {
                     threadIdx = dim3(t);
                     blockIdx = dim3(b);
+                    gridDim = grid;
                     f(a...);
                 });
             }

@@ -1,5 +1,6 @@
 // Device code shared by the traversal kernels (trace.cu: K1, K2;
-// trace_inst.cu: K4; trace_stream.cu: K3): the ray record, the padded
+// trace_inst.cu: K4; trace_stream.cu: K3; trace_vpu.cu: K5; trace_mxu.cu:
+// K6, the ray record and slab test only): the ray record, the padded
 // slab test and its entry distance, staging of triangle planes into
 // shared memory, and the exact-f32 Moller-Trumbore test. One copy, so
 // every kernel runs the same arithmetic.
@@ -121,15 +122,16 @@ __device__ __forceinline__ void stage(Tris<N>& sh,
     }
 }
 
-// Moller-Trumbore against staged triangle i in the operation order of the
-// plain version; returns t, or INF_T when the triangle is missed or t is
-// outside (ray.t_min, t_hi).
-template <int N>
-__device__ __forceinline__ float intersect(const Tris<N>& sh, int i,
-                                           const Ray& ray, float t_hi) {
+// Moller-Trumbore in the operation order of the plain version against the
+// triangle whose plane p (0 v0, 1 e1, 2 e2, 3 the validity row), component
+// k, is `tri(p, k)`; returns t, or INF_T when the triangle is missed or t
+// is outside (ray.t_min, t_hi).
+template <class Tri>
+__device__ __forceinline__ float mt_test(const Tri& tri, const Ray& ray,
+                                         float t_hi) {
     const float dx = ray.d[0], dy = ray.d[1], dz = ray.d[2];
-    const float e1x = sh.e1[0][i], e1y = sh.e1[1][i], e1z = sh.e1[2][i];
-    const float e2x = sh.e2[0][i], e2y = sh.e2[1][i], e2z = sh.e2[2][i];
+    const float e1x = tri(1, 0), e1y = tri(1, 1), e1z = tri(1, 2);
+    const float e2x = tri(2, 0), e2y = tri(2, 1), e2z = tri(2, 2);
     // cross(a, b).x = fma(a.y, b.z, -(a.z * b.y));
     // dot(a, b) = fma(a.z, b.z, fma(a.y, b.y, a.x * b.x))
     const float px = __fmaf_rn(dy, e2z, -(dz * e2y));
@@ -138,18 +140,31 @@ __device__ __forceinline__ float intersect(const Tris<N>& sh, int i,
     const float det = __fmaf_rn(e1z, pz, __fmaf_rn(e1y, py, e1x * px));
     const bool ok = fabsf(det) > MT_EPS;
     const float inv = ok ? 1.0f / det : 0.0f;
-    const float tx = ray.o[0] - sh.v0[0][i];
-    const float ty = ray.o[1] - sh.v0[1][i];
-    const float tz = ray.o[2] - sh.v0[2][i];
+    const float tx = ray.o[0] - tri(0, 0);
+    const float ty = ray.o[1] - tri(0, 1);
+    const float tz = ray.o[2] - tri(0, 2);
     const float u = __fmaf_rn(tz, pz, __fmaf_rn(ty, py, tx * px)) * inv;
     const float qx = __fmaf_rn(ty, e1z, -(tz * e1y));
     const float qy = __fmaf_rn(tz, e1x, -(tx * e1z));
     const float qz = __fmaf_rn(tx, e1y, -(ty * e1x));
     const float v = __fmaf_rn(dz, qz, __fmaf_rn(dy, qy, dx * qx)) * inv;
     const float t = __fmaf_rn(e2z, qz, __fmaf_rn(e2y, qy, e2x * qx)) * inv;
-    const bool hit = ok && sh.valid[i] > 0.5f && u >= 0.0f && v >= 0.0f &&
+    const bool hit = ok && tri(3, 0) > 0.5f && u >= 0.0f && v >= 0.0f &&
                      u + v <= 1.0f && t > ray.t_min && t < t_hi;
     return hit ? t : INF_T;
+}
+
+// mt_test against staged triangle i.
+template <int N>
+__device__ __forceinline__ float intersect(const Tris<N>& sh, int i,
+                                           const Ray& ray, float t_hi) {
+    const auto tri = [&sh, i](int p, int k) {
+        return p == 0 ? sh.v0[k][i]
+               : p == 1 ? sh.e1[k][i]
+               : p == 2 ? sh.e2[k][i]
+                        : sh.valid[i];
+    };
+    return mt_test(tri, ray, t_hi);
 }
 
 }  // namespace tpurt

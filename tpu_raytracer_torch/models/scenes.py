@@ -17,10 +17,11 @@ from ..utils.math3d import hsv_to_rgb, rotation_x, rotation_y, rotation_z, \
 PI = np.pi
 
 
-def create_cornell_box(device):
+def create_cornell_box(device, kernel: str = "mxuf2", incull: bool = False):
     """scenes.rs:9-130: checker floor, colored walls, quad ceiling light,
     glass crystal with an internal blue sphere light, rough-metal tall
-    box. 1,320 triangles in 11 chunks of 128."""
+    box. 1,320 triangles in 11 chunks of 128. kernel, incull: the
+    trace-kernel mode (`SceneBuilder.build`)."""
     b = SceneBuilder()
 
     plane_id = b.add_mesh(create_plane())
@@ -67,7 +68,7 @@ def create_cornell_box(device):
         translation([-0.35, -0.4 + 0.002, -0.3]) @ rotation_y(0.4)
         @ scale([0.6, 1.2, 0.6]))
 
-    return b.build(device)
+    return b.build(device, kernel=kernel, incull=incull)
 
 
 def create_instancing_gallery_scene(device, n: int = 100, subdiv: int = 4):

@@ -2,19 +2,23 @@
 (`scene_occluded`).
 
 Port of `tpu_raytracer/ops/trace_api.py`. Dispatch is by the scene's
-kind and the rays' device and nothing else:
-  - flattened scene, CPU tensor: the plain PyTorch version, `trace_plain`
-    (a chunked exact-f32 Moller-Trumbore scan with a running arg-min, the
-    twin of the reference's `_trace_brute_xla`);
-  - flattened scene, CUDA tensor: kernel K1 (`tpurt_closest_hit`), or K2
-    (`tpurt_any_hit`) for `any_hit=True`, from `csrc/trace.cu`; past
-    STREAM_MIN_TP triangle slots, kernel K3 (`ops/trace_stream.py`,
-    `csrc/trace_stream.cu`), both queries, which sweeps entry-sorted
-    per-block worklists front to back with an early exit;
-  - instanced scene: `ops/trace_inst.py`, the plain version on a CPU
-    tensor and kernel K4 on a CUDA tensor.
-A CUDA tensor never takes a plain version: the kernel launches or the
-call raises.
+kind, its trace-kernel mode (`kernel`, `incull`: `trace_route`) and the
+rays' device and nothing else. A flattened scene under the default mode
+(`mxuf*`, `mxuv*`):
+  - CPU tensor: the plain PyTorch version, `trace_plain` (a chunked
+    exact-f32 Moller-Trumbore scan with a running arg-min, the twin of
+    the reference's `_trace_brute_xla`);
+  - CUDA tensor: kernel K1 (`tpurt_closest_hit`), or K2 (`tpurt_any_hit`)
+    for `any_hit=True`, from `csrc/trace.cu`; past MXUF_MAX_TP triangle
+    slots, kernel K3 (`ops/trace_stream.py`, `csrc/trace_stream.cu`),
+    both queries, which sweeps entry-sorted per-block worklists front to
+    back with an early exit.
+The other modes take K5 (`vpu`: `ops/trace_vpu.py`) or K6 (`mxu3`,
+`mxu1`, `mxuw[N]` and the in-kernel cull: `ops/trace_mxu.py`), each a
+plain version on a CPU tensor and the kernel on a CUDA tensor. An
+instanced scene ignores the mode: `ops/trace_inst.py`, the plain version
+on a CPU tensor and kernel K4 on a CUDA tensor. A CUDA tensor never takes
+a plain version: the kernel launches or the call raises.
 
 Every path returns the reference's layout, {"t": [R] f32, "tri": [R]
 i32}, plus "inst": [R] i32 for an instanced scene: closest-hit gives
@@ -27,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 
 import numpy as np
@@ -39,21 +44,72 @@ INF = 3.0e38
 CT = 128          # triangles per chunk: the kernels' cull granularity
 MT_EPS = 1e-9
 DIR_EPS = 1e-12   # |d| below this is clamped before the slab test's 1/d
-# Flattened scenes with more triangle slots than this take K3 on the card:
-# the reference's route to its streamed kernel (MXUF_MAX_TP,
-# tpu_raytracer/ops/pallas_trace.py:1554-1559), set by the TPU's VMEM,
-# not yet by a measurement on the H100.
-STREAM_MIN_TP = 32 * 1024
+# The reference's caps on its mode chain (tpu_raytracer/ops/pallas_trace.py
+# :201-204, 1485-1565), in triangle slots, set by the TPU's VMEM and not
+# yet by a measurement on the H100. Past MXUF_MAX_TP a flattened scene's
+# default route is K3 (the reference's streamed kernel); past MXUW_MAX_TP
+# `mxuw` falls to `mxu3`, and past MXU_MAX_TP `mxu3`/`mxu1` to `vpu`.
+MXUF_MAX_TP = 32 * 1024
+MXUW_MAX_TP = 48 * 1024
+MXU_MAX_TP = 48 * 1024
+MXUW_GROUP = 8    # chunks per unit of `mxuw` without a number (GROUP)
+INCULL_MAX_CHUNKS = 64   # the in-kernel cull's scenes (:1486)
+
+# The trace-kernel modes a scene may name (`SceneBuilder.build(kernel=)`,
+# the reference's TPU_RT_KERNEL): the default fused modes mxuf[N] and
+# mxuv[N], the wide mxuw[N], the one-chunk mxu3 and mxu1, and vpu.
+_MODE = re.compile(r"(mxuf|mxuv|mxuw)([1-9][0-9]*)?|mxu[13]|vpu")
 
 # Launches of each kernel, counted where the wrapper launches it (and
 # nowhere else), so a run can show which kernels its main path reached.
 LAUNCHES = {"closest_hit": 0, "any_hit": 0, "inst_closest_hit": 0,
-            "inst_any_hit": 0, "stream_closest_hit": 0, "stream_any_hit": 0}
+            "inst_any_hit": 0, "stream_closest_hit": 0, "stream_any_hit": 0,
+            "vpu_closest_hit": 0, "mxu_closest_hit": 0, "mxu_any_hit": 0}
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def check_mode(kernel: str) -> str:
+    """`kernel` if it names a trace-kernel mode, else ValueError."""
+    if not isinstance(kernel, str) or not _MODE.fullmatch(kernel):
+        raise ValueError(f"kernel={kernel!r}: want mxuf[N], mxuv[N], "
+                         f"mxuw[N], mxu3, mxu1 or vpu")
+    return kernel
+
+
+def trace_route(kernel: str, incull: bool, tp: int, any_hit: bool):
+    """(route, grp, passes) of a flattened scene's query under mode
+    `kernel` (with the in-kernel cull if `incull`) at `tp` triangle
+    slots: the reference's mode chain (pallas_trace.py:1485-1565) in its
+    order, less its TPU mechanics. Routes:
+      "incull" - K6 with the in-kernel group cull, closest- and any-hit,
+                 grp 2 (<= 48 chunks) or 4 (#5; mxuf* only);
+      "vpu"    - K5 for both queries (any-hit reads `tri >= 0`) (#8);
+      "mxu"    - K6 over worklists of grp-chunk units, closest-hit only,
+                 passes 3 or 1 (#7: mxu3, mxu1; #6: mxuw[N], grp N);
+      "swept"  - K1 / K2, the default (#1-#3);
+      "stream" - K3 past MXUF_MAX_TP slots (#4).
+    An any-hit query of every mode but vpu takes swept or stream, as the
+    reference remaps it to its any-hit kernel (:1547-1551)."""
+    nc = tp // CT
+    if (incull and kernel.startswith("mxuf") and nc <= INCULL_MAX_CHUNKS
+            and tp <= MXUF_MAX_TP):
+        return "incull", 2 if nc <= 48 else 4, 3
+    mode = "any" if any_hit and kernel != "vpu" else kernel
+    if mode.startswith("mxuw") and tp > MXUW_MAX_TP:
+        mode = "mxu3"
+    if mode in ("mxu3", "mxu1") and tp > MXU_MAX_TP:
+        mode = "vpu"
+    if mode == "vpu":
+        return "vpu", 1, 0
+    if mode.startswith("mxuw"):
+        return "mxu", int(mode[4:] or MXUW_GROUP), 3
+    if mode in ("mxu3", "mxu1"):
+        return "mxu", 1, int(mode[3])
+    return ("stream" if tp > MXUF_MAX_TP else "swept"), 1, 0
 
 
 def pack_triangles(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray):
@@ -236,6 +292,8 @@ def trace_plain(tri_planes, chunk_aabb, o: V3, d: V3, t_min, t_max):
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-fmad=false", "-Xptxas", "-v"]
+KERNEL_SOURCES = ("trace.cu", "trace_stream.cu", "trace_inst.cu",
+                  "trace_vpu.cu", "trace_mxu.cu")
 
 
 def _nvcc() -> str:
@@ -248,14 +306,14 @@ def _nvcc() -> str:
 
 def load_kernels() -> ctypes.CDLL:
     """Build the traversal kernels K1, K2 (`csrc/trace.cu`), K3
-    (`csrc/trace_stream.cu`) and K4 (`csrc/trace_inst.cu`) into one
-    library with one nvcc call for sm_90a (at first use, cached by source
-    hash) and bind them."""
+    (`csrc/trace_stream.cu`), K4 (`csrc/trace_inst.cu`), K5
+    (`csrc/trace_vpu.cu`) and K6 (`csrc/trace_mxu.cu`) into one library
+    with one nvcc call for sm_90a (at first use, cached by source hash)
+    and bind them."""
     lib = load_library(
-        "trace_kernels",
-        [os.path.join(CSRC_DIR, f)
-         for f in ("trace.cu", "trace_stream.cu", "trace_inst.cu")],
-        [_nvcc(), *NVCC_FLAGS], headers=[os.path.join(CSRC_DIR, "mt.cuh")])
+        "trace_kernels", [os.path.join(CSRC_DIR, f) for f in KERNEL_SOURCES],
+        [_nvcc(), *NVCC_FLAGS],
+        headers=[os.path.join(CSRC_DIR, f) for f in ("mt.cuh", "mma.cuh")])
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.tpurt_closest_hit, lib.tpurt_any_hit,
                lib.tpurt_stream_closest_hit, lib.tpurt_stream_any_hit):
@@ -264,6 +322,12 @@ def load_kernels() -> ctypes.CDLL:
     for fn in (lib.tpurt_inst_closest_hit, lib.tpurt_inst_any_hit):
         fn.restype = i32
         fn.argtypes = [ptr] * 9 + [i32] * 3 + [ptr] * 4
+    lib.tpurt_vpu_closest_hit.restype = i32
+    lib.tpurt_vpu_closest_hit.argtypes = [ptr] * 7 + [i32] * 2 + [ptr] * 3
+    lib.tpurt_mxu_closest_hit.restype = i32
+    lib.tpurt_mxu_closest_hit.argtypes = [ptr] * 8 + [i32] * 5 + [ptr] * 3
+    lib.tpurt_mxu_any_hit.restype = i32
+    lib.tpurt_mxu_any_hit.argtypes = [ptr] * 8 + [i32] * 3 + [ptr] * 3
     return lib
 
 
@@ -339,15 +403,24 @@ def scene_trace(scene, ray_o: V3, ray_d: V3, t_min, t_max, any_hit=False,
     t_max = _lanes(t_max, r, device)
     if active is not None:
         t_max = torch.where(active, t_max, 0.0)
-    if scene.instanced:
-        # imported here: trace_inst builds on this module
-        from . import trace_inst
-        if device.type == "cpu":
+    # imported here: these modules build on this one
+    from . import trace_inst, trace_mxu, trace_vpu
+    name, grp, passes = ("instanced", 1, 0) if scene.instanced else \
+        trace_route(scene.kernel, scene.incull, scene.tri_planes.shape[2],
+                    any_hit)
+    if name == "vpu":
+        return trace_vpu.trace_vpu(scene.tri_planes, scene.chunk_aabb, ray_o,
+                                   ray_d, t_min, t_max)
+    if name in ("mxu", "incull"):
+        return trace_mxu.trace_mxu(scene.coef48_t, scene.chunk_aabb, ray_o,
+                                   ray_d, t_min, t_max, grp, passes,
+                                   incull=name == "incull", any_hit=any_hit)
+    if device.type == "cpu":
+        if scene.instanced:
             return trace_inst.trace_instanced_plain(
                 scene.tri_planes, scene.obj_group_aabb, scene.inst_table,
                 scene.inst_aabb, scene.unit_inst, scene.unit_group, ray_o,
                 ray_d, t_min, t_max)
-    elif device.type == "cpu":
         return trace_plain(scene.tri_planes, scene.chunk_aabb, ray_o, ray_d,
                            t_min, t_max)
     o = torch.stack([ray_o.x, ray_o.y, ray_o.z])
@@ -358,8 +431,7 @@ def scene_trace(scene, ray_o: V3, ray_d: V3, t_min, t_max, any_hit=False,
             scene.tri_planes, scene.obj_group_aabb, scene.inst_table,
             scene.inst_aabb, scene.inst_group_span, o, d, t_min, t_max,
             any_hit=any_hit)
-    if scene.tri_planes.shape[2] > STREAM_MIN_TP:
-        # imported here: trace_stream builds on this module
+    if name == "stream":
         from .trace_stream import trace_stream_kernel
         return trace_stream_kernel(scene.tri_planes, scene.chunk_aabb, o, d,
                                    t_min, t_max, any_hit=any_hit)

@@ -1,5 +1,5 @@
 """Front-to-back streamed ray queries for flattened scenes past
-STREAM_MIN_TP triangle slots: per-block worklists sorted by entry
+MXUF_MAX_TP triangle slots: per-block worklists sorted by entry
 distance, swept in order with an early exit (the reference's
 `_mt_kernel_mxus` route, `tpu_raytracer/ops/pallas_trace.py:800,1326,
 1554-1628`).

@@ -3,6 +3,7 @@ kernel time by name, the device's busy share and the kernel launches
 the host issues.
 
     python -m tpu_raytracer_torch.profile_frame --scene knot
+    python -m tpu_raytracer_torch.profile_frame --scene cornell --kernel vpu
 
 Renders WARMUP frames at SIZE², times `--frames` frames between
 `torch.cuda.synchronize()` calls, then records the same number of frames
@@ -45,7 +46,16 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--scene", choices=sorted(SCENES), default="gallery")
     p.add_argument("--frames", type=int, default=2)
+    p.add_argument("--kernel", default="mxuf2",
+                   help="the Cornell scene's trace-kernel mode "
+                        "(SceneBuilder.build(kernel=))")
+    p.add_argument("--incull", action="store_true",
+                   help="the Cornell scene's in-kernel cull")
     args = p.parse_args(argv)
+    mode = {"kernel": args.kernel, "incull": args.incull}
+    if args.scene != "cornell" and mode != {"kernel": "mxuf2",
+                                            "incull": False}:
+        p.error("--kernel and --incull apply to --scene cornell")
     if not torch.cuda.is_available():
         raise SystemExit("profile_frame: no CUDA device")
     card = subprocess.run(
@@ -53,7 +63,8 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     dev = torch.device("cuda:0")
-    scene = getattr(scenes, SCENES[args.scene])(dev)
+    scene = getattr(scenes, SCENES[args.scene])(
+        dev, **(mode if args.scene == "cornell" else {}))
     cam = camera.CameraController()
     w = h = SIZE
     state = pipeline.init_state(w, h, dev)
@@ -93,7 +104,7 @@ def main(argv=None) -> int:
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                 "cudaLaunchKernelExC")) / args.frames
     print(json.dumps({
-        "scene": args.scene, "size": SIZE, "card": card,
+        "scene": args.scene, **mode, "size": SIZE, "card": card,
         "wall_ms_per_frame": wall_ms,
         "profiled_wall_ms_per_frame": prof_wall_ms,
         "device_ms_per_frame": device_ms,

@@ -16,8 +16,9 @@ import numpy as np
 import torch
 
 from ..ops import bvh as bvh_ops
-from ..ops.trace_api import pack_triangles
+from ..ops.trace_api import MXUF_MAX_TP, check_mode, pack_triangles
 from ..ops.trace_inst import GROUP, INST_COLS, pack_triangles_instanced
+from ..ops.trace_mxu import mode_table
 from ..utils import math3d
 from . import light as light_mod
 from .geometry import Mesh
@@ -29,9 +30,8 @@ TEXTURE_SIZE = 1024  # reference: scene/mod.rs TEXTURE_WIDTH/HEIGHT = 1024
 # The reference's routing caps, which its instancing="auto" rule reads
 # (tpu_raytracer/ops/trace_api.py:45, ops/pallas_trace.py:203): world
 # triangles beyond the swept path's cap, and object triangle slots within
-# its instanced kernel's VMEM-resident cap.
+# its instanced kernel's VMEM-resident cap (MXUF_MAX_TP).
 BRUTE_FORCE_MAX_TRIS = 2 * 1024 * 1024
-MXUF_MAX_TP = 32 * 1024
 
 
 def _oct_decode_np(e: np.ndarray) -> np.ndarray:
@@ -213,7 +213,8 @@ class SceneBuilder:
         return (_cat(local_v0, 3), _cat(local_e1, 3), _cat(local_e2, 3),
                 mesh_tri_off)
 
-    def build(self, device, instancing: str = "auto") -> CompiledScene:
+    def build(self, device, instancing: str = "auto", kernel: str = "mxuf2",
+              incull: bool = False) -> CompiledScene:
         """Compile the scene onto `device` (builder.py:255-565 of the
         reference).
 
@@ -221,9 +222,16 @@ class SceneBuilder:
         (builder.py:282-305): "on" keeps one object-space block per mesh
         and instances as transforms (`_build_instanced`); "auto" does so
         only when flattening would pass the swept path's triangle cap
-        while the unique meshes stay within the instanced block's cap."""
+        while the unique meshes stay within the instanced block's cap.
+        kernel, incull: the trace-kernel mode of a flattened scene's
+        queries (`trace_api.trace_route`; the reference's TPU_RT_KERNEL
+        and TPU_RT_INCULL), stored on the scene with the coefficient table
+        K6 reads when a route of the mode takes it (built once here, as
+        the reference's builder builds `coef48` for its mode). Instanced
+        scenes keep the mode and ignore it."""
         if instancing not in ("auto", "on", "off"):
             raise ValueError(f"instancing={instancing!r}")
+        mode = {"kernel": check_mode(kernel), "incull": bool(incull)}
         t_world = sum(self.meshes[m].num_triangles
                       for m, _, _ in self.instances)
         used = sorted({m for m, _, _ in self.instances})
@@ -232,7 +240,7 @@ class SceneBuilder:
         if instancing == "on" or (
                 instancing == "auto" and t_world > BRUTE_FORCE_MAX_TRIS
                 and tp_obj <= MXUF_MAX_TP):
-            return self._build_instanced(device)
+            return self._build_instanced(device, mode)
 
         # 1. per-mesh local triangles
         local_v0, local_e1, local_e2, mesh_tri_off = self._local_triangles()
@@ -303,7 +311,7 @@ class SceneBuilder:
 
         f, i = np.float32, np.int32
         return self._compile(
-            device, instanced=False,
+            device, instanced=False, mode=mode,
             tri_planes=tri_planes,
             chunk_aabb=chunk_aabb,
             tri_table=tri_table.astype(f),
@@ -318,7 +326,7 @@ class SceneBuilder:
             unit_inst=np.zeros((0,), i),
             unit_group=np.zeros((0,), i))
 
-    def _build_instanced(self, device) -> CompiledScene:
+    def _build_instanced(self, device, mode: dict) -> CompiledScene:
         """Two-level compile (builder.py:567-771 of the reference): one
         object-space block per used mesh, padded to whole groups so no
         group spans two meshes; per instance a world->object affine,
@@ -392,7 +400,7 @@ class SceneBuilder:
             unit_group.extend(range(base_g, base_g + ng))
 
         return self._compile(
-            device, instanced=True,
+            device, instanced=True, mode=mode,
             tri_planes=obj_planes,
             chunk_aabb=np.zeros((1, 8), f),      # flattened only
             tri_table=tri_table,
@@ -406,9 +414,10 @@ class SceneBuilder:
             unit_inst=np.asarray(unit_inst, i),
             unit_group=np.asarray(unit_group, i))
 
-    def _compile(self, device, instanced: bool, **arrays) -> CompiledScene:
+    def _compile(self, device, instanced: bool, mode: dict,
+                 **arrays) -> CompiledScene:
         """Move the geometry `arrays` and the material, light and texture
-        tables onto `device`."""
+        tables onto `device`, with the trace-kernel `mode`."""
         materials, mat_table, tex_channels, lights, light_table = \
             self._pack_tables()
 
@@ -421,8 +430,9 @@ class SceneBuilder:
             # (builder.py:551-554), so sampled values match
             return dev(np.stack(images).astype(np.float32), torch.bfloat16)
 
+        tensors = {k: dev(v) for k, v in arrays.items()}
         return CompiledScene(
-            **{k: dev(v) for k, v in arrays.items()},
+            **tensors,
             mat_table=dev(mat_table),
             light_table=dev(light_table),
             materials={k: dev(v) for k, v in materials.items()},
@@ -433,4 +443,7 @@ class SceneBuilder:
             num_instances=len(self.instances),
             tex_channels=tex_channels,
             instanced=instanced,
+            **mode,
+            coef48_t=mode_table(tensors["tri_planes"], instanced=instanced,
+                                **mode),
         )

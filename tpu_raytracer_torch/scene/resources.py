@@ -13,6 +13,7 @@ fields in their empty forms.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -64,6 +65,13 @@ class CompiledScene:
     tex_channels: frozenset
     # traces of an instanced scene return (t, object tri, inst)
     instanced: bool
+    # the trace-kernel mode of a flattened scene's queries
+    # (`ops/trace_api.py:trace_route`), and K6's coefficient table
+    # [Tp/128 * 512, 48] bf16 (`ops/trace_mxu.py:kernel_table`) when a
+    # route of the mode reads it
+    kernel: str = "mxuf2"
+    incull: bool = False
+    coef48_t: Optional[torch.Tensor] = None
 
     @property
     def num_triangles(self) -> int:
