@@ -9,10 +9,11 @@ is non-zero):
                 limit as nvidia-smi reports them.
   2. build    - builds kernels K1 (closest-hit), K2 (any-hit), K3
                 (streamed closest- and any-hit), K4 (instanced closest-
-                and any-hit), K5 (the vpu sweep) and K6 (the tensor-core
-                test) from tpu_raytracer_torch/csrc/{trace,trace_stream,
-                trace_inst,trace_vpu,trace_mxu}.cu for sm_90a with one
-                nvcc call.
+                and any-hit), K5 (the vpu sweep), K6 (the tensor-core
+                test) and K7 (the table gather of the row fetches) from
+                tpu_raytracer_torch/csrc/{trace,trace_stream,trace_inst,
+                trace_vpu,trace_mxu,gather}.cu for sm_90a with one nvcc
+                call.
   3. K1       - against its plain PyTorch version on the card: Cornell
                 512^2 primary rays and 524,288 random rays (random t_max,
                 30% dead lanes). tri equal on every lane, t within T_ULPS.
@@ -76,10 +77,35 @@ is non-zero):
                 reference calls it broken for rendering): one scene_trace
                 call on the primary rays counts its launch.
  15. golden   - the 64^2 Cornell golden under mxu3, PSNR >= GOLDEN_DB.
-Then one JSON line of per-kernel results (time, plain time and bound at
-524,288 random rays; launches on each kernel's frames), and last the
-device line {"ok": true, "device": {...}}. Without a CUDA device it exits
-with 1 and prints no result.
+ 16. K7       - the table gather against its plain version on the card,
+                bit for bit: Cornell's tri_table and mat_table, the knot's
+                tri_table, the gallery's inst_table and the restir scene's
+                light_table (100 lights), at GATHER_RAYS random indices
+                (negative ones and ones past the table included). Timed
+                beside the plain version and one torch.index_select call
+                on the transposed table (the yardstick, `library_ms`).
+ 17. fetch    - the first 2 Cornell 512^2 frames again with
+                hit.fetch_cols set to the plain gather (here only, never
+                in the package): K7 not launched, and the images equal to
+                phase 5's (a gather is a copy), PSNR >= VPU_DB.
+ 18. config 1 - bench.py's config-1 sequence: the diffuse Cornell box at
+                512^2, PROGRESSIVE_FRAMES render_progressive frames, the
+                first 2 untimed: fps_1spp_progressive.
+ 19. config 5 - bench.py's config-5 sequence on the Cornell box at
+                3840 x 2160 as one frame: frame 0, frame 1 and a warm-up
+                denoised_screenshot, then frame 2 and its denoise timed
+                (s_per_denoised_frame), then frames 3-31 accumulate;
+                denoised_psnr_vs_32spp_3840x2160 (the denoised frame 2
+                against the 32-frame accumulation, both through
+                resolve_tonemap) must be finite and above the un-denoised
+                frame 2's. Peak device memory of a frame and of the
+                denoise; the ScreenshotSaver's PNG read back.
+Every frame phase (5, 6, 8, 10, 11, 14, 15, 18, 19) also checks that K7
+launched and prints its launches a frame. Then one JSON line of
+per-kernel results (K1-K6: time, plain time and bound at 524,288 random
+rays; K7: at 524,288 rows of Cornell's tri_table; launches on each
+kernel's frames), and last the device line {"ok": true, "device":
+{...}}. Without a CUDA device it exits with 1 and prints no result.
 
 A kernel's bound is the least time the card could take for the work
 this run's rays need: the ray-triangle tests (MT_FLOPS each, counted from
@@ -96,13 +122,16 @@ BF16_PEAK (the H100 SXM's dense bf16 tensor rate, 989 TFLOP/s, NVIDIA
 data sheet); its window tests, WINDOW_FLOPS for each such ray and valid
 triangle, at FP32_PEAK; and its bytes (rays, coefficient table,
 worklists or group boxes, outputs) at HBM_PEAK. Any-hit counts one test
-and one chunk for an occluded ray, as K2's bound does.
+and one chunk for an occluded ray, as K2's bound does. K7's bound is its
+bytes alone: each index read once, each output word written once and
+the table read once, at HBM_PEAK.
 """
 
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -139,6 +168,9 @@ MXU_VARIANTS = (("mxu3", "mxu3", 1, 3, False, 1186),
                 ("mxu1", "mxu1", 1, 1, False, 1186),
                 ("mxuw8", "mxuw", 8, 3, False, 1070),
                 ("incull", "mxuf2", None, 3, True, 701))
+GATHER_RAYS = (262144, 524288, 3840 * 2160)   # K7's index counts
+PROGRESSIVE_FRAMES = 34    # config 1 (bench.py:151-172), 2 untimed
+SHOT_W, SHOT_H, SHOT_FRAMES = 3840, 2160, 32   # config 5 (bench.py:207-279)
 
 
 def _card() -> str:
@@ -281,9 +313,9 @@ def _run_frames(torch, scene, dev, warmup, timed, name, on, off):
     """The main path: `warmup` + `timed` ReSTIR frames of `scene` at
     WIDTH x HEIGHT through render_frame (static_ok from the second frame
     on), with the launch counts set to 0 just before. Checks the output
-    and that the kernels `on` launched and those `off` did not. Returns
-    (seconds of the timed frames, rays per timed frame, launches, every
-    frame's ldr)."""
+    and that the kernels `on` and K7 (every frame's row fetches) launched
+    and those `off` did not. Returns (seconds of the timed frames, rays
+    per timed frame, launches, every frame's ldr)."""
     from tpu_raytracer_torch.ops import trace_api
     from tpu_raytracer_torch.render import camera, pipeline, renderer
 
@@ -305,6 +337,7 @@ def _run_frames(torch, scene, dev, warmup, timed, name, on, off):
     torch.cuda.synchronize()
     dt = time.time() - t0
     launches = dict(trace_api.LAUNCHES)
+    on = [*on, "table_gather"]
     if min(launches[k] for k in on) <= 0 or any(launches[k] for k in off):
         raise AssertionError(f"the {name} frame must launch {on} and none "
                              f"of {off}: {launches}")
@@ -319,12 +352,18 @@ def _run_frames(torch, scene, dev, warmup, timed, name, on, off):
     return dt, rays, launches, ldrs
 
 
-def _frame_line(what, timed, dt, rays, launches, card):
+def _k7_line(launches, frames):
+    return (f"K7 {launches['table_gather'] / frames:.2f} launches/frame "
+            f"over {frames} frames")
+
+
+def _frame_line(what, timed, dt, rays, launches, card, frames):
     total = sum(rays)
     return (f"{what} {WIDTH}x{HEIGHT}, {timed} timed frames: "
             f"{timed / dt:.4f} fps, {total / dt / 1e6:.4f} Mrays/s, "
             f"{dt / timed * 1e3:.2f} ms/frame, {total / timed:.0f} "
-            f"rays/frame; launches {launches} [{card}]")
+            f"rays/frame; launches {launches}; {_k7_line(launches, frames)} "
+            f"[{card}]")
 
 
 def _psnr(a, b):
@@ -334,22 +373,29 @@ def _psnr(a, b):
 
 
 def _golden_psnr(torch, scene, dev, size, frames, path):
-    """PSNR of `frames` frames at size^2 against the golden LDR image."""
+    """(PSNR of `frames` frames at size^2 against the golden LDR image,
+    K7's launches over them); raises unless K7 launched."""
+    from tpu_raytracer_torch.ops import trace_api
     from tpu_raytracer_torch.render import camera, pipeline, renderer
 
     golden = np.load(path).astype(np.float32)
     cam = camera.CameraController()
     state = pipeline.init_state(size, size, dev)
+    trace_api.reset_launch_counts()
     for f in range(frames):
         u = renderer.camera_to_device(cam.uniform(1.0, f, scene.num_lights),
                                       dev)
         ldr, _, state, _ = pipeline.render_frame(scene, u, f, state, size,
                                                  size)
     psnr = _psnr(ldr.cpu().numpy(), golden)
+    launches = dict(trace_api.LAUNCHES)
+    if launches["table_gather"] <= 0:
+        raise AssertionError(f"golden {os.path.basename(path)}: K7 did not "
+                             f"launch: {launches}")
     if not psnr >= GOLDEN_DB:
         raise AssertionError(f"golden {os.path.basename(path)}: PSNR "
                              f"{psnr:.2f} dB < {GOLDEN_DB}")
-    return psnr
+    return psnr, launches
 
 
 def _check_closest(name, got, want, hit_keys=("tri",)):
@@ -405,6 +451,214 @@ def _check_plain(name, cmp, any_hit):
         raise AssertionError(f"{name}: outside tolerance: {cmp}")
 
 
+def _gather_phase(torch, dev, card, tables, sizes):
+    """Phase 16: K7 on each (name, [M, C] table) at each index count in
+    `sizes`, against its plain version bit for bit, timed beside it and
+    beside torch.index_select on the transposed table. Returns {(name,
+    n): (max |err|, ms, plain ms, library ms, (bound ms, bound by))}."""
+    from tpu_raytracer_torch.ops import table_gather
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    k7 = {}
+    for tname, table in tables:
+        m, c = table.shape
+        table_cm = table.T.contiguous()      # the yardstick's layout
+        for n in sizes:
+            # random rows, an eighth of them past either end of the table
+            idx = torch.randint(-(m // 8) - 1, m + m // 8 + 1, (n,),
+                                dtype=torch.int32, device=dev, generator=gen)
+            got = table_gather.table_gather_kernel(table, idx)
+            want = table_gather.table_gather_plain(table, idx)
+            torch.cuda.synchronize()
+            same = got.view(torch.int32) == want.view(torch.int32)
+            bad = int((~same).sum())
+            if bad:
+                raise AssertionError(f"K7 {tname} at {n} rows: {bad} words "
+                                     f"differ from plain")
+            err = float(torch.where(same, 0.0, (got - want).abs()).max())
+            ms = _time_ms(torch, lambda: table_gather.table_gather_kernel(
+                table, idx), 20)
+            plain_ms = _time_ms(torch, lambda: table_gather.table_gather_plain(
+                table, idx), 5)
+            valid = idx.clamp(0, m - 1)      # index_select does not clamp
+            lib_ms = _time_ms(torch, lambda: torch.index_select(
+                table_cm, 1, valid), 20)
+            bound = _bound(0, _nbytes(idx, got, table))
+            k7[(tname, n)] = (err, ms, plain_ms, lib_ms, bound)
+            print(f"K7: {tname} [{m}, {c}] at {n} random rows: equal to "
+                  f"plain bit for bit; K7 {ms:.4f} ms, plain {plain_ms:.4f} "
+                  f"ms, index_select {lib_ms:.4f} ms, bound {bound[0]:.4f} "
+                  f"ms ({bound[1]}) [{card}]", flush=True)
+    return k7
+
+
+def _fetch_phase(torch, scene, dev, want_ldrs):
+    """Phase 17: the first len(want_ldrs) ReSTIR frames of `scene` at
+    WIDTH x HEIGHT with hit.fetch_cols set to the plain gather, against
+    the same frames rendered through K7 (`want_ldrs`, on the CPU)."""
+    from tpu_raytracer_torch.ops import hit, table_gather, trace_api
+    from tpu_raytracer_torch.render import camera, pipeline, renderer
+
+    saved = hit.fetch_cols
+    hit.fetch_cols = lambda table, idx: list(
+        table_gather.table_gather_plain(table, idx).unbind(0))
+    try:
+        cam = camera.CameraController()
+        state = pipeline.init_state(WIDTH, HEIGHT, dev)
+        trace_api.reset_launch_counts()
+        ldrs = []
+        for i in range(len(want_ldrs)):
+            uniform = renderer.camera_to_device(
+                cam.uniform(WIDTH / HEIGHT, i, scene.num_lights), dev)
+            ldr, _, state, _ = pipeline.render_frame(
+                scene, uniform, i, state, WIDTH, HEIGHT, static_ok=i > 0)
+            ldrs.append(ldr.cpu())
+        launches = dict(trace_api.LAUNCHES)
+    finally:
+        hit.fetch_cols = saved
+    if launches["table_gather"] or not launches["closest_hit"]:
+        raise AssertionError(f"the plain-fetch frames must launch K1 and not "
+                             f"K7: {launches}")
+    diff = max(float((a - b).abs().max()) for a, b in zip(ldrs, want_ldrs))
+    psnr = min(_psnr(a.numpy(), b.numpy()) for a, b in zip(ldrs, want_ldrs))
+    if not psnr >= VPU_DB:
+        raise AssertionError(f"plain-fetch frames: PSNR {psnr:.2f} dB "
+                             f"against K7's < {VPU_DB}")
+    print(f"fetch: the first {len(ldrs)} Cornell {WIDTH}x{HEIGHT} frames "
+          f"with the plain gather (K7 not launched) against the same frames "
+          f"through K7: max |diff| {diff:.3g}, PSNR {psnr:.2f} dB (floor "
+          f"{VPU_DB})", flush=True)
+
+
+def _progressive_phase(torch, dev, card, width, height, frames):
+    """Phase 18, bench.py's config 1: `frames` render_progressive frames
+    of the diffuse Cornell box, the first 2 untimed. Returns the
+    launches."""
+    from tpu_raytracer_torch.models import scenes
+    from tpu_raytracer_torch.ops import trace_api
+    from tpu_raytracer_torch.render import camera, renderer
+
+    scene = scenes.create_cornell_box_diffuse(dev)
+    cam = camera.CameraController()
+    accum = renderer.make_accum(width, height, dev)
+    trace_api.reset_launch_counts()
+    for f in range(frames):
+        uniform = renderer.camera_to_device(
+            cam.uniform(1.0, f, scene.num_lights), dev)
+        accum, rad = renderer.render_progressive(scene, uniform, f, accum,
+                                                 width, height)
+        if f == 1:
+            torch.cuda.synchronize()
+            t0 = time.time()
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = dict(trace_api.LAUNCHES)
+    if not (launches["closest_hit"] > 0 and launches["table_gather"] > 0):
+        raise AssertionError(f"config 1 must launch K1 and K7: {launches}")
+    if not (torch.isfinite(accum).all() and accum.min() >= 0
+            and accum.max() > 0 and torch.isfinite(rad).all()):
+        raise AssertionError("config 1: accum is not finite, non-negative "
+                             "and lit")
+    print(f"config 1: diffuse Cornell ({scene.num_triangles} triangles) "
+          f"{width}x{height}, {frames - 2} timed render_progressive frames: "
+          f"fps_1spp_progressive {(frames - 2) / dt:.4f}, "
+          f"{dt / (frames - 2) * 1e3:.2f} ms/frame; launches {launches}; "
+          f"{_k7_line(launches, frames)} [{card}]", flush=True)
+    return launches
+
+
+def _screenshot_phase(torch, scene, dev, card, width, height, frames):
+    """Phase 19, bench.py's config 5 at width x height as one frame:
+    frame 0; frame 1 and a warm-up denoise; frame 2 and its denoise,
+    timed; frames 3 to frames - 1 accumulate. The denoised frame 2 must
+    beat the un-denoised one against the accumulation. Returns the
+    launches."""
+    from tpu_raytracer_torch.app.screenshot import (ScreenshotSaver,
+                                                    denoised_screenshot)
+    from tpu_raytracer_torch.ops import trace_api
+    from tpu_raytracer_torch.ops.post import resolve_tonemap
+    from tpu_raytracer_torch.render import camera, pipeline, renderer
+    from tpu_raytracer_torch.utils import png
+
+    cam = camera.CameraController()
+
+    def frame(f, st):
+        uniform = renderer.camera_to_device(
+            cam.uniform(width / height, f, scene.num_lights), dev)
+        return pipeline.render_frame(scene, uniform, f, st, width, height,
+                                     static_ok=f > 0)
+
+    state = pipeline.init_state(width, height, dev)
+    trace_api.reset_launch_counts()
+    t0 = time.time()
+    _, hdr, state, _ = frame(0, state)
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _, hdr, state, _ = frame(1, state)
+    torch.cuda.synchronize()
+    frame_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    den = denoised_screenshot(state["gb"], hdr, width, height)   # warm-up
+    torch.cuda.synchronize()
+    den_peak = torch.cuda.max_memory_allocated()
+    del den
+    t0 = time.time()
+    _, hdr, state, _ = frame(2, state)
+    den = denoised_screenshot(state["gb"], hdr, width, height)
+    torch.cuda.synchronize()
+    s_per_frame = time.time() - t0
+    _, den_ms = _time_once(torch, lambda: denoised_screenshot(
+        state["gb"], hdr, width, height))
+    den_tm = resolve_tonemap(den).cpu().numpy()
+    raw_tm = resolve_tonemap(hdr.reshape(height, width, 3)).cpu().numpy()
+    den_img = den.cpu().numpy()
+    del den
+    t0 = time.time()
+    for f in range(3, frames):
+        _, hdr, state, _ = frame(f, state)
+    torch.cuda.synchronize()
+    accum_s = time.time() - t0
+    launches = dict(trace_api.LAUNCHES)
+    ref_tm = resolve_tonemap(state["accum"].reshape(height, width, 3))
+    ref_tm = ref_tm.cpu().numpy()
+    del state, hdr
+    if not (launches["closest_hit"] > 0 and launches["table_gather"] > 0):
+        raise AssertionError(f"config 5 must launch K1 and K7: {launches}")
+    if not (np.isfinite(den_img).all()
+            and den_img.shape == (height, width, 3)):
+        raise AssertionError(f"config 5: the denoised image is not finite "
+                             f"[{height}, {width}, 3]")
+    den_psnr, raw_psnr = _psnr(den_tm, ref_tm), _psnr(raw_tm, ref_tm)
+    if not (np.isfinite(den_psnr) and den_psnr > raw_psnr):
+        raise AssertionError(f"config 5: denoised PSNR {den_psnr:.4f} dB is "
+                             f"not finite and above the frame's "
+                             f"{raw_psnr:.4f} dB")
+    with tempfile.TemporaryDirectory() as tmp:
+        saver = ScreenshotSaver(tmp)
+        if not saver.submit(den_img, label="config5"):
+            raise AssertionError("config 5: the screenshot queue is full")
+        saver.flush(timeout=300.0)
+        (name,) = os.listdir(tmp)
+        with open(os.path.join(tmp, name), "rb") as fh:
+            png_shape = png.decode(fh.read()).shape
+    if png_shape != (height, width, 4):
+        raise AssertionError(f"config 5: the screenshot PNG decodes to "
+                             f"{png_shape}")
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"config 5: Cornell {width}x{height} as one frame: frame 0 "
+          f"{first_s:.2f} s; s_per_denoised_frame {s_per_frame:.4f} (frame "
+          f"2 + its denoise), denoise alone {den_ms:.2f} ms; frames "
+          f"3-{frames - 1} {accum_s / (frames - 3):.4f} s/frame; "
+          f"denoised_psnr_vs_{frames}spp_{width}x{height} {den_psnr:.4f} dB "
+          f"(frame 2 without the denoise {raw_psnr:.4f} dB); peak memory: "
+          f"frame {frame_peak / 2**30:.2f} GiB, denoise "
+          f"{den_peak / 2**30:.2f} GiB of {total / 2**30:.1f} GiB; PNG "
+          f"{png_shape} read back; launches {launches}; "
+          f"{_k7_line(launches, frames)} [{card}]", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -440,9 +694,9 @@ def main() -> int:
     trace_api.load_kernels()
     ptxas = [ln.strip() for ln in BUILD_LOGS.get("trace_kernels", "")
              .splitlines() if "registers" in ln or "Compiling entry" in ln]
-    print(f"build: K1-K6 from csrc/{{trace,trace_stream,trace_inst,"
-          f"trace_vpu,trace_mxu}}.cu in {time.time() - t0:.2f} s (one nvcc "
-          f"call, sm_90a); ptxas: {' | '.join(ptxas) or 'cached'}",
+    print(f"build: K1-K7 from csrc/{{trace,trace_stream,trace_inst,"
+          f"trace_vpu,trace_mxu,gather}}.cu in {time.time() - t0:.2f} s (one "
+          f"nvcc call, sm_90a); ptxas: {' | '.join(ptxas) or 'cached'}",
           flush=True)
 
     scene = scenes.create_cornell_box(dev)
@@ -503,7 +757,8 @@ def main() -> int:
         torch, scene, dev, WARMUP, TIMED, "Cornell", on=flat_kernels,
         off=[k for k in every if k not in flat_kernels])
     print("frame: " + _frame_line("Cornell ReSTIR", TIMED, dt, rays,
-                                  launches, card), flush=True)
+                                  launches, card, WARMUP + TIMED),
+          flush=True)
 
     timings = {}
     for n in TIMED_RAYS:
@@ -536,16 +791,19 @@ def main() -> int:
 
     # 6. golden
     golden_dir = os.path.join(root, "tests", "golden")
-    psnr = _golden_psnr(torch, scene, dev, 64, 8,
-                        os.path.join(golden_dir, "cornell_64_f8_ldr.npy"))
+    psnr, gl_launches = _golden_psnr(
+        torch, scene, dev, 64, 8,
+        os.path.join(golden_dir, "cornell_64_f8_ldr.npy"))
     restir = scenes.create_restir_scene(dev)
-    r_psnr = _golden_psnr(torch, restir, dev, 48, 4,
-                          os.path.join(golden_dir, "restir_48_f4_ldr.npy"))
+    r_psnr, rl_launches = _golden_psnr(
+        torch, restir, dev, 48, 4,
+        os.path.join(golden_dir, "restir_48_f4_ldr.npy"))
     print(f"golden: 64x64 Cornell, 8 frames: PSNR {psnr:.2f} dB vs "
-          f"tests/golden/cornell_64_f8_ldr.npy; 48x48 restir ({restir.num_lights} "
-          f"lights, {restir.num_triangles} triangles), 4 frames: PSNR "
-          f"{r_psnr:.2f} dB vs tests/golden/restir_48_f4_ldr.npy (floor "
-          f"{GOLDEN_DB})", flush=True)
+          f"tests/golden/cornell_64_f8_ldr.npy, {_k7_line(gl_launches, 8)}; "
+          f"48x48 restir ({restir.num_lights} lights, "
+          f"{restir.num_triangles} triangles), 4 frames: PSNR "
+          f"{r_psnr:.2f} dB vs tests/golden/restir_48_f4_ldr.npy, "
+          f"{_k7_line(rl_launches, 4)} (floor {GOLDEN_DB})", flush=True)
 
     # 7. K4 against plain on the full-width gallery
     t0 = time.time()
@@ -607,7 +865,8 @@ def main() -> int:
         torch, gal, dev, GALLERY_WARMUP, GALLERY_TIMED, "gallery",
         on=inst_kernels, off=flat_kernels + stream_kernels)
     print("gallery frame: " + _frame_line("instanced ReSTIR", GALLERY_TIMED,
-                                          dt, rays, g_launches, card),
+                                          dt, rays, g_launches, card,
+                                          GALLERY_WARMUP + GALLERY_TIMED),
           flush=True)
 
     for n in TIMED_RAYS:
@@ -638,6 +897,7 @@ def main() -> int:
           f"tests + {k4_xf} transforms, {k4_bound[0]:.4f} ms "
           f"({k4_bound[1]}); K4 any {k4a_tests} tests + {k4a_xf} "
           f"transforms, {k4a_bound[0]:.4f} ms ({k4a_bound[1]})", flush=True)
+    gal_inst_table = gal.inst_table     # for phase 16
     del gal, g_plain, go, gd, gt_max
 
     # 9. K3 against the plain versions on the full-width knot
@@ -751,8 +1011,10 @@ def main() -> int:
         torch, knot, dev, GALLERY_WARMUP, GALLERY_TIMED, "knot",
         on=stream_kernels, off=flat_kernels + inst_kernels)
     print("knot frame: " + _frame_line("dense knot ReSTIR", GALLERY_TIMED,
-                                       dt, rays, k_launches, card),
+                                       dt, rays, k_launches, card,
+                                       GALLERY_WARMUP + GALLERY_TIMED),
           flush=True)
+    knot_tri_table = knot.tri_table     # for phase 16
     del knot
 
     # 11. bunny frame: a second flattened scene on K1/K2's route
@@ -762,7 +1024,7 @@ def main() -> int:
         on=flat_kernels, off=stream_kernels + inst_kernels)
     print(f"bunny frame ({bunny.num_triangles} triangles): "
           + _frame_line("bunny ReSTIR", GALLERY_TIMED, dt, rays, b_launches,
-                        card), flush=True)
+                        card, GALLERY_WARMUP + GALLERY_TIMED), flush=True)
 
     # 12. K5 against its plain version and K1
     bo, bd, bt_max = _random_rays(torch, RANDOM_RAYS, dev, seed=3)
@@ -893,6 +1155,7 @@ def main() -> int:
     # 14. the Cornell frame under each mode, against the same frame of
     # phase 5's default run
     ldr_default = c_ldrs[MODE_WARMUP + MODE_TIMED - 1].cpu().numpy()
+    c_first = [x.cpu() for x in c_ldrs[:2]]      # for phase 17
     del c_ldrs
     mode_launches = {}
     for mode, kernel, incull, on, floor in (
@@ -914,7 +1177,8 @@ def main() -> int:
         print(f"mode frame {mode}: "
               + _frame_line(f"Cornell ReSTIR under {kernel}"
                             f"{' + in-kernel cull' if incull else ''}",
-                            MODE_TIMED, dt, rays, m_launches, card)
+                            MODE_TIMED, dt, rays, m_launches, card,
+                            MODE_WARMUP + MODE_TIMED)
               + f"; PSNR {p:.2f} dB against the default frame (floor "
               f"{floor})", flush=True)
     # mxu1 renders no frame (the reference's own note: broken for
@@ -928,13 +1192,31 @@ def main() -> int:
           f"{mode_launches['mxu1']}", flush=True)
 
     # 15. the 64^2 golden under mxu3
-    m_psnr = _golden_psnr(torch, scenes.create_cornell_box(dev,
-                                                           kernel="mxu3"),
-                          dev, 64, 8,
-                          os.path.join(golden_dir, "cornell_64_f8_ldr.npy"))
+    m_psnr, ml_launches = _golden_psnr(
+        torch, scenes.create_cornell_box(dev, kernel="mxu3"), dev, 64, 8,
+        os.path.join(golden_dir, "cornell_64_f8_ldr.npy"))
     print(f"golden under mxu3: 64x64 Cornell, 8 frames: PSNR {m_psnr:.2f} dB "
-          f"vs tests/golden/cornell_64_f8_ldr.npy (floor {GOLDEN_DB})",
-          flush=True)
+          f"vs tests/golden/cornell_64_f8_ldr.npy, {_k7_line(ml_launches, 8)} "
+          f"(floor {GOLDEN_DB})", flush=True)
+
+    # 16. K7 against its plain version, beside one index_select call
+    k7 = _gather_phase(torch, dev, card, (
+        ("Cornell tri_table", scene.tri_table),
+        ("Cornell mat_table", scene.mat_table),
+        ("knot tri_table", knot_tri_table),
+        ("gallery inst_table", gal_inst_table),
+        ("restir light_table", restir.light_table)), GATHER_RAYS)
+
+    # 17. the first Cornell frames with the plain fetch, against phase 5's
+    _fetch_phase(torch, scene, dev, c_first)
+
+    # 18. config 1: the 1-spp progressive diffuse Cornell box
+    p_launches = _progressive_phase(torch, dev, card, WIDTH, HEIGHT,
+                                    PROGRESSIVE_FRAMES)
+
+    # 19. config 5: the denoised 3840 x 2160 screenshot as one frame
+    s_launches = _screenshot_phase(torch, scene, dev, card, SHOT_W, SHOT_H,
+                                   SHOT_FRAMES)
 
     n = TIMED_RAYS[-1]
 
@@ -948,6 +1230,18 @@ def main() -> int:
 
     k4_times = timings[("k4", n)]
     k3_times = timings[("k3", f"{RANDOM_RAYS} random")]
+    k7_err, k7_ms, k7_plain, k7_lib, k7_bound = k7[("Cornell tri_table", n)]
+    k7_frames = {
+        "Cornell": (launches, WARMUP + TIMED), "golden Cornell": (gl_launches, 8),
+        "golden restir": (rl_launches, 4),
+        "gallery": (g_launches, GALLERY_WARMUP + GALLERY_TIMED),
+        "knot": (k_launches, GALLERY_WARMUP + GALLERY_TIMED),
+        "bunny": (b_launches, GALLERY_WARMUP + GALLERY_TIMED),
+        **{f"mode {m}": (mode_launches[m], MODE_WARMUP + MODE_TIMED)
+           for m in ("vpu", "mxu3", "mxuw8", "incull")},
+        "golden mxu3": (ml_launches, 8),
+        "config 1": (p_launches, PROGRESSIVE_FRAMES),
+        "config 5": (s_launches, SHOT_FRAMES)}
     print(json.dumps({"kernels": [
         entry("closest_hit", "trace.cu", 392, launches["closest_hit"],
               k1_err, timings[n][:2], k1_bound),
@@ -972,6 +1266,15 @@ def main() -> int:
                 k6[(v, a)][0], k6[(v, a)][1:3], k6[(v, a)][3])
           for v, _, _, _, incull, line in MXU_VARIANTS
           for a in ((False, True) if incull else (False,))),
+        {"name": "table_gather", "route": "cuda",
+         "source": "tpu_raytracer_torch/csrc/gather.cu",
+         "replaces": "tpu_raytracer/ops/pallas_gather.py:51",
+         "launches": launches["table_gather"],
+         "max_abs_err": max(v[0] for v in k7.values()), "ms": k7_ms,
+         "plain_ms": k7_plain, "bound_ms": k7_bound[0],
+         "bound_by": k7_bound[1], "library_ms": k7_lib,
+         "launches_per_frame": {k: v["table_gather"] / f
+                                for k, (v, f) in k7_frames.items()}},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

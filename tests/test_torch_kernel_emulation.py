@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K6, built with g++ under the host emulation
+"""The CUDA kernels K1-K7, built with g++ under the host emulation
 `csrc/host/emulation/cuda_runtime.h`, against their plain versions.
 
 A CUDA kernel cannot run here; this holds the kernels' own source (its
@@ -10,7 +10,8 @@ so that its units of several chunks run on a small scene. Tolerance:
 tri and inst equal on every lane and t bit-equal (measured: equal; the
 emulation's fmaf and -ffp-contract=off round as the kernels' __fmaf_rn
 and -fmad=false; its tensor-core product sums the exact bf16 products
-in f64 and rounds once, as K6's plain version does).
+in f64 and rounds once, as K6's plain version does). K7, the table
+gather, copies words: its output equals the plain version bit for bit.
 """
 
 import ctypes
@@ -25,8 +26,9 @@ import torch
 
 from test_torch_dense import layered_scene
 from tpu_raytracer_torch.models import scenes
-from tpu_raytracer_torch.ops import (trace_api, trace_inst, trace_mxu,
-                                     trace_stream, trace_vpu, worklist)
+from tpu_raytracer_torch.ops import (table_gather, trace_api, trace_inst,
+                                     trace_mxu, trace_stream, trace_vpu,
+                                     worklist)
 from tpu_raytracer_torch.runtime.build import CSRC_DIR
 from tpu_raytracer_torch.utils.vec3 import V3
 
@@ -71,6 +73,7 @@ def _build(out, names, defines=()):
         "tpurt_vpu_closest_hit": [ptr] * 7 + [i32] * 2 + [ptr] * 3,
         "tpurt_mxu_closest_hit": [ptr] * 8 + [i32] * 5 + [ptr] * 3,
         "tpurt_mxu_any_hit": [ptr] * 8 + [i32] * 3 + [ptr] * 3,
+        "tpurt_table_gather": [ptr] * 2 + [i32] * 3 + [ptr] * 2,
     }
     for name, argtypes in signatures.items():
         if hasattr(lib, name):
@@ -84,7 +87,7 @@ def _build(out, names, defines=()):
 def lib(tmp_path_factory):
     return _build(tmp_path_factory.mktemp("emulated"),
                   ("trace", "trace_stream", "trace_inst", "trace_vpu",
-                   "trace_mxu"))
+                   "trace_mxu", "gather"))
 
 
 def _rays(seed, lo, hi, t_far):
@@ -327,3 +330,23 @@ def test_mxu_kernel_matches_plain(lib, cornell, mode, grp, passes, incull,
     for k in want:
         assert torch.equal(got[k], want[k]), k
     assert (want["tri"] >= 0).any()
+
+
+@pytest.mark.parametrize("c,r", [(15, 1000), (23, 513), (35, 300), (35, 0)])
+def test_table_gather_kernel_matches_plain(lib, c, r):
+    """K7 on a table of integer bit patterns and floats of every exponent
+    (NaN patterns included): bit-equal to the plain version, with the
+    last block of 256 rays ragged, negative and too-large indices
+    clamped, and nothing written for R = 0."""
+    g = np.random.default_rng(c)
+    m = 700
+    bits = g.integers(0, 2 ** 32, (m, c), dtype=np.uint64).astype(np.uint32)
+    table = torch.from_numpy(bits.view(np.float32))
+    idx = torch.from_numpy(g.integers(-40, m + 40, r).astype(np.int32))
+    want = table_gather.table_gather_plain(table, idx)
+    got = torch.full((c, r), 7.0)
+    err = lib.tpurt_table_gather(table.data_ptr(), idx.data_ptr(), m, c, r,
+                                 got.data_ptr(), None)
+    assert err == 0
+    assert np.array_equal(got.numpy().view(np.uint32),
+                          want.numpy().view(np.uint32))

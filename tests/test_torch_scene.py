@@ -111,7 +111,10 @@ def test_state_round_trips_through_convert():
 
 def test_import_leaves_jax_out():
     code = ("import sys, tpu_raytracer_torch.render.pipeline, "
-            "tpu_raytracer_torch.models.scenes, tpu_raytracer_torch.convert;"
+            "tpu_raytracer_torch.models.scenes, tpu_raytracer_torch.convert, "
+            "tpu_raytracer_torch.ops.table_gather, "
+            "tpu_raytracer_torch.app.screenshot, "
+            "tpu_raytracer_torch.utils.image;"
             " bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'tpu_raytracer.'))"
             " or m == 'tpu_raytracer'];"

@@ -2,9 +2,10 @@
 to PyTorch with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The JAX package `tpu_raytracer` stays the reference; this package imports
-neither it nor `jax`. Plain tensor code is eager PyTorch; the two
-triangle-traversal kernels (closest-hit and any-hit, `csrc/trace.cu`) are
-built with nvcc on first use and bound through ctypes. A CPU tensor takes
+neither it nor `jax`. Plain tensor code is eager PyTorch; the CUDA
+kernels in `csrc/` (K1-K6, the triangle traversals, and K7, the row
+gather of the shading's table fetches) are built with nvcc on first use
+and bound through ctypes. A CPU tensor takes
 each kernel's plain PyTorch version instead, so the package runs (slowly)
 on a machine without a GPU; a CUDA tensor always takes the kernel.
 """

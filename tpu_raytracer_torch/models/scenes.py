@@ -71,6 +71,39 @@ def create_cornell_box(device, kernel: str = "mxuf2", incull: bool = False):
     return b.build(device, kernel=kernel, incull=incull)
 
 
+def create_cornell_box_diffuse(device):
+    """BASELINE config 1: the diffuse-only Cornell box (no glass, metal or
+    sphere light): white, red and green walls, the quad ceiling light and
+    two white boxes."""
+    b = SceneBuilder()
+    plane_id = b.add_mesh(create_plane())
+    cube_id = b.add_mesh(create_cube())
+
+    mat_red = b.add_material(Material((0.65, 0.05, 0.05, 1.0)))
+    mat_green = b.add_material(Material((0.12, 0.45, 0.15, 1.0)))
+    mat_white = b.add_material(Material((0.73, 0.73, 0.73, 1.0)))
+
+    b.add_instance(plane_id, mat_white, translation([0, -1, 0]) @ scale(2.0))
+    b.add_instance(plane_id, mat_white,
+                   translation([0, 1, 0]) @ rotation_x(PI) @ scale(2.0))
+    b.add_instance(plane_id, mat_white,
+                   translation([0, 0, -1]) @ rotation_x(PI / 2) @ scale(2.0))
+    b.add_instance(plane_id, mat_red,
+                   translation([-1, 0, 0]) @ rotation_z(-PI / 2) @ scale(2.0))
+    b.add_instance(plane_id, mat_green,
+                   translation([1, 0, 0]) @ rotation_z(PI / 2) @ scale(2.0))
+    b.register_quad_light(
+        plane_id, translation([0, 0.99, 0]) @ rotation_x(PI) @ scale(0.5),
+        [1.0, 1.0, 1.0], 10.0)
+    b.add_instance(cube_id, mat_white,
+                   translation([-0.35, -0.4, -0.3]) @ rotation_y(0.4)
+                   @ scale([0.6, 1.2, 0.6]))
+    b.add_instance(cube_id, mat_white,
+                   translation([0.4, -0.7, 0.3]) @ rotation_y(-0.3)
+                   @ scale([0.6, 0.6, 0.6]))
+    return b.build(device)
+
+
 def create_instancing_gallery_scene(device, n: int = 100, subdiv: int = 4):
     """`n` instances of one icosphere on a hsv-tinted grid over a floor,
     under a quad light, built instanced (bench.py config 7). At the

@@ -5,8 +5,10 @@ The intersectors return only (t, tri), and inst for an instanced scene.
 One row of the scene's shading table (v0/e1/e2, per-vertex normals, uvs
 and tangents, material id) gives the exact barycentrics, facing and
 interpolated attributes; an instanced scene's rows are object space and
-the instance's row maps them to world space. Rows are fetched with plain
-indexing.
+the instance's row maps them to world space. Rows are fetched by the
+table gather (`ops/table_gather.py`: kernel K7 on the card) as [C, R],
+so every column the shading reads is a contiguous [R] tensor, as the
+reference's `fetch_cols` gives them.
 """
 
 from __future__ import annotations
@@ -15,12 +17,13 @@ import torch
 
 from ..utils import vec3
 from ..utils.vec3 import V3
+from .table_gather import table_gather
 
 
 def fetch_cols(table, idx):
-    """table [M, C], idx [R] -> list of C [R] columns of table[idx]."""
-    rows = table[idx.to(torch.int64)]
-    return list(rows.unbind(1))
+    """table [M, C], idx [R] int32 (already clamped into the table) ->
+    list of C contiguous [R] columns of table[idx]."""
+    return list(table_gather(table, idx).unbind(0))
 
 
 def _matvec9(cols, base: int, v: V3) -> V3:

@@ -60,6 +60,12 @@ def _inv_tonemap(c: V3) -> V3:
     return c / torch.clamp(1.0 - vec3.vmax(c), min=1e-4)
 
 
+def resolve_tonemap(c):
+    """Reversible Reinhard-max of [..., 3] colors (post.wgsl:51-53;
+    the reference's `ops/post.py:resolve_tonemap`)."""
+    return c / (1.0 + c.amax(dim=-1, keepdim=True))
+
+
 class _PlaneStencil:
     """Shifted-window reads of per-channel [H, W] planes at static
     (dy, dx) offsets; wrapped rolls are masked by the image bounds."""

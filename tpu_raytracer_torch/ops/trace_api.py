@@ -30,6 +30,7 @@ return tri = 1 / -1 and t = t_max, the TPU any-hit kernels' contract;
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import re
 import shutil
@@ -64,7 +65,8 @@ _MODE = re.compile(r"(mxuf|mxuv|mxuw)([1-9][0-9]*)?|mxu[13]|vpu")
 # nowhere else), so a run can show which kernels its main path reached.
 LAUNCHES = {"closest_hit": 0, "any_hit": 0, "inst_closest_hit": 0,
             "inst_any_hit": 0, "stream_closest_hit": 0, "stream_any_hit": 0,
-            "vpu_closest_hit": 0, "mxu_closest_hit": 0, "mxu_any_hit": 0}
+            "vpu_closest_hit": 0, "mxu_closest_hit": 0, "mxu_any_hit": 0,
+            "table_gather": 0}
 
 
 def reset_launch_counts() -> None:
@@ -293,7 +295,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-fmad=false", "-Xptxas", "-v"]
 KERNEL_SOURCES = ("trace.cu", "trace_stream.cu", "trace_inst.cu",
-                  "trace_vpu.cu", "trace_mxu.cu")
+                  "trace_vpu.cu", "trace_mxu.cu", "gather.cu")
 
 
 def _nvcc() -> str:
@@ -304,12 +306,16 @@ def _nvcc() -> str:
     return os.path.join(cuda_home, "bin", "nvcc")
 
 
+@functools.cache
 def load_kernels() -> ctypes.CDLL:
     """Build the traversal kernels K1, K2 (`csrc/trace.cu`), K3
     (`csrc/trace_stream.cu`), K4 (`csrc/trace_inst.cu`), K5
-    (`csrc/trace_vpu.cu`) and K6 (`csrc/trace_mxu.cu`) into one library
-    with one nvcc call for sm_90a (at first use, cached by source hash)
-    and bind them."""
+    (`csrc/trace_vpu.cu`) and K6 (`csrc/trace_mxu.cu`) and the table
+    gather K7 (`csrc/gather.cu`, wrapped by `ops/table_gather.py`) into
+    one library with one nvcc call for sm_90a (at first use, cached by
+    source hash) and bind them. Once per process: every wrapper calls
+    this before each launch, and finding nvcc and binding again cost
+    more host time than a small launch takes on the card."""
     lib = load_library(
         "trace_kernels", [os.path.join(CSRC_DIR, f) for f in KERNEL_SOURCES],
         [_nvcc(), *NVCC_FLAGS],
@@ -328,6 +334,8 @@ def load_kernels() -> ctypes.CDLL:
     lib.tpurt_mxu_closest_hit.argtypes = [ptr] * 8 + [i32] * 5 + [ptr] * 3
     lib.tpurt_mxu_any_hit.restype = i32
     lib.tpurt_mxu_any_hit.argtypes = [ptr] * 8 + [i32] * 3 + [ptr] * 3
+    lib.tpurt_table_gather.restype = i32
+    lib.tpurt_table_gather.argtypes = [ptr] * 2 + [i32] * 3 + [ptr] * 2
     return lib
 
 

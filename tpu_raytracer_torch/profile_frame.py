@@ -1,6 +1,6 @@
 """Where a frame's time goes on the card: wall time per frame, device
-kernel time by name, the device's busy share and the kernel launches
-the host issues.
+kernel time by name (and the table gather K7's, listed apart), the
+device's busy share and the kernel launches the host issues.
 
     python -m tpu_raytracer_torch.profile_frame --scene knot
     python -m tpu_raytracer_torch.profile_frame --scene cornell --kernel vpu
@@ -100,6 +100,8 @@ def main(argv=None) -> int:
                       if e.device_type == cuda and _device_us(e) > 0),
                      key=lambda k: -k[1])
     device_ms = sum(k[1] for k in kernels)
+    # the row fetches' table gather (K7), which is rarely among the TOP
+    k7 = [k for k in kernels if "gather_kernel" in k[0]]
     launches = sum(e.count for e in avgs
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                 "cudaLaunchKernelExC")) / args.frames
@@ -114,6 +116,8 @@ def main(argv=None) -> int:
         "top_kernels_ms_per_frame": [
             {"name": k[0][:80], "ms": k[1], "launches": k[2]}
             for k in kernels[:TOP]],
+        "k7_ms_per_frame": sum(k[1] for k in k7),
+        "k7_launches_per_frame": sum(k[2] for k in k7),
     }))
     return 0
 
