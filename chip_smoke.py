@@ -45,13 +45,20 @@ is non-zero):
                 lane and t within T_ULPS against the streamed twin and the
                 chunk scan; any-hit occlusion equal, t = t_max. K1 is
                 timed on the same rays and scene beside K3 (a check of
-                MXUF_MAX_TP on this card, not a yardstick).
+                MXUF_MAX_TP on this card, not a yardstick); both times
+                print beside the bound, with K3's MAX_UNITS and grp and
+                ptxas's registers and shared memory for its entries.
  10. knot     - the knot's ReSTIR frame at 512^2: 2 warm-up + 4 timed
                 frames, both K3 entry points launched and none of K1, K2
-                and K4; fps, Mrays/s.
+                and K4; fps, Mrays/s. Then (10b) its first 2 frames again
+                with trace_api.MXUF_MAX_TP raised here only, so K1/K2 take
+                the route (K3 not launched): equal to K3's bit for bit.
  11. bunny    - the bunny scene's (config 3, 15,372 triangles) frame at
                 512^2: 2 warm-up + 4 timed frames, K1 and K2 launched,
-                neither K3 nor K4.
+                neither K3 nor K4. Then K3 against K1/K2 on the bunny's
+                512^2 primary rays and 524,288 random rays (equal on
+                every lane) and timed beside them: data for MXUF_MAX_TP,
+                which stays as it is.
  12. K5       - the vpu sweep against its plain version (the same
                 worklists) and against K1, on Cornell's 512^2 primary
                 rays, 524,288 random Cornell rays and 524,288 random rays
@@ -492,28 +499,63 @@ def _gather_phase(torch, dev, card, tables, sizes):
     return k7
 
 
+def _first_frames(scene, dev, n):
+    """The first n ReSTIR frames of `scene` at WIDTH x HEIGHT, as the frame
+    phases render them, with the launch counts set to 0 just before.
+    Returns (the ldrs on the CPU, the launches)."""
+    from tpu_raytracer_torch.ops import trace_api
+    from tpu_raytracer_torch.render import camera, pipeline, renderer
+
+    cam = camera.CameraController()
+    state = pipeline.init_state(WIDTH, HEIGHT, dev)
+    trace_api.reset_launch_counts()
+    ldrs = []
+    for i in range(n):
+        uniform = renderer.camera_to_device(
+            cam.uniform(WIDTH / HEIGHT, i, scene.num_lights), dev)
+        ldr, _, state, _ = pipeline.render_frame(
+            scene, uniform, i, state, WIDTH, HEIGHT, static_ok=i > 0)
+        ldrs.append(ldr.cpu())
+    return ldrs, dict(trace_api.LAUNCHES)
+
+
+def _swept_knot_phase(scene, dev, want_ldrs):
+    """Phase 10b: the knot's first len(want_ldrs) frames with
+    trace_api.MXUF_MAX_TP raised here only, so K1/K2 take the route K3
+    takes, against the same frames through K3 (`want_ldrs`): both are
+    exact, so the images must be equal bit for bit."""
+    from tpu_raytracer_torch.ops import trace_api
+
+    saved = trace_api.MXUF_MAX_TP
+    trace_api.MXUF_MAX_TP = scene.tri_planes.shape[2]
+    try:
+        ldrs, launches = _first_frames(scene, dev, len(want_ldrs))
+    finally:
+        trace_api.MXUF_MAX_TP = saved
+    if (not (launches["closest_hit"] and launches["any_hit"])
+            or launches["stream_closest_hit"] or launches["stream_any_hit"]):
+        raise AssertionError(f"the knot frames with MXUF_MAX_TP raised must "
+                             f"launch K1 and K2 and not K3: {launches}")
+    bad = sum(int((a != b).sum()) for a, b in zip(ldrs, want_ldrs))
+    if bad:
+        raise AssertionError(f"the knot frames through K1/K2 differ from "
+                             f"those through K3 in {bad} values")
+    print(f"knot route: the first {len(ldrs)} knot {WIDTH}x{HEIGHT} frames "
+          f"through K1/K2 (MXUF_MAX_TP raised) equal those through K3 bit "
+          f"for bit; launches {launches}", flush=True)
+
+
 def _fetch_phase(torch, scene, dev, want_ldrs):
     """Phase 17: the first len(want_ldrs) ReSTIR frames of `scene` at
     WIDTH x HEIGHT with hit.fetch_cols set to the plain gather, against
     the same frames rendered through K7 (`want_ldrs`, on the CPU)."""
-    from tpu_raytracer_torch.ops import hit, table_gather, trace_api
-    from tpu_raytracer_torch.render import camera, pipeline, renderer
+    from tpu_raytracer_torch.ops import hit, table_gather
 
     saved = hit.fetch_cols
     hit.fetch_cols = lambda table, idx: list(
         table_gather.table_gather_plain(table, idx).unbind(0))
     try:
-        cam = camera.CameraController()
-        state = pipeline.init_state(WIDTH, HEIGHT, dev)
-        trace_api.reset_launch_counts()
-        ldrs = []
-        for i in range(len(want_ldrs)):
-            uniform = renderer.camera_to_device(
-                cam.uniform(WIDTH / HEIGHT, i, scene.num_lights), dev)
-            ldr, _, state, _ = pipeline.render_frame(
-                scene, uniform, i, state, WIDTH, HEIGHT, static_ok=i > 0)
-            ldrs.append(ldr.cpu())
-        launches = dict(trace_api.LAUNCHES)
+        ldrs, launches = _first_frames(scene, dev, len(want_ldrs))
     finally:
         hit.fetch_cols = saved
     if launches["table_gather"] or not launches["closest_hit"]:
@@ -911,9 +953,9 @@ def main() -> int:
     grp, units = trace_stream.stream_units(tp // trace_api.CT)
     print(f"knot: {knot.num_triangles} world triangles in {tp} slots "
           f"(> MXUF_MAX_TP {trace_api.MXUF_MAX_TP}: K3's route), "
-          f"{units} units of {grp} chunk(s), textures "
-          f"{sorted(knot.tex_channels)}, built in {time.time() - t0:.2f} s",
-          flush=True)
+          f"MAX_UNITS {trace_stream.MAX_UNITS}: {units} units of {grp} "
+          f"chunk(s), textures {sorted(knot.tex_channels)}, built in "
+          f"{time.time() - t0:.2f} s", flush=True)
 
     def k3(o, d, t_min, t_max, any_hit=False):
         return trace_stream.trace_stream_kernel(
@@ -992,30 +1034,56 @@ def main() -> int:
           f"closest {k3_plain_ms:.4f} ms, any {k3a_plain_ms:.4f} ms [{card}]",
           flush=True)
 
-    knot_io = _nbytes(ko, kd, r_tmin, kt_max, knot.tri_planes,
-                      knot.chunk_aabb) + RANDOM_RAYS * 8
-    k3_tests = _flat_tests(trace_api, knot, ko, kd, r_tmin,
-                           _window(torch, k3_plain_r, kt_max))[0]
-    k_occ = k3a_plain_r["tri"] >= 0
-    k3a_tests = int(k_occ.sum()) + _flat_tests(
-        trace_api, knot, ko, kd, r_tmin, torch.where(k_occ, 0.0, kt_max))[0]
-    k3_bound = _bound(k3_tests * MT_FLOPS, knot_io)
-    k3a_bound = _bound(k3a_tests * MT_FLOPS, knot_io)
-    print(f"bound {RANDOM_RAYS} random knot rays: K3 closest {k3_tests} "
-          f"tests, {k3_bound[0]:.4f} ms ({k3_bound[1]}); K3 any {k3a_tests} "
-          f"tests, {k3a_bound[0]:.4f} ms ({k3a_bound[1]})", flush=True)
-    del k3_plain_r, k3a_plain_r
+    def k3_bounds(o, d, t_min, t_max, closest, occluded):
+        """K3's closest- and any-hit bounds on these rays and answers."""
+        io = _nbytes(o, d, t_min, t_max, knot.tri_planes,
+                     knot.chunk_aabb) + o.shape[1] * 8
+        tests = _flat_tests(trace_api, knot, o, d, t_min,
+                            _window(torch, closest, t_max))[0]
+        tests_a = int(occluded.sum()) + _flat_tests(
+            trace_api, knot, o, d, t_min,
+            torch.where(occluded, 0.0, t_max))[0]
+        return (tests, _bound(tests * MT_FLOPS, io),
+                tests_a, _bound(tests_a * MT_FLOPS, io))
+
+    k3_ptxas, compiling = [], ""      # ptxas's line for each K3 entry
+    for ln in ptxas:
+        if "Compiling entry" in ln:
+            compiling = ln
+        elif "stream_kernel" in compiling:
+            k3_ptxas.append(f"{'any' if 'ILb1' in compiling else 'closest'}:"
+                            f"{ln.split(':', 1)[-1]}")
+    p_scan = knot_scan(*k_primary, *p_win)
+    for name, rays, closest, occluded in (
+            ("primary 512^2", (*k_primary, *p_win), p_scan,
+             p_scan["tri"] >= 0),
+            (f"{RANDOM_RAYS} random", (ko, kd, r_tmin, kt_max), k3_plain_r,
+             k3a_plain_r["tri"] >= 0)):
+        tests, bound, tests_a, bound_a = k3_bounds(*rays, closest, occluded)
+        t = timings[("k3", name)]
+        print(f"bound knot {name} rays: K3 closest {t[0]:.4f} ms (K1 "
+              f"{t[2]:.4f}) against {tests} tests, {bound[0]:.4f} ms "
+              f"({bound[1]}); K3 any {t[1]:.4f} ms (K2 {t[3]:.4f}) against "
+              f"{tests_a} tests, {bound_a[0]:.4f} ms ({bound_a[1]}); "
+              f"MAX_UNITS {trace_stream.MAX_UNITS}, grp {grp}; ptxas K3 "
+              f"{' | '.join(k3_ptxas) or 'cached'} [{card}]",
+              flush=True)
+    k3_bound, k3a_bound = bound, bound_a     # at the random rays
+    del k3_plain_r, k3a_plain_r, p_scan
 
     # 10. knot frame: the streamed path
-    dt, rays, k_launches, _ = _run_frames(
+    dt, rays, k_launches, k_ldrs = _run_frames(
         torch, knot, dev, GALLERY_WARMUP, GALLERY_TIMED, "knot",
         on=stream_kernels, off=flat_kernels + inst_kernels)
     print("knot frame: " + _frame_line("dense knot ReSTIR", GALLERY_TIMED,
                                        dt, rays, k_launches, card,
                                        GALLERY_WARMUP + GALLERY_TIMED),
           flush=True)
+
+    # 10b. the first knot frames through K1/K2, against K3's
+    _swept_knot_phase(knot, dev, [x.cpu() for x in k_ldrs[:2]])
     knot_tri_table = knot.tri_table     # for phase 16
-    del knot
+    del knot, k_ldrs
 
     # 11. bunny frame: a second flattened scene on K1/K2's route
     bunny = scenes.create_bunny_scene(dev)
@@ -1026,8 +1094,32 @@ def main() -> int:
           + _frame_line("bunny ReSTIR", GALLERY_TIMED, dt, rays, b_launches,
                         card, GALLERY_WARMUP + GALLERY_TIMED), flush=True)
 
-    # 12. K5 against its plain version and K1
+    # K3 beside K1/K2 on the bunny (data for MXUF_MAX_TP; the route keeps
+    # the bunny on K1/K2)
     bo, bd, bt_max = _random_rays(torch, RANDOM_RAYS, dev, seed=3)
+    b_grp, b_units = trace_stream.stream_units(bunny.chunk_aabb.shape[0])
+    for name, (o, d), (t_min, t_max) in (
+            ("primary 512^2", primary_rays(bunny), p_win),
+            (f"{RANDOM_RAYS} random", (bo, bd), (r_tmin, bt_max))):
+        args = (bunny.tri_planes, bunny.chunk_aabb, o, d, t_min, t_max)
+        k1 = trace_api.trace_kernel(*args)
+        got = trace_stream.trace_stream_kernel(*args)
+        got_a = trace_stream.trace_stream_kernel(*args, any_hit=True)
+        torch.cuda.synchronize()
+        _check_closest(f"K3 bunny {name} vs K1", got, k1)
+        bad = int(((got_a["tri"] >= 0) != (k1["tri"] >= 0)).sum())
+        if bad:
+            raise AssertionError(f"K3 any-hit bunny {name} vs K1: occlusion "
+                                 f"differs on {bad} lanes")
+        t = [_time_ms(torch, lambda a=a: fn(*args, any_hit=a), 10)
+             for fn in (trace_stream.trace_stream_kernel,
+                        trace_api.trace_kernel) for a in (False, True)]
+        print(f"timing bunny {name} rays ({b_units} units of {b_grp} "
+              f"chunks), K3 equal to K1/K2 on every lane: closest K3 "
+              f"{t[0]:.4f} ms vs K1 {t[2]:.4f} ms; any K3 {t[1]:.4f} ms vs "
+              f"K2 {t[3]:.4f} ms [{card}]", flush=True)
+
+    # 12. K5 against its plain version and K1
     ray_sets = [("Cornell primary 512^2", scene, primary, p_win),
                 (f"Cornell {RANDOM_RAYS} random", scene, (ro, rd),
                  (r_tmin, rt_max)),

@@ -424,7 +424,7 @@ def test_knot_counts(knot):
     assert port.num_triangles == 100804
     assert port.tri_planes.shape == (4, 3, 100864)      # 788 chunks
     assert port.tri_planes.shape[2] > trace_api.MXUF_MAX_TP
-    assert trace_stream.stream_units(788) == (1, 788)
+    assert trace_stream.stream_units(788) == (16, 50)
     assert port.num_lights == ref.num_lights == 1
     assert port.tex_channels == ref.tex_channels == frozenset(
         {"color", "normal", "metallic_roughness"})
@@ -468,6 +468,39 @@ def test_stream_units_rule(size):
     grp, units = trace_stream.stream_units(size)
     assert units == -(-size // grp) <= trace_stream.MAX_UNITS
     assert grp == 1 or -(-size // (grp // 2)) > trace_stream.MAX_UNITS
+
+
+@pytest.mark.parametrize("which", ["knot", "layered"])
+def test_unit_boxes_contain_padded_chunk_boxes(knot, layered, which):
+    """Each unit box (K3's first step) holds every padded chunk box of its
+    unit, padded as mt.cuh:slab_window pads it, and every vertex of the
+    unit's triangles: its slab entry bounds any hit in the unit."""
+    planes, aabb = ((knot[1].tri_planes, knot[1].chunk_aabb)
+                    if which == "knot" else layered[:2])
+    nc = aabb.shape[0]
+    grp, units = trace_stream.stream_units(nc)
+    ubox = trace_stream.unit_boxes(aabb, grp)
+    assert ubox.dtype == np.float32 and ubox.shape == (units, 6)
+    box = aabb.numpy()
+    real = box[:, 0] <= box[:, 3]
+    lo, hi = box[real, 0:3], box[real, 3:6]
+    pad = np.float32(1e-5) * (np.abs(lo) + np.abs(hi)) + np.float32(1e-6)
+    owner = ubox[np.nonzero(real)[0] // grp]
+    assert (owner[:, 0:3] <= lo - pad).all()
+    assert (owner[:, 3:6] >= hi + pad).all()
+    # the hull is tight: each face is some padded chunk box's face
+    for u in range(units):
+        mine = np.nonzero(real)[0] // grp == u
+        if mine.any():
+            assert np.array_equal(ubox[u, 0:3], (lo - pad)[mine].min(0))
+            assert np.array_equal(ubox[u, 3:6], (hi + pad)[mine].max(0))
+    p = planes.numpy()
+    valid = p[3, 0] > 0.5
+    tri_unit = np.arange(p.shape[2]) // (128 * grp)
+    for vert in (p[0], p[0] + p[1], p[0] + p[2]):
+        v = vert.T[valid]
+        assert (v >= ubox[tri_unit[valid], 0:3]).all()
+        assert (v <= ubox[tri_unit[valid], 3:6]).all()
 
 
 # ---------------------------------------------------------------------------
@@ -623,27 +656,29 @@ def test_layered_scene_exact_sweep(layered):
     assert tie.sum() > 10 and not (got["tri"] == TIE_IDS[1]).any()
 
 
-@pytest.mark.parametrize("max_units", [trace_stream.MAX_UNITS, 128, 64],
-                         ids=["grp1", "grp4", "grp8"])
+@pytest.mark.parametrize("max_units", [trace_stream.MAX_UNITS, 16, 8],
+                         ids=["grp8", "grp32", "grp64"])
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
 def test_streamed_twin_matches_scan_with_early_exit(layered, monkeypatch,
                                                     any_hit, max_units):
     """trace_stream_plain equals trace_plain, while its blocks sweep under
-    half of the units they reach: the exit fired. A smaller worklist cap
-    makes units of 4 and 8 chunks, the last of them short (257 chunks)."""
+    half of the chunks they reach: the exit fired. The default cap makes
+    units of 8 chunks, smaller caps units of 32 and 64, the last of them
+    short (257 chunks)."""
     planes, aabb, (o, d, t_min, t_max) = layered
     monkeypatch.setattr(trace_stream, "MAX_UNITS", max_units)
     nc = planes.shape[2] // 128
     grp, units = trace_stream.stream_units(nc)
-    assert grp == {2048: 1, 128: 4, 64: 8}[max_units]
-    assert grp == 1 or nc % grp          # the last unit is short
+    assert grp == {64: 8, 16: 32, 8: 64}[max_units]
+    assert nc % grp          # the last unit is short
     steps = []
 
-    def counting(tris, *args):
-        steps.append(tris.shape[2])     # blocks that test a chunk
-        return trace_api.mt_argmin(tris, *args)
+    def counting(boxes, *args):
+        steps.append(boxes.shape[0])    # blocks that sweep a chunk
+        return chunk_pass(boxes, *args)
 
-    monkeypatch.setattr(trace_stream, "mt_argmin", counting)
+    chunk_pass = trace_stream._chunk_pass
+    monkeypatch.setattr(trace_stream, "_chunk_pass", counting)
     got = trace_stream.trace_stream_plain(planes, aabb, V3(*o), V3(*d),
                                           t_min, t_max, any_hit=any_hit)
     want = trace_api.trace_plain(planes, aabb, V3(*o), V3(*d), t_min, t_max)
@@ -723,6 +758,7 @@ def test_new_modules_leave_jax_and_pil_out():
             "tpu_raytracer_torch.models.dense_asset, "
             "tpu_raytracer_torch.scene.loader, "
             "tpu_raytracer_torch.ops.trace_stream, "
+            "tpu_raytracer_torch.stream_variants, "
             "tpu_raytracer_torch.utils.png;"
             " bad = [m for m in sys.modules if m in ('jax', 'PIL') or "
             "m.startswith(('jax.', 'PIL.', 'tpu_raytracer.'))"

@@ -5,9 +5,10 @@ A CUDA kernel cannot run here; this holds the kernels' own source (its
 control flow, culling, staging and tie order) to the plain versions on
 the CPU, so a logic fault shows before a chip run. It says nothing of
 what nvcc accepts or of speed: `chip_smoke.py` checks the real build on
-the card. K3 is also built with a smaller worklist (TPURT_MAX_UNITS),
-so that its units of several chunks run on a small scene. Tolerance:
-tri and inst equal on every lane and t bit-equal (measured: equal; the
+the card. K3 is also built with fewer units (TPURT_MAX_UNITS), so that
+its units of 32 and 64 chunks (two 32-chunk segments) run on a small
+scene. Tolerance: tri and inst equal on every lane and t bit-equal
+(measured: equal; the
 emulation's fmaf and -ffp-contract=off round as the kernels' __fmaf_rn
 and -fmad=false; its tensor-core product sums the exact bf16 products
 in f64 and rounds once, as K6's plain version does). K7, the table
@@ -24,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_dense import layered_scene
+from test_torch_dense import TIE_IDS, layered_scene
 from tpu_raytracer_torch.models import scenes
 from tpu_raytracer_torch.ops import (table_gather, trace_api, trace_inst,
                                      trace_mxu, trace_stream, trace_vpu,
@@ -172,10 +173,11 @@ def test_streamed_kernel_matches_plain(lib, layered, rays, any_hit):
     assert (want["tri"] >= 0).any()
 
 
-@pytest.fixture(scope="module", params=[128, 64], ids=["grp4", "grp8"])
+@pytest.fixture(scope="module", params=[16, 8], ids=["grp32", "grp64"])
 def small_worklist(request, tmp_path_factory):
-    """K3 built with a worklist of 128 or 64 units: the layered scene's
-    257 chunks then make units of 4 or 8 chunks, the last one short."""
+    """K3 built with 16 or 8 units: the layered scene's 257 chunks then
+    make units of 32 or 64 chunks, the last one short (the default, 64
+    units, makes units of 8)."""
     out = tmp_path_factory.mktemp(f"emulated_units{request.param}")
     return request.param, _build(out, ("trace_stream",),
                                  (f"TPURT_MAX_UNITS={request.param}",))
@@ -209,7 +211,7 @@ def test_streamed_kernel_multi_chunk_units(small_worklist, layered,
     planes, aabb, _ = layered
     nc = planes.shape[2] // trace_api.CT
     grp, units = trace_stream.stream_units(nc)
-    assert grp == {128: 4, 64: 8}[max_units] and nc % grp
+    assert grp == {16: 32, 8: 64}[max_units] and nc % grp
     o, d, t_min, t_max = _layered_rays(layered, rays)
     if rays == "random":
         o, d, t_min, t_max = (
@@ -227,6 +229,60 @@ def test_streamed_kernel_multi_chunk_units(small_worklist, layered,
     _check(got, scan, t_max, any_hit)
     if rays == "random":      # hits in the last, short unit's chunk
         assert (scan["tri"] >= (units - 1) * grp * trace_api.CT).any()
+
+
+IN_CHUNK_TIE = TIE_IDS[0] + 35      # a copy of the tie triangle, same chunk
+
+
+def _stream_case(layered, case):
+    """(planes, aabb, rays) of one K3 edge case on the layered scene."""
+    planes, aabb, coherent = layered
+    if case == "tie_in_chunk":
+        # two copies of one triangle in one chunk: two threads race on
+        # each lane's key and the lower id must win
+        planes = planes.clone()
+        planes[:, :, IN_CHUNK_TIE] = planes[:, :, TIE_IDS[0]]
+        return planes, aabb, coherent
+    if case == "one_lane":          # exactly one lane wants each chunk
+        o, d, t_min, t_max = _last_chunk_rays(planes, 4)
+        t_max = torch.where(torch.arange(o.shape[1]) == 7, t_max, 0.0)
+        return planes, aabb, (o, d, t_min, t_max)
+    o, d, t_min, t_max = _layered_rays(layered, "random")
+    n = 300 if case == "ragged" else 0       # R % 128 != 0, and R = 0
+    return planes, aabb, tuple(x[..., :n].contiguous()
+                               for x in (o, d, t_min, t_max))
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("case", ["tie_in_chunk", "one_lane", "ragged",
+                                  "empty"])
+def test_streamed_kernel_edge_cases(lib, layered, case, any_hit):
+    """K3 equals its twin and the chunk scan on every lane: an exact-t tie
+    inside one chunk, a block with one live lane, a ragged last block, and
+    R = 0 (no launch, nothing written)."""
+    planes, aabb, (o, d, t_min, t_max) = _stream_case(layered, case)
+    fn = (lib.tpurt_stream_any_hit if any_hit
+          else lib.tpurt_stream_closest_hit)
+    if case == "empty":
+        t = torch.full((1,), 7.0)
+        tri = torch.full((1,), 7, dtype=torch.int32)
+        assert fn(o.data_ptr(), d.data_ptr(), t_min.data_ptr(),
+                  t_max.data_ptr(), planes.data_ptr(), aabb.data_ptr(), 0,
+                  planes.shape[2], t.data_ptr(), tri.data_ptr(), None) == 0
+        assert t.item() == 7.0 and tri.item() == 7
+        return
+    want = trace_stream.trace_stream_plain(planes, aabb, V3(*o), V3(*d),
+                                           t_min, t_max, any_hit=any_hit)
+    scan = trace_api.trace_plain(planes, aabb, V3(*o), V3(*d), t_min, t_max)
+    got = _run_flat(fn, planes, aabb, o, d, t_min, t_max)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    _check(got, scan, t_max, any_hit)
+    if case == "tie_in_chunk":
+        assert (scan["tri"] == TIE_IDS[0]).sum() > 10
+        assert not (scan["tri"] == IN_CHUNK_TIE).any()
+    if case == "one_lane":
+        assert int((t_max > 0).sum()) == 1 and bool(scan["tri"][7] >= 0)
 
 
 @pytest.fixture(scope="module")

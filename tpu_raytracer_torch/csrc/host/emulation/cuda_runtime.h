@@ -8,6 +8,13 @@
 //     threads because only one block runs at a time;
 //   - cp.async (<cuda_pipeline.h>) is a plain copy, made at once; commit
 //     and wait are no-ops;
+//   - the warp votes and reductions (__ballot_sync, __reduce_min_sync,
+//     __reduce_or_sync) exchange the lanes' values through a static
+//     buffer between block barriers, so every thread of the block must
+//     call them the same number of times; __syncthreads_count counts on
+//     an atomic as __syncthreads_or does;
+//   - atomicMin, atomicOr, atomicExch and atomicAdd are std::atomic_ref
+//     operations;
 //   - the warp-level bf16 product of csrc/mma.cuh (mma_split) exchanges
 //     the fragments through a static buffer between two barriers and sums
 //     each output's exact products in f64, rounding once to f32; every
@@ -57,12 +64,39 @@ inline float __uint_as_float(unsigned u) {
     return x;
 }
 inline int min(int a, int b) { return a < b ? a : b; }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
+
+struct alignas(16) float4 {
+    float x, y, z, w;
+};
+inline float4 make_float4(float x, float y, float z, float w) {
+    return {x, y, z, w};
+}
 
 inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n) {
     std::memcpy(dst, src, n);
 }
 inline void __pipeline_commit() {}
 inline void __pipeline_wait_prior(size_t) {}
+
+template <class T>
+inline T atomicMin(T* p, T v) {
+    std::atomic_ref<T> a(*p);
+    T old = a.load();
+    while (v < old && !a.compare_exchange_weak(old, v)) {
+    }
+    return old;
+}
+inline unsigned atomicOr(unsigned* p, unsigned v) {
+    return std::atomic_ref<unsigned>(*p).fetch_or(v);
+}
+inline int atomicExch(int* p, int v) {
+    return std::atomic_ref<int>(*p).exchange(v);
+}
+inline int atomicAdd(int* p, int v) {
+    return std::atomic_ref<int>(*p).fetch_add(v);
+}
 
 inline std::barrier<>* emu_barrier;
 inline std::atomic<int> emu_or{0};
@@ -77,6 +111,44 @@ inline int __syncthreads_or(int p) {
     emu_barrier->arrive_and_wait();
     if (threadIdx.x == 0) emu_or.store(0);  // before anyone's next OR
     return r;
+}
+
+inline int __syncthreads_count(int p) {
+    emu_barrier->arrive_and_wait();
+    if (p) emu_or.fetch_add(1);
+    emu_barrier->arrive_and_wait();
+    const int r = emu_or.load();
+    emu_barrier->arrive_and_wait();
+    if (threadIdx.x == 0) emu_or.store(0);
+    return r;
+}
+
+// The warp's 32 values of `v` in lane order, folded by f from `init`.
+template <class F>
+inline unsigned emu_warp_fold(unsigned v, unsigned init, F f) {
+    static unsigned lanes[1024];
+    __syncthreads();                 // the last call's reads are done
+    lanes[threadIdx.x] = v;
+    __syncthreads();
+    const unsigned base = threadIdx.x / 32 * 32;
+    unsigned acc = init;
+    for (unsigned l = 0; l < 32; ++l) acc = f(acc, l, lanes[base + l]);
+    return acc;
+}
+inline unsigned __ballot_sync(unsigned, int p) {
+    return emu_warp_fold(p != 0, 0u, [](unsigned a, unsigned l, unsigned x) {
+        return a | (x << l);
+    });
+}
+inline unsigned __reduce_or_sync(unsigned, unsigned v) {
+    return emu_warp_fold(v, 0u, [](unsigned a, unsigned, unsigned x) {
+        return a | x;
+    });
+}
+inline unsigned __reduce_min_sync(unsigned, unsigned v) {
+    return emu_warp_fold(v, ~0u, [](unsigned a, unsigned, unsigned x) {
+        return x < a ? x : a;
+    });
 }
 
 // mma_split (csrc/mma.cuh): c[m][n] = A_m . B_n over K = 16 for a warp's

@@ -1,12 +1,12 @@
 // Device code shared by the traversal kernels (trace.cu: K1, K2;
 // trace_inst.cu: K4; trace_stream.cu: K3; trace_vpu.cu: K5; trace_mxu.cu:
 // K6, the ray record and slab test only): the ray record, the padded
-// slab test and its entry distance, staging of triangle planes into
-// shared memory, and the exact-f32 Moller-Trumbore test. One copy, so
-// every kernel runs the same arithmetic.
+// slab test, staging of triangle planes into shared memory, and the
+// exact-f32 Moller-Trumbore test. One copy, so every kernel runs the same
+// arithmetic.
 //
 // The arithmetic is the plain versions' (ops/trace_api.py: slab_pass,
-// slab_entry, mt_argmin), operation for operation: the multiply-adds
+// mt_argmin), operation for operation: the multiply-adds
 // that XLA:CPU fuses in the reference are explicit __fmaf_rn calls, and
 // the library is built with -fmad=false so the compiler contracts
 // nothing else.
@@ -63,13 +63,12 @@ __device__ __forceinline__ Ray load_ray(const float* o, const float* d,
 // magnitude (plus 1e-6), far above the rounding of both this test and
 // the intersection test, so a box holding a triangle that the exact test
 // would accept is never culled - flat walls give zero-thickness boxes.
-// LDG reads the box through the read-only cache, so it must lie in
-// global memory; plain loads take registers or shared memory too.
-template <bool LDG>
+// The box is read through the read-only cache, so it must lie in global
+// memory.
 __device__ __forceinline__ bool slab_window(const float* __restrict__ box,
                                             int stride, const Ray& ray,
                                             float& t_lo, float& t_hi) {
-    auto at = [box](int i) { return LDG ? __ldg(box + i) : box[i]; };
+    auto at = [box](int i) { return __ldg(box + i); };
     if (!(at(0) <= at(3 * stride))) return false;
     for (int k = 0; k < 3; ++k) {
         float lo = at(k * stride);
@@ -88,18 +87,7 @@ __device__ __forceinline__ bool slab_window(const float* __restrict__ box,
 __device__ __forceinline__ bool slab_pass(const float* __restrict__ box,
                                           int stride, const Ray& ray,
                                           float t_lo, float t_hi) {
-    return slab_window<true>(box, stride, ray, t_lo, t_hi) && t_lo <= t_hi;
-}
-
-// The test of slab_pass, returning the entry t of the window into the box
-// where it passes, else INF_T: a lower bound on the t of any hit inside
-// the box that the window admits. `box` may lie in any memory.
-__device__ __forceinline__ float slab_entry(const float* box, int stride,
-                                            const Ray& ray, float t_lo,
-                                            float t_hi) {
-    return slab_window<false>(box, stride, ray, t_lo, t_hi) && t_lo <= t_hi
-               ? t_lo
-               : INF_T;
+    return slab_window(box, stride, ray, t_lo, t_hi) && t_lo <= t_hi;
 }
 
 // The block's THREADS threads stage triangles first .. first + N - 1 of

@@ -196,17 +196,6 @@ def slab_pass(box, o: V3, inv: V3, t_lo, t_hi):
     return t_lo <= t_hi
 
 
-def slab_entry(box, o: V3, inv: V3, t_lo, t_hi):
-    """The padded slab test of `slab_pass`, returning each ray's entry t
-    into the box where it passes, else INF: a lower bound on the t of any
-    hit inside the box that the window admits (mt.cuh:slab_entry)."""
-    box = np.asarray(box, np.float32)
-    if not box[0] <= box[3]:
-        return torch.full_like(t_lo, INF)
-    t_lo, t_hi = _slab_window(box, o, inv, t_lo, t_hi)
-    return torch.where(t_lo <= t_hi, t_lo, INF)
-
-
 def safe_inv(d: V3) -> V3:
     """1/d per component, |d| clamped to DIR_EPS first (slab tests)."""
     return V3(*(1.0 / torch.where(torch.abs(x) < DIR_EPS,
