@@ -32,7 +32,11 @@ is non-zero):
                 plain instanced trace: 512^2 primary rays and 524,288
                 random rays inside the gallery (random t_max, 30% dead).
                 Closest-hit tri and inst equal on every lane, t within
-                T_ULPS; any-hit occlusion equal to plain, t = t_max.
+                T_ULPS; any-hit occlusion equal to plain, t = t_max,
+                inst set exactly on the occluded lanes. After phase 8,
+                K4 is timed on both ray sets and printed beside its
+                bound, with its MAX_UNITS and units and ptxas's
+                registers and shared memory for its entries.
   8. gallery  - the gallery's ReSTIR frame at 512^2 through render_frame:
                 2 warm-up + 4 timed frames, both K4 entry points launched
                 and neither K1 nor K2; fps, Mrays/s; K4 against plain at
@@ -314,6 +318,19 @@ def _inst_tests(torch, trace_api, trace_inst, scene, o, d, t_min, t_hi):
                                       t_min[lanes], t_hi[lanes])
             tests += int(per_group[g]) * int(hit.sum())
     return tests, transforms
+
+
+def _ptxas_of(ptxas, kernel):
+    """ptxas's registers line for each entry (closest, any) of the kernel
+    template `kernel`, from the build's ptxas lines."""
+    out, compiling = [], ""
+    for ln in ptxas:
+        if "Compiling entry" in ln:
+            compiling = ln
+        elif kernel in compiling:
+            out.append(f"{'any' if 'ILb1' in compiling else 'closest'}:"
+                       f"{ln.split(':', 1)[-1]}")
+    return out
 
 
 def _run_frames(torch, scene, dev, warmup, timed, name, on, off):
@@ -871,36 +888,35 @@ def main() -> int:
     go, gd, gt_max = _random_rays(torch, RANDOM_RAYS, dev, seed=1, lo=-7.0,
                                   hi=7.0, y=(-0.9, 3.0), t_far=20.0)
     g_plain = k4_plain(go, gd, r_tmin, gt_max)
-    k4_err, k4_ulps = 0.0, 0
-    for name, (o, d), (t_min, t_max) in (
-            ("primary 512^2", g_primary, p_win),
-            ("random", (go, gd), (r_tmin, gt_max))):
+    gp_plain = k4_plain(*g_primary, *p_win)
+    k4_err, k4_ulps, k4a_bad = 0.0, 0, 0
+    for name, (o, d), (t_min, t_max), want in (
+            ("primary 512^2", g_primary, p_win, gp_plain),
+            ("random", (go, gd), (r_tmin, gt_max), g_plain)):
         got = k4(o, d, t_min, t_max)
-        want = g_plain if o is go else k4_plain(o, d, t_min, t_max)
+        got_a = k4(o, d, t_min, t_max, any_hit=True)
         torch.cuda.synchronize()
         ulps, err, hit = _check_closest(f"K4 {name}", got, want,
                                         ("tri", "inst"))
         k4_ulps, k4_err = max(k4_ulps, ulps), max(k4_err, err)
+        occ = want["tri"] >= 0
+        bad = int(((got_a["tri"] >= 0) != occ).sum())
+        k4a_bad = max(k4a_bad, bad)
+        if bad:
+            raise AssertionError(f"K4 any-hit {name}: occlusion differs on "
+                                 f"{bad} lanes")
+        if not torch.equal(got_a["t"], t_max):
+            raise AssertionError(f"K4 any-hit {name}: t is not t_max")
+        if not torch.equal(got_a["inst"] >= 0, occ):
+            raise AssertionError(f"K4 any-hit {name}: inst is not set "
+                                 f"exactly on the occluded lanes")
         print(f"K4: closest-hit equals plain on the gallery's {name} rays "
               f"({hit:.3f} hit): tri and inst equal on every lane, "
               f"t max {k4_ulps} ulps (bound {T_ULPS}), max |dt| "
-              f"{k4_err:.3g}", flush=True)
-    got = k4(go, gd, r_tmin, gt_max, any_hit=True)
-    g_occ = g_plain["tri"] >= 0
-    torch.cuda.synchronize()
-    k4a_bad = int(((got["tri"] >= 0) != g_occ).sum())
+              f"{k4_err:.3g}; any-hit equals plain closest-hit tri>=0 "
+              f"({float(occ.float().mean()):.3f} occluded), t = t_max, inst "
+              f"set exactly on the occluded lanes", flush=True)
     k4a_err = float(k4a_bad > 0)   # max |flag difference|
-    if k4a_bad:
-        raise AssertionError(f"K4 any-hit: occlusion differs on {k4a_bad} "
-                             f"lanes")
-    if not torch.equal(got["t"], gt_max):
-        raise AssertionError("K4 any-hit: t is not t_max")
-    if not torch.equal(got["inst"] >= 0, g_occ):
-        raise AssertionError("K4 any-hit: inst is not set exactly on the "
-                             "occluded lanes")
-    print(f"K4: any-hit equals plain closest-hit tri>=0 on {RANDOM_RAYS} "
-          f"windowed gallery rays ({float(g_occ.float().mean()):.3f} "
-          f"occluded)", flush=True)
 
     # 8. gallery frame: the instanced path
     dt, rays, g_launches, _ = _run_frames(
@@ -924,23 +940,44 @@ def main() -> int:
               f"plain {t_p:.4f} ms; K4 any {t_ka:.4f} ms vs plain "
               f"{t_pa:.4f} ms [{card}]", flush=True)
 
-    inst_io = _nbytes(go, gd, r_tmin, gt_max, gal.tri_planes,
-                      gal.obj_group_aabb, gal.inst_table, gal.inst_aabb,
-                      gal.inst_group_span) + RANDOM_RAYS * 12
-    k4_tests, k4_xf = _inst_tests(torch, trace_api, trace_inst, gal, go, gd,
-                                  r_tmin, _window(torch, g_plain, gt_max))
-    k4a_tests, k4a_xf = _inst_tests(torch, trace_api, trace_inst, gal, go,
-                                    gd, r_tmin,
-                                    torch.where(g_occ, 0.0, gt_max))
-    k4a_tests += int(g_occ.sum())
-    k4_bound = _bound(k4_tests * MT_FLOPS + k4_xf * XFORM_FLOPS, inst_io)
-    k4a_bound = _bound(k4a_tests * MT_FLOPS + k4a_xf * XFORM_FLOPS, inst_io)
-    print(f"bound {RANDOM_RAYS} random gallery rays: K4 closest {k4_tests} "
-          f"tests + {k4_xf} transforms, {k4_bound[0]:.4f} ms "
-          f"({k4_bound[1]}); K4 any {k4a_tests} tests + {k4a_xf} "
-          f"transforms, {k4a_bound[0]:.4f} ms ({k4a_bound[1]})", flush=True)
+    def k4_bounds(o, d, t_min, t_max, closest):
+        """K4's closest- and any-hit (tests, transforms, bound) on these
+        rays and their plain closest hits."""
+        io = _nbytes(o, d, t_min, t_max, gal.tri_planes,
+                     gal.obj_group_aabb, gal.inst_table, gal.inst_aabb,
+                     gal.inst_group_span) + o.shape[1] * 12
+        occ = closest["tri"] >= 0
+        out = []
+        for t_hi, extra in ((_window(torch, closest, t_max), 0),
+                            (torch.where(occ, 0.0, t_max), int(occ.sum()))):
+            tests, xf = _inst_tests(torch, trace_api, trace_inst, gal, o, d,
+                                    t_min, t_hi)
+            tests += extra
+            out.append((tests, xf, _bound(tests * MT_FLOPS
+                                          + xf * XFORM_FLOPS, io)))
+        return out
+
+    # K4 on the primary rays beside the random rays, with its build
+    t_pk = _time_ms(torch, lambda: k4(*g_primary, *p_win), 10)
+    t_pka = _time_ms(torch, lambda: k4(*g_primary, *p_win, True), 10)
+    i_grp, i_units = trace_inst.inst_units(gal.num_instances)
+    k4_ptxas = _ptxas_of(ptxas, "inst_kernel")
+    for name, rays, closest, t in (
+            ("primary 512^2", (*g_primary, *p_win), gp_plain, (t_pk, t_pka)),
+            (f"{RANDOM_RAYS} random", (go, gd, r_tmin, gt_max), g_plain,
+             timings[("k4", RANDOM_RAYS)][::2])):
+        (k4_tests, k4_xf, k4_bound), (k4a_tests, k4a_xf, k4a_bound) = \
+            k4_bounds(*rays, closest)
+        print(f"bound gallery {name} rays: K4 closest {t[0]:.4f} ms against "
+              f"{k4_tests} tests + {k4_xf} transforms, {k4_bound[0]:.4f} ms "
+              f"({k4_bound[1]}); K4 any {t[1]:.4f} ms against {k4a_tests} "
+              f"tests + {k4a_xf} transforms, {k4a_bound[0]:.4f} ms "
+              f"({k4a_bound[1]}); MAX_UNITS {trace_inst.MAX_UNITS}: "
+              f"{i_units} units of {i_grp} instance(s); ptxas K4 "
+              f"{' | '.join(k4_ptxas) or 'cached'} [{card}]", flush=True)
+    # k4_bound and k4a_bound stay at the random rays, for the kernels line
     gal_inst_table = gal.inst_table     # for phase 16
-    del gal, g_plain, go, gd, gt_max
+    del gal, g_plain, gp_plain, go, gd, gt_max
 
     # 9. K3 against the plain versions on the full-width knot
     t0 = time.time()
@@ -1046,13 +1083,7 @@ def main() -> int:
         return (tests, _bound(tests * MT_FLOPS, io),
                 tests_a, _bound(tests_a * MT_FLOPS, io))
 
-    k3_ptxas, compiling = [], ""      # ptxas's line for each K3 entry
-    for ln in ptxas:
-        if "Compiling entry" in ln:
-            compiling = ln
-        elif "stream_kernel" in compiling:
-            k3_ptxas.append(f"{'any' if 'ILb1' in compiling else 'closest'}:"
-                            f"{ln.split(':', 1)[-1]}")
+    k3_ptxas = _ptxas_of(ptxas, "stream_kernel")
     p_scan = knot_scan(*k_primary, *p_win)
     for name, rays, closest, occluded in (
             ("primary 512^2", (*k_primary, *p_win), p_scan,

@@ -20,6 +20,7 @@ import os
 import re
 import shutil
 import subprocess
+import types
 
 import numpy as np
 import pytest
@@ -31,6 +32,10 @@ from tpu_raytracer_torch.ops import (table_gather, trace_api, trace_inst,
                                      trace_mxu, trace_stream, trace_vpu,
                                      worklist)
 from tpu_raytracer_torch.runtime.build import CSRC_DIR
+from tpu_raytracer_torch.scene.builder import SceneBuilder
+from tpu_raytracer_torch.scene.geometry import create_plane, create_sphere
+from tpu_raytracer_torch.scene.material import Material
+from tpu_raytracer_torch.utils.math3d import scale, translation
 from tpu_raytracer_torch.utils.vec3 import V3
 
 RAYS = 1024
@@ -292,27 +297,144 @@ def galleries():
             "full": scenes.create_instancing_gallery_scene("cpu")}
 
 
-@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
-@pytest.mark.parametrize("which", ["mini", "full"])
-def test_instanced_kernel_matches_plain(lib, galleries, which, any_hit):
-    g = galleries[which]
+FOLDED_UNITS = 4        # the mini gallery's 11 instances: units of 4, 4, 3
+
+
+@pytest.fixture(scope="module")
+def folded_lib(tmp_path_factory):
+    """K4 built with 4 units (TPURT_INST_MAX_UNITS), so that its units
+    hold several instances (the default, 128, holds the gallery's 102
+    one by one)."""
+    return _build(tmp_path_factory.mktemp("emulated_inst_units"),
+                  ("trace_inst",), (f"TPURT_INST_MAX_UNITS={FOLDED_UNITS}",))
+
+
+@pytest.fixture(scope="module")
+def sphere5():
+    """A floor and three instances of create_sphere(5): 80 groups of 256
+    triangles a sphere, so its groups fill three mask segments of 32."""
+    b = SceneBuilder()
+    plane_id = b.add_mesh(create_plane())
+    sphere_id = b.add_mesh(create_sphere(5))
+    mat = b.add_material(Material((0.7, 0.7, 0.7, 1.0)))
+    b.add_instance(plane_id, mat, translation([0, -1, 0]) @ scale(8.0))
+    for k in range(3):
+        b.add_instance(sphere_id, mat,
+                       translation([1.5 * (k - 1), -0.4, 0.3 * k])
+                       @ scale(0.6))
+    return b.build("cpu", instancing="on")
+
+
+def _tie_scene():
+    """Two instances of two meshes, both holding one triangle (z = 0,
+    under x + y <= 0 in [-1, 1]^2) at the same world place. Mesh 1 also
+    holds a triangle at z = 2, beside the rays, that stretches its box
+    toward them: instance 1 sorts before instance 0. Rays straight down
+    from z = 64 enter instance 0's box exactly at the hit, t = 64 (the
+    box's padding is below the rounding of 64 - 1e-6), so an exit that
+    is not strict, or a fold that prefers the higher key, gives the tie
+    to instance 1; the reference gives it to instance 0."""
+    tri = (np.float32([[-1, -1, 0]]), np.float32([[2, 0, 0]]),
+           np.float32([[0, 2, 0]]))
+    side = (np.float32([[3, 3, 2]]), np.float32([[1, 0, 0]]),
+            np.float32([[0, 1, 0]]))
+    meshes = [tri, tuple(np.concatenate([a, b]) for a, b in zip(tri, side))]
+    planes, gaabb, spans = trace_inst.pack_triangles_instanced(meshes)
+    table = np.zeros((2, trace_inst.INST_COLS), np.float32)
+    table[:, 0:9] = np.eye(3, dtype=np.float32).reshape(-1)   # identity
+    boxes = np.float32([[-1, -1, 0, 1, 1, 0, 0, 0],
+                        [-1, -1, 0, 4, 4, 2, 0, 0]])
+    t = torch.from_numpy
+    return types.SimpleNamespace(
+        tri_planes=t(planes), obj_group_aabb=t(gaabb), inst_table=t(table),
+        inst_aabb=t(boxes), inst_group_span=t(spans.copy()),
+        unit_inst=t(np.int32([0, 1])), unit_group=t(np.int32([0, 1])))
+
+
+def _tie_rays(n=256):
+    g = np.random.default_rng(5)
+    o = np.zeros((3, n), np.float32)
+    o[0:2] = g.uniform(-0.9, 0.9, (2, n))
+    o[2] = 64.0
+    d = np.zeros((3, n), np.float32)
+    d[2] = -1.0
+    return (torch.from_numpy(o), torch.from_numpy(d),
+            torch.full((n,), 1e-3), torch.full((n,), 100.0))
+
+
+def _inst_case(request, galleries, which):
+    """(scene, rays, library) of one K4 case."""
     o, d, t_min, t_max = _rays(1, -7.0, 7.0, 20.0)
     o[1] = o[1].clamp(-0.9, 3.0)
-    want = trace_inst.trace_instanced_plain(
-        g.tri_planes, g.obj_group_aabb, g.inst_table, g.inst_aabb,
-        g.unit_inst, g.unit_group, V3(*o), V3(*d), t_min, t_max)
-    t = torch.empty(RAYS)
-    tri = torch.empty(RAYS, dtype=torch.int32)
-    inst = torch.empty(RAYS, dtype=torch.int32)
+    lib = request.getfixturevalue("lib")
+    if which in ("mini", "full"):
+        return galleries[which], (o, d, t_min, t_max), lib
+    g = galleries["mini"]
+    if which == "folded":
+        return g, (o, d, t_min, t_max), request.getfixturevalue("folded_lib")
+    if which == "sphere5":
+        o, d, t_min, t_max = _rays(6, -3.0, 3.0, 8.0)
+        o[1] = o[1].clamp(-0.9, 2.0)
+        return request.getfixturevalue("sphere5"), (o, d, t_min, t_max), lib
+    if which == "tie":
+        return _tie_scene(), _tie_rays(), lib
+    if which == "one_lane":     # one live lane in a block: one that hits
+        want = trace_inst.trace_instanced_plain(
+            g.tri_planes, g.obj_group_aabb, g.inst_table, g.inst_aabb,
+            g.unit_inst, g.unit_group, V3(*o), V3(*d), t_min, t_max)
+        h = int(torch.nonzero(want["tri"] >= 0)[0])
+        lanes = torch.full((128,), h)
+        t_max = torch.where(torch.arange(128) == 7, t_max[h], 0.0)
+        return g, (o[:, lanes].contiguous(), d[:, lanes].contiguous(),
+                   t_min[:128].contiguous(), t_max), lib
+    n = 300 if which == "ragged" else 0     # R % 128 != 0, and R = 0
+    return g, tuple(x[..., :n].contiguous() for x in (o, d, t_min, t_max)), \
+        lib
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("which", ["mini", "full", "folded", "sphere5",
+                                   "ragged", "one_lane", "empty", "tie"])
+def test_instanced_kernel_matches_plain(request, galleries, which, any_hit):
+    """K4 equals the plain instanced scan on every lane: the mini and full
+    galleries, units of several instances, a mesh of 80 groups, a ragged
+    last block with dead lanes, a block with one live lane, R = 0 (no
+    launch, nothing written), and an exact-t tie across instances that
+    the front-to-back order visits in reverse."""
+    g, (o, d, t_min, t_max), lib = _inst_case(request, galleries, which)
+    if which == "folded":
+        monkeypatch = request.getfixturevalue("monkeypatch")
+        monkeypatch.setattr(trace_inst, "MAX_UNITS", FOLDED_UNITS)
+        assert trace_inst.inst_units(g.inst_table.shape[0]) == (4, 3)
+    n = o.shape[1]
+    t = torch.full((max(n, 1),), 7.0)
+    tri = torch.full((max(n, 1),), 7, dtype=torch.int32)
+    inst = torch.full((max(n, 1),), 7, dtype=torch.int32)
     fn = lib.tpurt_inst_any_hit if any_hit else lib.tpurt_inst_closest_hit
     err = fn(o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
              g.tri_planes.data_ptr(), g.obj_group_aabb.data_ptr(),
              g.inst_table.data_ptr(), g.inst_aabb.data_ptr(),
-             g.inst_group_span.data_ptr(), RAYS, g.inst_table.shape[0],
+             g.inst_group_span.data_ptr(), n, g.inst_table.shape[0],
              g.obj_group_aabb.shape[1], t.data_ptr(), tri.data_ptr(),
              inst.data_ptr(), None)
     assert err == 0
+    if n == 0:
+        assert t.item() == 7.0 and tri.item() == 7 and inst.item() == 7
+        return
+    want = trace_inst.trace_instanced_plain(
+        g.tri_planes, g.obj_group_aabb, g.inst_table, g.inst_aabb,
+        g.unit_inst, g.unit_group, V3(*o), V3(*d), t_min, t_max)
     _check({"t": t, "tri": tri, "inst": inst}, want, t_max, any_hit)
+    if which == "tie":
+        hit = want["tri"] >= 0
+        assert hit.sum() > 50 and bool((want["inst"][hit] == 0).all())
+        assert bool((want["t"][hit] == 64.0).all())
+    if which == "one_lane":
+        assert int((t_max > 0).sum()) == 1 and bool(want["tri"][7] >= 0)
+    if which == "sphere5":
+        spans = g.inst_group_span[1]
+        assert int(spans.max()) == 80
+        assert bool((want["inst"] >= 1).any())
 
 
 @pytest.fixture(scope="module")

@@ -1,9 +1,9 @@
 // Device code shared by the traversal kernels (trace.cu: K1, K2;
 // trace_inst.cu: K4; trace_stream.cu: K3; trace_vpu.cu: K5; trace_mxu.cu:
 // K6, the ray record and slab test only): the ray record, the padded
-// slab test, staging of triangle planes into shared memory, and the
-// exact-f32 Moller-Trumbore test. One copy, so every kernel runs the same
-// arithmetic.
+// slab test, the order bits of t (K3, K4), staging of triangle planes
+// into shared memory, and the exact-f32 Moller-Trumbore test. One copy,
+// so every kernel runs the same arithmetic.
 //
 // The arithmetic is the plain versions' (ops/trace_api.py: slab_pass,
 // mt_argmin), operation for operation: the multiply-adds
@@ -88,6 +88,16 @@ __device__ __forceinline__ bool slab_pass(const float* __restrict__ box,
                                           int stride, const Ray& ray,
                                           float t_lo, float t_hi) {
     return slab_window(box, stride, ray, t_lo, t_hi) && t_lo <= t_hi;
+}
+
+// float -> uint32 whose unsigned order is the float order
+__device__ __forceinline__ unsigned order_bits(float x) {
+    const unsigned u = __float_as_uint(x);
+    return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float from_order_bits(unsigned u) {
+    return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
 }
 
 // The block's THREADS threads stage triangles first .. first + N - 1 of

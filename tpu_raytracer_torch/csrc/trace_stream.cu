@@ -104,16 +104,6 @@ struct Shared {
     unsigned cmask[2][SEG][WARPS];   // the lanes that want each chunk
 };
 
-// float -> uint32 whose unsigned order is the float order
-__device__ __forceinline__ unsigned order_bits(float x) {
-    const unsigned u = __float_as_uint(x);
-    return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float from_order_bits(unsigned u) {
-    return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
-}
-
 // The slab entry of the window (t_lo, t_hi) into a box that is already
 // padded (a unit box), else INF_T; box [6] is min xyz, max xyz.
 __device__ __forceinline__ float box_entry(const float* box, const Ray& ray,

@@ -31,6 +31,17 @@ from .trace_api import (CT, INF, LAUNCHES, _check, fma, load_kernels,
 # chunks (the reference's INST_GRP = 2)
 GROUP = 2 * CT
 INST_COLS = 23            # inst_table row width
+MAX_UNITS = 128           # K4's unit capacity (TPURT_INST_MAX_UNITS)
+
+
+def inst_units(num_instances: int):
+    """(grp, units): K4 sorts units of `grp` consecutive instances, grp
+    the smallest power of two that keeps the unit count within MAX_UNITS
+    (the rule of csrc/trace_inst.cu:launch)."""
+    grp = 1
+    while -(-num_instances // grp) > MAX_UNITS:
+        grp *= 2
+    return grp, -(-num_instances // grp)
 
 
 def pack_triangles_instanced(mesh_tris):
@@ -152,7 +163,8 @@ def trace_instanced_kernel(obj_planes, obj_gaabb, inst_table, inst_aabb,
     obj_planes [4, 3, NGO * 256], obj_gaabb [8, NGO], inst_table [I, 23]
     and inst_aabb [I, 8] f32; inst_span [2, I] i32 (first group, count,
     each span inside [0, NGO), as the builder makes them); all contiguous
-    on one CUDA device. Raises on anything else."""
+    on one CUDA device, with I * NGO * 256 < 2^32 (the kernel keys a hit
+    by instance * slots + triangle in 32 bits). Raises on anything else."""
     device = o.device
     if device.type != "cuda":
         raise ValueError(
@@ -170,8 +182,11 @@ def trace_instanced_kernel(obj_planes, obj_gaabb, inst_table, inst_aabb,
     _check(inst_table, "inst_table", (n_inst, INST_COLS), f32, device)
     _check(inst_aabb, "inst_aabb", (n_inst, 8), f32, device)
     _check(inst_span, "inst_span", (2, n_inst), torch.int32, device)
-    if r >= 2 ** 31 or ngo * GROUP >= 2 ** 31:
+    if r >= 2 ** 31 or 12 * ngo * GROUP >= 2 ** 31:
         raise ValueError("rays or triangle slots exceed int32 indexing")
+    if n_inst * ngo * GROUP >= 2 ** 32:
+        raise ValueError(f"{n_inst} instances x {ngo * GROUP} slots exceed "
+                         f"the kernel's 32-bit hit key")
     lib = load_kernels()
     t_out = torch.empty((r,), dtype=f32, device=device)
     tri_out = torch.empty((r,), dtype=torch.int32, device=device)

@@ -1,6 +1,7 @@
 """Where a frame's time goes on the card: wall time per frame, device
-kernel time by name (and the table gather K7's, listed apart), the
-device's busy share and the kernel launches the host issues.
+kernel time by name (the port's own kernels K1-K7, listed apart, and
+the table gather K7's), the device's busy share and the kernel launches
+the host issues.
 
     python -m tpu_raytracer_torch.profile_frame --scene knot
     python -m tpu_raytracer_torch.profile_frame --scene cornell --kernel vpu
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import time
 
@@ -27,6 +29,10 @@ from .render import camera, pipeline, renderer
 SIZE = 512        # the frame's width and height
 WARMUP = 3
 TOP = 8           # kernels listed, by device time
+# the port's hand-written kernels K1-K7 (csrc/*.cu), by their names
+PORT_KERNEL = re.compile(
+    r"^(?:void )?\(anonymous namespace\)::((?:closest_hit|any_hit|stream"
+    r"|inst|vpu|mxu|gather)_kernel(?:<[^>]*>)?)\(")
 
 # scene name -> builder in models/scenes.py, looked up when used
 SCENES = {"bunny": "create_bunny_scene",
@@ -100,8 +106,13 @@ def main(argv=None) -> int:
                       if e.device_type == cuda and _device_us(e) > 0),
                      key=lambda k: -k[1])
     device_ms = sum(k[1] for k in kernels)
+    port = {}
+    for name, ms, count in kernels:
+        m = PORT_KERNEL.match(name)
+        if m:
+            port[m.group(1)] = {"ms": ms, "launches": count}
     # the row fetches' table gather (K7), which is rarely among the TOP
-    k7 = [k for k in kernels if "gather_kernel" in k[0]]
+    k7 = port.get("gather_kernel", {"ms": 0.0, "launches": 0.0})
     launches = sum(e.count for e in avgs
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                 "cudaLaunchKernelExC")) / args.frames
@@ -116,8 +127,9 @@ def main(argv=None) -> int:
         "top_kernels_ms_per_frame": [
             {"name": k[0][:80], "ms": k[1], "launches": k[2]}
             for k in kernels[:TOP]],
-        "k7_ms_per_frame": sum(k[1] for k in k7),
-        "k7_launches_per_frame": sum(k[2] for k in k7),
+        "k7_ms_per_frame": k7["ms"],
+        "k7_launches_per_frame": k7["launches"],
+        "port_kernels_ms_per_frame": port,
     }))
     return 0
 

@@ -46,30 +46,32 @@ def _card() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def _build_all(variants):
-    """Start one nvcc per (name, csrc dir, defines) at once; returns {name:
-    (ctypes library, ptxas lines)}."""
+def _build_all(source, variants, entries, argtypes):
+    """Start one nvcc per (name, csrc dir, defines) at once, each building
+    <csrc dir>/<source>; bind each library's `entries` with `argtypes`.
+    Returns {name: (ctypes library, ptxas lines)}."""
     out_dir = os.path.join(BUILD_DIR, "variants")
     os.makedirs(out_dir, exist_ok=True)
+    stem = os.path.splitext(source)[0]
     procs = {}
     for name, csrc, defines in variants:
-        so = os.path.join(out_dir, f"{name}.so")
+        so = os.path.join(out_dir, f"{stem}_{name}.so")
         cmd = [trace_api._nvcc(), *trace_api.NVCC_FLAGS,
                *(f"-D{x}" for x in defines), "-o", so,
-               os.path.join(csrc, "trace_stream.cu")]
+               os.path.join(csrc, source)]
         procs[name] = (so, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
     libs = {}
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name, (so, proc) in procs.items():
         log = proc.communicate(timeout=600)[0]
         if proc.returncode != 0:
             raise RuntimeError(f"building {name} failed:\n{log}")
         lib = ctypes.CDLL(so)
-        for fn in (lib.tpurt_stream_closest_hit, lib.tpurt_stream_any_hit):
-            fn.restype = i32
-            fn.argtypes = [ptr] * 6 + [i32] * 2 + [ptr] * 3
+        for entry in entries:
+            fn = getattr(lib, entry)
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
         libs[name] = (lib, [ln.strip() for ln in log.splitlines()
                             if "registers" in ln or "Compiling entry" in ln])
     return libs
@@ -128,7 +130,10 @@ def main(argv=None) -> int:
     if args.baseline:
         variants.append(("baseline", os.path.abspath(args.baseline), ()))
     t0 = time.time()
-    libs = _build_all(variants)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    libs = _build_all("trace_stream.cu", variants,
+                      ("tpurt_stream_closest_hit", "tpurt_stream_any_hit"),
+                      [ptr] * 6 + [i32] * 2 + [ptr] * 3)
     print(f"built {len(libs)} variants of trace_stream.cu in "
           f"{time.time() - t0:.2f} s [{card}]", flush=True)
     for name, (_, ptxas) in libs.items():
