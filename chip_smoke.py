@@ -16,13 +16,17 @@ is non-zero):
                 call.
   3. K1       - against its plain PyTorch version on the card: Cornell
                 512^2 primary rays and 524,288 random rays (random t_max,
-                30% dead lanes). tri equal on every lane, t within T_ULPS.
-  4. K2       - against plain closest-hit `tri >= 0` on the random rays.
+                30% dead lanes). tri equal on every lane, t bit-equal.
+  4. K2       - against plain closest-hit `tri >= 0` on the same rays,
+                t = t_max.
   5. frame    - the Cornell ReSTIR frame at 512^2 through render_frame:
                 2 warm-up + 8 timed frames (static_ok from the second
                 frame on), launch counts (K1 and K2 launched, K3-K6
                 not), fps, Mrays/s, and K1/K2 against plain at 262,144 and
-                524,288 rays.
+                524,288 random rays; then K1/K2 on the primary rays beside
+                their bound, with K1's unit capacity (SWEPT_MAX_UNITS) and
+                units and ptxas's registers and shared memory for both
+                entries.
   6. golden   - 8 frames of the 64^2 Cornell box against
                 tests/golden/cornell_64_f8_ldr.npy and 4 frames of the 48^2
                 restir scene (100 sphere lights) against
@@ -60,9 +64,9 @@ is non-zero):
  11. bunny    - the bunny scene's (config 3, 15,372 triangles) frame at
                 512^2: 2 warm-up + 4 timed frames, K1 and K2 launched,
                 neither K3 nor K4. Then K3 against K1/K2 on the bunny's
-                512^2 primary rays and 524,288 random rays (equal on
-                every lane) and timed beside them: data for MXUF_MAX_TP,
-                which stays as it is.
+                and Cornell's 512^2 primary rays and 524,288 random rays
+                (equal on every lane) and timed beside them: data for
+                MXUF_MAX_TP, which stays as it is.
  12. K5       - the vpu sweep against its plain version (the same
                 worklists) and against K1, on Cornell's 512^2 primary
                 rays, 524,288 random Cornell rays and 524,288 random rays
@@ -321,14 +325,16 @@ def _inst_tests(torch, trace_api, trace_inst, scene, o, d, t_min, t_hi):
 
 
 def _ptxas_of(ptxas, kernel):
-    """ptxas's registers line for each entry (closest, any) of the kernel
-    template `kernel`, from the build's ptxas lines."""
+    """ptxas's registers line for each entry (closest, any) of the kernels
+    whose names hold `kernel` (a template's <true> entry, or a name with
+    any_hit, is the any-hit one), from the build's ptxas lines."""
     out, compiling = [], ""
     for ln in ptxas:
         if "Compiling entry" in ln:
             compiling = ln
         elif kernel in compiling:
-            out.append(f"{'any' if 'ILb1' in compiling else 'closest'}:"
+            any_hit = "ILb1" in compiling or "any_hit" in compiling
+            out.append(f"{'any' if any_hit else 'closest'}:"
                        f"{ln.split(':', 1)[-1]}")
     return out
 
@@ -784,32 +790,40 @@ def main() -> int:
     ro, rd, rt_max = _random_rays(torch, RANDOM_RAYS, dev)
     r_tmin = torch.full((RANDOM_RAYS,), 1e-3, device=dev)
     r_plain = plain(ro, rd, r_tmin, rt_max)
+    p_plain = plain(*primary, *p_win)
     k1_err, k1_ulps = 0.0, 0
     for name, (o, d), (t_min, t_max) in (
             ("primary 512^2", primary, p_win),
             ("random", (ro, rd), (r_tmin, rt_max))):
         got = kernel(o, d, t_min, t_max)
-        want = r_plain if o is ro else plain(o, d, t_min, t_max)
+        want = r_plain if o is ro else p_plain
         torch.cuda.synchronize()
         ulps, err, _ = _check_closest(f"K1 {name}", got, want)
         k1_ulps, k1_err = max(k1_ulps, ulps), max(k1_err, err)
+        if ulps:        # K1 runs the plain version's arithmetic
+            raise AssertionError(f"K1 {name}: t differs from plain by "
+                                 f"{ulps} ulps")
     print(f"K1: closest-hit equals plain on {n_p} primary + {RANDOM_RAYS} "
-          f"random rays: tri equal on every lane, t max {k1_ulps} ulps "
-          f"(bound {T_ULPS}), max |dt| {k1_err:.3g}", flush=True)
+          f"random rays: tri equal on every lane, t bit-equal (max "
+          f"{k1_ulps} ulps), max |dt| {k1_err:.3g}", flush=True)
 
     # 4. K2 against plain closest-hit tri >= 0
-    got = kernel(ro, rd, r_tmin, rt_max, any_hit=True)
-    want = r_plain["tri"] >= 0
-    torch.cuda.synchronize()
-    k2_bad = int(((got["tri"] >= 0) != want).sum())
-    k2_err = float(k2_bad > 0)     # max |flag difference|
-    if k2_bad:
-        raise AssertionError(f"K2: occlusion differs on {k2_bad} lanes")
-    if not torch.equal(got["t"], rt_max):
-        raise AssertionError("K2: t is not t_max")
-    print(f"K2: any-hit equals plain closest-hit tri>=0 on {RANDOM_RAYS} "
-          f"windowed rays ({float(want.float().mean()):.3f} occluded)",
-          flush=True)
+    for name, (o, d), (t_min, t_max), closest in (
+            ("primary 512^2", primary, p_win, p_plain),
+            ("random", (ro, rd), (r_tmin, rt_max), r_plain)):
+        got = kernel(o, d, t_min, t_max, any_hit=True)
+        want = closest["tri"] >= 0
+        torch.cuda.synchronize()
+        k2_bad = int(((got["tri"] >= 0) != want).sum())
+        if k2_bad:
+            raise AssertionError(f"K2 {name}: occlusion differs on {k2_bad} "
+                                 f"lanes")
+        if not torch.equal(got["t"], t_max):
+            raise AssertionError(f"K2 {name}: t is not t_max")
+        print(f"K2: any-hit equals plain closest-hit tri>=0 on the {name} "
+              f"rays ({float(want.float().mean()):.3f} occluded), t = t_max",
+              flush=True)
+    k2_err = 0.0     # max |flag difference|
 
     # 5. frame: the Cornell path
     dt, rays, launches, c_ldrs = _run_frames(
@@ -847,6 +861,30 @@ def main() -> int:
     print(f"bound {RANDOM_RAYS} random rays: K1 {k1_tests} tests, "
           f"{k1_bound[0]:.4f} ms ({k1_bound[1]}); K2 {k2_tests} tests, "
           f"{k2_bound[0]:.4f} ms ({k2_bound[1]})", flush=True)
+
+    # K1/K2 on the primary rays beside the random rays, with their build
+    t_p1 = _time_ms(torch, lambda: kernel(*primary, *p_win), 20)
+    t_p2 = _time_ms(torch, lambda: kernel(*primary, *p_win, True), 20)
+    p_io = _nbytes(*primary, *p_win, scene.tri_planes,
+                   scene.chunk_aabb) + n_p * 8
+    p_tests = _flat_tests(trace_api, scene, *primary, p_win[0],
+                          _window(torch, p_plain, p_win[1]))[0]
+    p_occ = p_plain["tri"] >= 0
+    p2_tests = int(p_occ.sum()) + _flat_tests(
+        trace_api, scene, *primary, p_win[0],
+        torch.where(p_occ, 0.0, p_win[1]))[0]
+    p1_bound = _bound(p_tests * MT_FLOPS, p_io)
+    p2_bound = _bound(p2_tests * MT_FLOPS, p_io)
+    c_grp, c_units = trace_stream.stream_units(
+        scene.chunk_aabb.shape[0], trace_api.SWEPT_MAX_UNITS)
+    print(f"timing Cornell primary 512^2 rays: K1 {t_p1:.4f} ms against "
+          f"{p_tests} tests, bound {p1_bound[0]:.4f} ms ({p1_bound[1]}); K2 "
+          f"{t_p2:.4f} ms against {p2_tests} tests, bound "
+          f"{p2_bound[0]:.4f} ms ({p2_bound[1]}); SWEPT_MAX_UNITS "
+          f"{trace_api.SWEPT_MAX_UNITS}: {c_units} units of {c_grp} "
+          f"chunk(s); ptxas K1/K2 "
+          f"{' | '.join(_ptxas_of(ptxas, 'hit_kernel')) or 'cached'} "
+          f"[{card}]", flush=True)
 
     # 6. golden
     golden_dir = os.path.join(root, "tests", "golden")
@@ -1125,28 +1163,35 @@ def main() -> int:
           + _frame_line("bunny ReSTIR", GALLERY_TIMED, dt, rays, b_launches,
                         card, GALLERY_WARMUP + GALLERY_TIMED), flush=True)
 
-    # K3 beside K1/K2 on the bunny (data for MXUF_MAX_TP; the route keeps
-    # the bunny on K1/K2)
+    # K3 beside K1/K2 on the bunny and Cornell (data for MXUF_MAX_TP; the
+    # route keeps both on K1/K2)
     bo, bd, bt_max = _random_rays(torch, RANDOM_RAYS, dev, seed=3)
-    b_grp, b_units = trace_stream.stream_units(bunny.chunk_aabb.shape[0])
-    for name, (o, d), (t_min, t_max) in (
-            ("primary 512^2", primary_rays(bunny), p_win),
-            (f"{RANDOM_RAYS} random", (bo, bd), (r_tmin, bt_max))):
-        args = (bunny.tri_planes, bunny.chunk_aabb, o, d, t_min, t_max)
+    for sname, s, (o, d), (t_min, t_max) in (
+            ("bunny", bunny, primary_rays(bunny), p_win),
+            ("bunny", bunny, (bo, bd), (r_tmin, bt_max)),
+            ("Cornell", scene, primary, p_win),
+            ("Cornell", scene, (ro, rd), (r_tmin, rt_max))):
+        name = ("primary 512^2" if o.shape[1] == n_p
+                else f"{RANDOM_RAYS} random")
+        nc = s.chunk_aabb.shape[0]
+        units = [trace_stream.stream_units(nc, m) for m in (
+            trace_stream.MAX_UNITS, trace_api.SWEPT_MAX_UNITS)]
+        args = (s.tri_planes, s.chunk_aabb, o, d, t_min, t_max)
         k1 = trace_api.trace_kernel(*args)
         got = trace_stream.trace_stream_kernel(*args)
         got_a = trace_stream.trace_stream_kernel(*args, any_hit=True)
         torch.cuda.synchronize()
-        _check_closest(f"K3 bunny {name} vs K1", got, k1)
+        _check_closest(f"K3 {sname} {name} vs K1", got, k1)
         bad = int(((got_a["tri"] >= 0) != (k1["tri"] >= 0)).sum())
         if bad:
-            raise AssertionError(f"K3 any-hit bunny {name} vs K1: occlusion "
-                                 f"differs on {bad} lanes")
+            raise AssertionError(f"K3 any-hit {sname} {name} vs K1: "
+                                 f"occlusion differs on {bad} lanes")
         t = [_time_ms(torch, lambda a=a: fn(*args, any_hit=a), 10)
              for fn in (trace_stream.trace_stream_kernel,
                         trace_api.trace_kernel) for a in (False, True)]
-        print(f"timing bunny {name} rays ({b_units} units of {b_grp} "
-              f"chunks), K3 equal to K1/K2 on every lane: closest K3 "
+        print(f"timing {sname} {name} rays ({nc} chunks: K3 {units[0][1]} "
+              f"units of {units[0][0]}, K1 {units[1][1]} units of "
+              f"{units[1][0]}), K3 equal to K1/K2 on every lane: closest K3 "
               f"{t[0]:.4f} ms vs K1 {t[2]:.4f} ms; any K3 {t[1]:.4f} ms vs "
               f"K2 {t[3]:.4f} ms [{card}]", flush=True)
 

@@ -119,20 +119,51 @@ def _check(got, want, t_max, any_hit):
     assert (want["tri"] >= 0).any()
 
 
+SMALL_SWEPT = 8     # K1/K2's capacity in the small build (units of 2, 32)
+
+
+@pytest.fixture(scope="module")
+def swept_small(tmp_path_factory):
+    """K1/K2 built with 8 units (TPURT_SWEPT_MAX_UNITS): Cornell's 11
+    chunks then make units of 2, the last one short, and the 256-chunk
+    table units of 32, a full segment each (the default, 32 units,
+    sweeps Cornell chunk by chunk and the 256-chunk table in units of
+    8)."""
+    return _build(tmp_path_factory.mktemp("emulated_swept_units"),
+                  ("trace",), (f"TPURT_SWEPT_MAX_UNITS={SMALL_SWEPT}",))
+
+
+def _swept_table(name, layered):
+    """(planes, aabb, rays) of a table on K1/K2's route: the diffuse
+    Cornell box (1 chunk), the Cornell box (11 chunks), or the layered
+    scene's first MXUF_MAX_TP slots (256 chunks, the route's cap; both
+    TIE_IDS in range)."""
+    if name == "max":
+        planes, aabb, _ = layered
+        nc = trace_api.MXUF_MAX_TP // trace_api.CT
+        return (planes[:, :, :trace_api.MXUF_MAX_TP].contiguous(),
+                aabb[:nc].contiguous(), _layered_rays(layered, "random"))
+    scene = (scenes.create_cornell_box_diffuse("cpu") if name == "diffuse"
+             else scenes.create_cornell_box("cpu"))
+    return scene.tri_planes, scene.chunk_aabb, _rays(0, -0.95, 0.95, 3.0)
+
+
 @pytest.mark.parametrize("any_hit", [False, True], ids=["K1", "K2"])
-def test_flattened_kernels_match_plain(lib, any_hit):
-    scene = scenes.create_cornell_box("cpu")
-    o, d, t_min, t_max = _rays(0, -0.95, 0.95, 3.0)
-    want = trace_api.trace_plain(scene.tri_planes, scene.chunk_aabb, V3(*o),
-                                 V3(*d), t_min, t_max)
-    t = torch.empty(RAYS)
-    tri = torch.empty(RAYS, dtype=torch.int32)
+@pytest.mark.parametrize("build", ["default", "units8"])
+@pytest.mark.parametrize("table,chunks", [("diffuse", 1), ("cornell", 11),
+                                          ("max", 256)])
+def test_flattened_kernels_match_plain(request, layered, table, chunks,
+                                       build, any_hit):
+    """K1/K2 equal the plain chunk scan on every lane, on tables of 1, 11
+    and 256 chunks, at the default unit capacity and at 8 units."""
+    planes, aabb, (o, d, t_min, t_max) = _swept_table(table, layered)
+    assert aabb.shape[0] == chunks
+    lib = request.getfixturevalue("lib" if build == "default"
+                                  else "swept_small")
+    want = trace_api.trace_plain(planes, aabb, V3(*o), V3(*d), t_min, t_max)
     fn = lib.tpurt_any_hit if any_hit else lib.tpurt_closest_hit
-    err = fn(o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
-             scene.tri_planes.data_ptr(), scene.chunk_aabb.data_ptr(), RAYS,
-             scene.tri_planes.shape[2], t.data_ptr(), tri.data_ptr(), None)
-    assert err == 0
-    _check({"t": t, "tri": tri}, want, t_max, any_hit)
+    got = _run_flat(fn, planes, aabb, o, d, t_min, t_max)
+    _check(got, want, t_max, any_hit)
 
 
 @pytest.fixture(scope="module")
@@ -240,13 +271,16 @@ IN_CHUNK_TIE = TIE_IDS[0] + 35      # a copy of the tie triangle, same chunk
 
 
 def _stream_case(layered, case):
-    """(planes, aabb, rays) of one K3 edge case on the layered scene."""
+    """(planes, aabb, rays) of one edge case on the layered scene (K3's)
+    or on its first 256 chunks (K1's)."""
     planes, aabb, coherent = layered
     if case == "tie_in_chunk":
         # two copies of one triangle in one chunk: two threads race on
         # each lane's key and the lower id must win
         planes = planes.clone()
         planes[:, :, IN_CHUNK_TIE] = planes[:, :, TIE_IDS[0]]
+        return planes, aabb, coherent
+    if case == "coherent":          # the exact-t tie across two units
         return planes, aabb, coherent
     if case == "one_lane":          # exactly one lane wants each chunk
         o, d, t_min, t_max = _last_chunk_rays(planes, 4)
@@ -256,6 +290,85 @@ def _stream_case(layered, case):
     n = 300 if case == "ragged" else 0       # R % 128 != 0, and R = 0
     return planes, aabb, tuple(x[..., :n].contiguous()
                                for x in (o, d, t_min, t_max))
+
+
+def _entry_tie_table():
+    """Two chunks that hold one triangle (z = 0, under x + y <= 0 in
+    [-1, 1]^2): chunk 0 in all its 128 slots, chunk 1 in slot 128, beside
+    a triangle at z = 2 out of the rays' way that stretches chunk 1's box
+    toward them, so the block enters chunk 1 first. _tie_rays (straight
+    down from z = 64), moved under the triangle so that every lane hits
+    it, enter chunk 0's flat box exactly at the hit, t = 64 (its padding
+    is below the rounding of 64 - 1e-6): an exit that is not strict, or a
+    test window narrowed to the best t, gives the tie to slot 128; the
+    plain scan gives it to slot 0."""
+    tri = ([-1, -1, 0], [2, 0, 0], [0, 2, 0])
+    side = ([3, 3, 2], [1, 0, 0], [0, 1, 0])
+    v0, e1, e2 = (np.float32(x) for x in zip(*([tri] * 129 + [side])))
+    planes, aabb = trace_api.pack_triangles(v0, e1, e2)
+    o, d, t_min, t_max = _tie_rays()
+    above = o[0] + o[1] > 0
+    o[0:2, above] = -o[0:2, above].flip(0)      # (x, y) -> (-y, -x)
+    return (torch.from_numpy(planes), torch.from_numpy(aabb),
+            (o, d, t_min, t_max))
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["K1", "K2"])
+@pytest.mark.parametrize("case", ["tie_in_chunk", "tie_across_chunks",
+                                  "tie_at_entry", "one_lane", "ragged",
+                                  "empty"])
+def test_swept_kernel_edge_cases(lib, layered, case, any_hit):
+    """K1/K2 equal the plain chunk scan on every lane, on the 256-chunk
+    table (units of 8 chunks): an exact-t tie inside one chunk, an
+    exact-t tie across two chunks whose units the block enters higher id
+    first, a block with one live lane, a ragged last block, and R = 0 (no
+    launch, nothing written); and an exact-t tie across two chunks where
+    the lower id's chunk is entered last, exactly at the hit."""
+    planes, aabb, _ = _swept_table("max", layered)
+    if case == "tie_at_entry":
+        planes, aabb, (o, d, t_min, t_max) = _entry_tie_table()
+    else:
+        planes, aabb, (o, d, t_min, t_max) = _stream_case(
+            (planes, aabb, layered[2]),
+            "coherent" if case == "tie_across_chunks" else case)
+    fn = lib.tpurt_any_hit if any_hit else lib.tpurt_closest_hit
+    if case == "empty":
+        _check_empty(fn, planes, aabb, o, d, t_min, t_max)
+        return
+    want = trace_api.trace_plain(planes, aabb, V3(*o), V3(*d), t_min, t_max)
+    got = _run_flat(fn, planes, aabb, o, d, t_min, t_max)
+    _check(got, want, t_max, any_hit)
+    if case in ("tie_in_chunk", "tie_across_chunks"):
+        assert (want["tri"] == TIE_IDS[0]).sum() > 10
+        assert not (want["tri"] == {"tie_in_chunk": IN_CHUNK_TIE,
+                                    "tie_across_chunks": TIE_IDS[1]}[case]
+                    ).any()
+    if case == "tie_across_chunks":
+        # the block enters the higher id's unit first
+        grp, _ = trace_stream.stream_units(aabb.shape[0],
+                                           trace_api.SWEPT_MAX_UNITS)
+        boxes = trace_stream.unit_boxes(aabb, grp)
+        live = t_max > 0
+        e0, e1 = (float(trace_stream._unit_entry(
+            boxes[i // trace_api.CT // grp], V3(*o), trace_api.safe_inv(
+                V3(*d)), t_min, t_max)[live].min()) for i in TIE_IDS)
+        assert grp == 8 and e1 < e0
+    if case == "tie_at_entry":
+        hit = want["tri"] >= 0
+        assert bool(hit.all()) and bool((want["tri"] == 0).all())
+        assert bool((want["t"][hit] == 64.0).all())
+    if case == "one_lane":
+        assert int((t_max > 0).sum()) == 1 and bool(want["tri"][7] >= 0)
+
+
+def _check_empty(fn, planes, aabb, o, d, t_min, t_max):
+    """R = 0: the call returns 0 and writes nothing."""
+    t = torch.full((1,), 7.0)
+    tri = torch.full((1,), 7, dtype=torch.int32)
+    assert fn(o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
+              planes.data_ptr(), aabb.data_ptr(), 0, planes.shape[2],
+              t.data_ptr(), tri.data_ptr(), None) == 0
+    assert t.item() == 7.0 and tri.item() == 7
 
 
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
@@ -269,12 +382,7 @@ def test_streamed_kernel_edge_cases(lib, layered, case, any_hit):
     fn = (lib.tpurt_stream_any_hit if any_hit
           else lib.tpurt_stream_closest_hit)
     if case == "empty":
-        t = torch.full((1,), 7.0)
-        tri = torch.full((1,), 7, dtype=torch.int32)
-        assert fn(o.data_ptr(), d.data_ptr(), t_min.data_ptr(),
-                  t_max.data_ptr(), planes.data_ptr(), aabb.data_ptr(), 0,
-                  planes.shape[2], t.data_ptr(), tri.data_ptr(), None) == 0
-        assert t.item() == 7.0 and tri.item() == 7
+        _check_empty(fn, planes, aabb, o, d, t_min, t_max)
         return
     want = trace_stream.trace_stream_plain(planes, aabb, V3(*o), V3(*d),
                                            t_min, t_max, any_hit=any_hit)

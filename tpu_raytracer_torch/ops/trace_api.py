@@ -11,8 +11,10 @@ rays' device and nothing else. A flattened scene under the default mode
   - CUDA tensor: kernel K1 (`tpurt_closest_hit`), or K2 (`tpurt_any_hit`)
     for `any_hit=True`, from `csrc/trace.cu`; past MXUF_MAX_TP triangle
     slots, kernel K3 (`ops/trace_stream.py`, `csrc/trace_stream.cu`),
-    both queries, which sweeps entry-sorted per-block worklists front to
-    back with an early exit.
+    both queries. K1/K2 and K3 are instances of one sweep
+    (`csrc/sweep.cuh`) that takes each 128-ray block's units of chunks
+    front to back with an early exit, at unit capacities SWEPT_MAX_UNITS
+    and `trace_stream.MAX_UNITS`.
 The other modes take K5 (`vpu`: `ops/trace_vpu.py`) or K6 (`mxu3`,
 `mxu1`, `mxuw[N]` and the in-kernel cull: `ops/trace_mxu.py`), each a
 plain version on a CPU tensor and the kernel on a CUDA tensor. An
@@ -54,6 +56,9 @@ MXUF_MAX_TP = 32 * 1024
 MXUW_MAX_TP = 48 * 1024
 MXU_MAX_TP = 48 * 1024
 MXUW_GROUP = 8    # chunks per unit of `mxuw` without a number (GROUP)
+# K1/K2's unit capacity (csrc/trace.cu: TPURT_SWEPT_MAX_UNITS): tables of
+# up to 32 chunks sweep chunk by chunk, MXUF_MAX_TP's 256 in units of 8
+SWEPT_MAX_UNITS = 32
 INCULL_MAX_CHUNKS = 64   # the in-kernel cull's scenes (:1486)
 
 # The trace-kernel modes a scene may name (`SceneBuilder.build(kernel=)`,
@@ -308,7 +313,8 @@ def load_kernels() -> ctypes.CDLL:
     lib = load_library(
         "trace_kernels", [os.path.join(CSRC_DIR, f) for f in KERNEL_SOURCES],
         [_nvcc(), *NVCC_FLAGS],
-        headers=[os.path.join(CSRC_DIR, f) for f in ("mt.cuh", "mma.cuh")])
+        headers=[os.path.join(CSRC_DIR, f)
+                 for f in ("mt.cuh", "mma.cuh", "sweep.cuh")])
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.tpurt_closest_hit, lib.tpurt_any_hit,
                lib.tpurt_stream_closest_hit, lib.tpurt_stream_any_hit):
@@ -344,9 +350,20 @@ def trace_kernel(tri_planes, chunk_aabb, o, d, t_min, t_max,
     o, d: [3, R] f32; t_min, t_max: [R] f32 (t_max <= 0: dead lane);
     tri_planes [4, 3, Tp] and chunk_aabb [Tp/128, 8] f32, all contiguous
     on one CUDA device. Raises on anything else."""
+    return launch_sweep("", tri_planes, chunk_aabb, o, d, t_min, t_max,
+                        any_hit)
+
+
+def launch_sweep(kind: str, tri_planes, chunk_aabb, o, d, t_min, t_max,
+                 any_hit: bool):
+    """Check the inputs of an instance of the sweep of `csrc/sweep.cuh`
+    and launch it: `kind` "" is K1/K2 (`tpurt_closest_hit`,
+    `tpurt_any_hit`), "stream_" K3 (`tpurt_stream_*`). Counts the launch
+    in LAUNCHES under the entry's name."""
     device = o.device
     if device.type != "cuda":
-        raise ValueError(f"trace_kernel needs CUDA tensors, got {device}")
+        raise ValueError(f"the {kind}sweep kernels need CUDA tensors, got "
+                         f"{device}")
     r = o.shape[1]
     tp = tri_planes.shape[2]
     if tp % CT:
@@ -358,12 +375,12 @@ def trace_kernel(tri_planes, chunk_aabb, o, d, t_min, t_max,
     _check(t_max, "t_max", (r,), f32, device)
     _check(tri_planes, "tri_planes", (4, 3, tp), f32, device)
     _check(chunk_aabb, "chunk_aabb", (tp // CT, 8), f32, device)
-    if r >= 2 ** 31:
-        raise ValueError(f"{r} rays exceed the kernels' int32 indexing")
-    lib = load_kernels()
+    if r >= 2 ** 31 or 12 * tp >= 2 ** 31:
+        raise ValueError("rays or triangle slots exceed int32 indexing")
+    name = f"{kind}{'any' if any_hit else 'closest'}_hit"
+    fn = getattr(load_kernels(), f"tpurt_{name}")
     t_out = torch.empty((r,), dtype=f32, device=device)
     tri_out = torch.empty((r,), dtype=torch.int32, device=device)
-    fn = lib.tpurt_any_hit if any_hit else lib.tpurt_closest_hit
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(o.data_ptr(), d.data_ptr(), t_min.data_ptr(),
@@ -371,9 +388,8 @@ def trace_kernel(tri_planes, chunk_aabb, o, d, t_min, t_max,
                  chunk_aabb.data_ptr(), r, tp, t_out.data_ptr(),
                  tri_out.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"{'any' if any_hit else 'closest'}-hit kernel "
-                           f"launch failed: CUDA error {err}")
-    LAUNCHES["any_hit" if any_hit else "closest_hit"] += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
     return {"t": t_out, "tri": tri_out}
 
 

@@ -21,19 +21,20 @@ import numpy as np
 import torch
 
 from ..utils.vec3 import V3
-from .trace_api import (CT, INF, LAUNCHES, _check, load_kernels, mt_argmin,
-                        safe_inv)
+from .trace_api import CT, INF, launch_sweep, mt_argmin, safe_inv
 
 BLOCK = CT                # rays per block
 MAX_UNITS = 64            # the kernel's unit capacity (TPURT_MAX_UNITS)
 
 
-def stream_units(num_chunks: int):
+def stream_units(num_chunks: int, max_units: int | None = None):
     """(grp, units): a unit is `grp` consecutive chunks, grp the smallest
-    power of two that keeps the unit count within MAX_UNITS (the rule of
-    csrc/trace_stream.cu:launch)."""
+    power of two that keeps the unit count within `max_units`, by default
+    K3's MAX_UNITS (the rule of csrc/sweep.cuh:sweep_units; K1/K2 take
+    trace_api.SWEPT_MAX_UNITS)."""
+    max_units = max_units or MAX_UNITS
     grp = 1
-    while -(-num_chunks // grp) > MAX_UNITS:
+    while -(-num_chunks // grp) > max_units:
         grp *= 2
     return grp, -(-num_chunks // grp)
 
@@ -197,41 +198,7 @@ def trace_stream_kernel(tri_planes, chunk_aabb, o, d, t_min, t_max,
     any-hit entry (tri = 1 / -1, t = t_max).
 
     o, d: [3, R] f32; t_min, t_max: [R] f32 (t_max <= 0: dead lane);
-    tri_planes [4, 3, Tp] f32 with a 16-byte aligned base (the kernel
-    stages its 512-byte plane rows with asynchronous copies) and
-    chunk_aabb [Tp/128, 8] f32, all contiguous on one CUDA device. Raises
-    on anything else."""
-    device = o.device
-    if device.type != "cuda":
-        raise ValueError(
-            f"trace_stream_kernel needs CUDA tensors, got {device}")
-    r = o.shape[1]
-    tp = tri_planes.shape[2]
-    if tp % CT:
-        raise ValueError(f"tri_planes width {tp} is not a multiple of {CT}")
-    f32 = torch.float32
-    _check(o, "o", (3, r), f32, device)
-    _check(d, "d", (3, r), f32, device)
-    _check(t_min, "t_min", (r,), f32, device)
-    _check(t_max, "t_max", (r,), f32, device)
-    _check(tri_planes, "tri_planes", (4, 3, tp), f32, device)
-    _check(chunk_aabb, "chunk_aabb", (tp // CT, 8), f32, device)
-    if tri_planes.data_ptr() % 16:
-        raise ValueError("tri_planes is not 16-byte aligned")
-    if r >= 2 ** 31 or 12 * tp >= 2 ** 31:
-        raise ValueError("rays or triangle slots exceed int32 indexing")
-    lib = load_kernels()
-    t_out = torch.empty((r,), dtype=f32, device=device)
-    tri_out = torch.empty((r,), dtype=torch.int32, device=device)
-    fn = lib.tpurt_stream_any_hit if any_hit else lib.tpurt_stream_closest_hit
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(o.data_ptr(), d.data_ptr(), t_min.data_ptr(),
-                 t_max.data_ptr(), tri_planes.data_ptr(),
-                 chunk_aabb.data_ptr(), r, tp, t_out.data_ptr(),
-                 tri_out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"streamed {'any' if any_hit else 'closest'}-hit "
-                           f"kernel launch failed: CUDA error {err}")
-    LAUNCHES["stream_any_hit" if any_hit else "stream_closest_hit"] += 1
-    return {"t": t_out, "tri": tri_out}
+    tri_planes [4, 3, Tp] and chunk_aabb [Tp/128, 8] f32, all contiguous
+    on one CUDA device. Raises on anything else."""
+    return launch_sweep("stream_", tri_planes, chunk_aabb, o, d, t_min,
+                        t_max, any_hit)

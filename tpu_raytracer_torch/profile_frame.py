@@ -5,8 +5,11 @@ the host issues.
 
     python -m tpu_raytracer_torch.profile_frame --scene knot
     python -m tpu_raytracer_torch.profile_frame --scene cornell --kernel vpu
+    python -m tpu_raytracer_torch.profile_frame --scene cornell \
+        --size 3840x2160
 
-Renders WARMUP frames at SIZE², times `--frames` frames between
+Renders WARMUP frames at `--size` (SIZE² unless given), times
+`--frames` frames between
 `torch.cuda.synchronize()` calls, then records the same number of frames
 under `torch.profiler` and prints one JSON line. The busy share is the
 profiled kernel time over the unprofiled wall time. Needs a CUDA device.
@@ -57,7 +60,13 @@ def main(argv=None) -> int:
                         "(SceneBuilder.build(kernel=))")
     p.add_argument("--incull", action="store_true",
                    help="the Cornell scene's in-kernel cull")
+    p.add_argument("--size", default=f"{SIZE}x{SIZE}",
+                   help="the frame's WIDTHxHEIGHT")
     args = p.parse_args(argv)
+    try:
+        w, h = (int(x) for x in args.size.lower().split("x"))
+    except ValueError:
+        p.error(f"--size {args.size!r}: want WIDTHxHEIGHT")
     mode = {"kernel": args.kernel, "incull": args.incull}
     if args.scene != "cornell" and mode != {"kernel": "mxuf2",
                                             "incull": False}:
@@ -72,7 +81,6 @@ def main(argv=None) -> int:
     scene = getattr(scenes, SCENES[args.scene])(
         dev, **(mode if args.scene == "cornell" else {}))
     cam = camera.CameraController()
-    w = h = SIZE
     state = pipeline.init_state(w, h, dev)
     frame = 0
 
@@ -117,7 +125,7 @@ def main(argv=None) -> int:
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                 "cudaLaunchKernelExC")) / args.frames
     print(json.dumps({
-        "scene": args.scene, **mode, "size": SIZE, "card": card,
+        "scene": args.scene, **mode, "size": [w, h], "card": card,
         "wall_ms_per_frame": wall_ms,
         "profiled_wall_ms_per_frame": prof_wall_ms,
         "device_ms_per_frame": device_ms,

@@ -11,8 +11,9 @@ signatures). Each build's
 closest- and any-hit entries run on the knot's 512^2 primary rays and on
 RANDOM_RAYS random rays in the knot's box (chip_smoke.py's phase-9 rays),
 are checked against K1/K2 on every lane (tri equal, t bit-equal,
-occlusion equal) and are timed with CUDA events over REPS launches, K1
-and K2 beside them. Prints ptxas's registers and shared memory for each
+occlusion equal) and are timed with CUDA events over REPS launches, twice
+in mirrored order (the builds, then the builds reversed), K1 and K2
+beside them once. Prints ptxas's registers and shared memory for each
 build and one JSON line of the times. Needs a CUDA device.
 """
 
@@ -128,7 +129,7 @@ def main(argv=None) -> int:
     variants = [(f"units{m}", CSRC_DIR, (f"TPURT_MAX_UNITS={m}",))
                 for m in MAX_UNITS]
     if args.baseline:
-        variants.append(("baseline", os.path.abspath(args.baseline), ()))
+        variants.insert(0, ("baseline", os.path.abspath(args.baseline), ()))
     t0 = time.time()
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     libs = _build_all("trace_stream.cu", variants,
@@ -142,8 +143,9 @@ def main(argv=None) -> int:
     knot = scenes.create_dense_knot_scene(dev)
     planes, aabb = knot.tri_planes, knot.chunk_aabb
     tp = planes.shape[2]
+    order = list(libs) + list(libs)[::-1]
     results = {"card": card, "device": torch.cuda.get_device_name(0),
-               "reps": REPS, "ms": {}}
+               "reps": REPS, "order": order, "ms": {}}
     for rays_name, (o, d, t_min, t_max) in _knot_rays(dev).items():
         r = o.shape[1]
         k1 = trace_api.trace_kernel(planes, aabb, o, d, t_min, t_max)
@@ -152,14 +154,15 @@ def main(argv=None) -> int:
         t_out = torch.empty((r,), dtype=torch.float32, device=dev)
         tri_out = torch.empty((r,), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        row = {"K1": _time_ms(lambda: trace_api.trace_kernel(
-                   planes, aabb, o, d, t_min, t_max)),
-               "K2": _time_ms(lambda: trace_api.trace_kernel(
-                   planes, aabb, o, d, t_min, t_max, any_hit=True))}
+        row = {"K1": [_time_ms(lambda: trace_api.trace_kernel(
+                   planes, aabb, o, d, t_min, t_max))],
+               "K2": [_time_ms(lambda: trace_api.trace_kernel(
+                   planes, aabb, o, d, t_min, t_max, any_hit=True))]}
+        calls = {}
         for name, (lib, _) in libs.items():
             for entry, fn in (("closest", lib.tpurt_stream_closest_hit),
                               ("any", lib.tpurt_stream_any_hit)):
-                def call(fn=fn):
+                def call(fn=fn, name=name, entry=entry):
                     err = fn(o.data_ptr(), d.data_ptr(), t_min.data_ptr(),
                              t_max.data_ptr(), planes.data_ptr(),
                              aabb.data_ptr(), r, tp, t_out.data_ptr(),
@@ -178,11 +181,16 @@ def main(argv=None) -> int:
                 if not ok:
                     raise AssertionError(f"{name} {entry} on the {rays_name} "
                                          f"rays differs from K1/K2")
-                row[f"{name} {entry}"] = _time_ms(call)
+                calls[(name, entry)] = call
+                row[f"{name} {entry}"] = []
+        for name in order:
+            for entry in ("closest", "any"):
+                row[f"{name} {entry}"].append(_time_ms(calls[(name, entry)]))
         results["ms"][rays_name] = row
         print(f"{rays_name} knot rays ({r}), equal to K1/K2 on every lane; "
-              f"ms: " + ", ".join(f"{k} {v:.4f}" for k, v in row.items())
-              + f" [{card}]", flush=True)
+              f"ms (two turns): " + ", ".join(
+                  f"{k} {' / '.join(f'{x:.4f}' for x in v)}"
+                  for k, v in row.items()) + f" [{card}]", flush=True)
     print(json.dumps(results))
     return 0
 
