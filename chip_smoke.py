@@ -67,30 +67,37 @@ is non-zero):
                 and Cornell's 512^2 primary rays and 524,288 random rays
                 (equal on every lane) and timed beside them: data for
                 MXUF_MAX_TP, which stays as it is.
- 12. K5       - the vpu sweep against its plain version (the same
-                worklists) and against K1, on Cornell's 512^2 primary
-                rays, 524,288 random Cornell rays and 524,288 random rays
-                in the bunny scene: tri equal on every lane, t within
-                T_ULPS. Timed beside K1 with its worklist prepass.
- 13. K6       - each variant (mxu3, mxu1, mxuw with units of 8 chunks,
+ 12. K5       - the vpu sweep (an instance of csrc/sweep.cuh) against its
+                plain version (the worklists of ops/worklist.py) and
+                against K1, on Cornell's 512^2 primary rays, 524,288
+                random Cornell rays and 524,288 random rays in the bunny
+                scene: tri equal on every lane, t bit-equal to K1's and
+                within T_ULPS of plain. Timed beside K1, with the vpu
+                route's whole call as scene_trace makes it, and ptxas.
+ 13. K6       - each variant (mxu3, mxu1, mxuw with hulls of 8 chunks,
                 the in-kernel cull's closest- and any-hit) on the same
-                rays, against its plain version (at most PLAIN_DIFF lanes
-                of a ray set differ in hit/miss and at most PLAIN_DIFF in
-                tri; relative t error < PLAIN_REL where tri agrees) and
-                against K1 within the reference's bf16 tolerance (hit/miss
-                and tri agreement > AGREE, median relative t error <
-                MEDIAN_REL; mxu1's only printed), with the count and
-                relative t margin of the lanes that disagree. Timed on the
-                random Cornell rays.
- 14. modes    - the Cornell ReSTIR frame at 512^2, MODE_WARMUP +
+                rays, against its plain version over the kernel's own
+                (lane, chunk) set (at most PLAIN_DIFF lanes of a ray set
+                differ in hit/miss and at most PLAIN_DIFF in tri;
+                relative t error < PLAIN_REL where tri agrees) and
+                against K1 within the reference's bf16 tolerance
+                (hit/miss and tri agreement > AGREE, median relative t
+                error < MEDIAN_REL; mxu1's only printed), with the count
+                and relative t margin of the lanes that disagree. Timed
+                on the random Cornell rays, beside the route's whole
+                scene_trace call; ptxas of every instance.
+ 14. modes    - with ops/worklist.py's block_entry and worklists made to
+                raise: one scene_trace call on the primary rays under
+                vpu (closest and any), mxu3, mxu1, mxuw and the cull
+                (closest and any) launches exactly one kernel, its own;
+                then the Cornell ReSTIR frame at 512^2, MODE_WARMUP +
                 MODE_TIMED frames, under vpu (K5 launched; K1-K4 not),
                 mxu3 and mxuw (K6 closest-hit and K2; not K1), and the
                 in-kernel cull (both K6 entries; not K1 or K2): fps,
                 Mrays/s, and PSNR against the same frame of phase 5's
                 default run, >= VPU_DB under vpu (K5 returns K1's hits)
                 and >= GOLDEN_DB otherwise. mxu1 renders no frame (the
-                reference calls it broken for rendering): one scene_trace
-                call on the primary rays counts its launch.
+                reference calls it broken for rendering).
  15. golden   - the 64^2 Cornell golden under mxu3, PSNR >= GOLDEN_DB.
  16. K7       - the table gather against its plain version on the card,
                 bit for bit: Cornell's tri_table and mat_table, the knot's
@@ -129,14 +136,14 @@ box the ray's final window (t_min, t_hit or t_max) passes, one test per
 occluded any-hit ray, and for K4 one transform (XFORM_FLOPS) per ray and
 instance box passed, at FP32_PEAK; or each input read once and each
 output written once at HBM_PEAK, whichever is longer. K3 does the
-work K1 does (its worklist, sort and exit only skip work), so both take
-the same bound, and K5 (the same test over a looser cull) takes it too.
+work K1 does (its units, sort and exit only skip work), so both take
+the same bound, and K5 (the same sweep) takes it too.
 K6's bound is the longest of three: its products, 2 x 16 x 4 x 128 x
 passes FLOP for each ray and chunk the ray's window passes, at
 BF16_PEAK (the H100 SXM's dense bf16 tensor rate, 989 TFLOP/s, NVIDIA
 data sheet); its window tests, WINDOW_FLOPS for each such ray and valid
-triangle, at FP32_PEAK; and its bytes (rays, coefficient table,
-worklists or group boxes, outputs) at HBM_PEAK. Any-hit counts one test
+triangle, at FP32_PEAK; and its bytes (rays, coefficient table, chunk
+boxes, outputs) at HBM_PEAK. Any-hit counts one test
 and one chunk for an occluded ray, as K2's bound does. K7's bound is its
 bytes alone: each index read once, each output word written once and
 the table read once, at HBM_PEAK.
@@ -336,6 +343,24 @@ def _ptxas_of(ptxas, kernel):
             any_hit = "ILb1" in compiling or "any_hit" in compiling
             out.append(f"{'any' if any_hit else 'closest'}:"
                        f"{ln.split(':', 1)[-1]}")
+    return out
+
+
+def _ptxas_entries(ptxas, kernel):
+    """ptxas's registers line for each instance of the kernel template
+    named `kernel`, labelled by its template arguments as the mangled
+    name gives them (ints and bools in order), from the build's lines."""
+    import re
+
+    out, compiling = [], ""
+    for ln in ptxas:
+        if "Compiling entry" in ln:
+            compiling = ln
+        elif kernel in compiling:
+            args = re.findall(r"L([ib])(\d+)E", compiling.split(kernel, 1)[1])
+            label = ",".join(v if t == "i" else ("true", "false")[v == "0"]
+                             for t, v in args)
+            out.append(f"<{label}>:{ln.split(':', 1)[-1]}")
     return out
 
 
@@ -1206,36 +1231,36 @@ def main() -> int:
               for name, s, (o, d), (t_min, t_max) in ray_sets}
     k5_ulps, k5_err = 0, 0.0
     for name, s, (o, d), (t_min, t_max) in ray_sets:
-        wl = trace_vpu.vpu_worklists(s.chunk_aabb, V3(*o), V3(*d), t_min,
-                                     t_max)
-        got = trace_vpu.vpu_kernel(s.tri_planes, *wl, o, d, t_min, t_max)
-        want = trace_vpu.trace_vpu_plain(s.tri_planes, *wl, V3(*o), V3(*d),
-                                         t_min, t_max)
+        got = trace_vpu.vpu_kernel(s.tri_planes, s.chunk_aabb, o, d, t_min,
+                                   t_max)
+        want = trace_vpu.trace_vpu_plain(
+            s.tri_planes, *trace_vpu.vpu_worklists(
+                s.chunk_aabb, V3(*o), V3(*d), t_min, t_max),
+            V3(*o), V3(*d), t_min, t_max)
         torch.cuda.synchronize()
         for ref_name, ref in (("plain", want), ("K1", k1_ref[name])):
             ulps, err, hit = _check_closest(f"K5 {name} vs {ref_name}", got,
                                             ref)
             k5_ulps, k5_err = max(k5_ulps, ulps), max(k5_err, err)
-        print(f"K5: on {name} rays ({hit:.3f} hit, worklists of "
-              f"{float(wl[0].float().mean()):.2f} chunks a block) equals its "
-              f"plain version and K1: tri equal on every lane, t max "
-              f"{k5_ulps} ulps (bound {T_ULPS}), max |dt| {k5_err:.3g}",
-              flush=True)
+        if not torch.equal(got["t"], k1_ref[name]["t"]):
+            raise AssertionError(f"K5 {name}: t is not K1's bit for bit")
+        units = trace_stream.stream_units(
+            s.chunk_aabb.shape[0],
+            32 if s.tri_planes.shape[2] <= trace_api.MXUF_MAX_TP else 64)
+        print(f"K5: on {name} rays ({hit:.3f} hit, {units[1]} units of "
+              f"{units[0]} chunks) equals its plain version and K1: tri "
+              f"equal on every lane, t bit-equal to K1's, max "
+              f"{k5_ulps} ulps from plain (bound {T_ULPS}), max |dt| "
+              f"{k5_err:.3g}", flush=True)
 
     # 13. K6, each variant, against its plain version and K1
     tables = {"Cornell": trace_mxu.kernel_table(scene.tri_planes),
               "bunny": trace_mxu.kernel_table(bunny.tri_planes)}
 
-    def k6_inputs(s, grp, incull, o, d, t_min, t_max):
-        """(kernel inputs, units of the plain version) of a variant."""
-        if incull:
-            boxes = worklist.group_boxes(s.chunk_aabb, grp)
-            return ((boxes, None, None), trace_mxu.incull_units(
-                boxes, V3(*o), V3(*d), t_min, t_max))
-        counts, unit_list = trace_mxu.mxu_worklists(
-            s.chunk_aabb, grp, V3(*o), V3(*d), t_min, t_max)
-        return ((None, counts, unit_list),
-                trace_mxu.worklist_units(counts, unit_list))
+    def k6_chunks(s, grp, incull, o, d, t_min, t_max):
+        """The (lane, chunk) set the kernel tests, for the plain version."""
+        return trace_mxu.lane_chunks(s.chunk_aabb, grp, incull, V3(*o),
+                                     V3(*d), t_min, t_max)
 
     k6 = {}     # (variant, any_hit) -> max |dt| or flag error, timings
     for vname, _, grp, passes, incull, _ in MXU_VARIANTS:
@@ -1245,10 +1270,10 @@ def main() -> int:
             for name, s, (o, d), (t_min, t_max) in ray_sets:
                 table = tables[name.split()[0]]
                 g = grp or (2 if s.chunk_aabb.shape[0] <= 48 else 4)
-                args, units = k6_inputs(s, g, incull, o, d, t_min, t_max)
-                got = trace_mxu.mxu_kernel(table, *args, o, d, t_min, t_max,
-                                           g, passes, incull, any_hit)
-                want = trace_mxu.trace_mxu_plain(table, units, g, V3(*o),
+                chunks = k6_chunks(s, g, incull, o, d, t_min, t_max)
+                got = trace_mxu.mxu_kernel(table, s.chunk_aabb, o, d, t_min,
+                                           t_max, g, passes, incull, any_hit)
+                want = trace_mxu.trace_mxu_plain(table, chunks, V3(*o),
                                                  V3(*d), t_min, t_max,
                                                  passes, any_hit)
                 k1 = k1_ref[name]
@@ -1267,7 +1292,9 @@ def main() -> int:
                 err = max(err, float(cmp["hit_diff"] > 0) if any_hit
                           else cmp["abs"])
                 print(f"K6 {vname}{' any-hit' if any_hit else ''} (grp {g}, "
-                      f"{passes} pass{'es' if passes > 1 else ''}) on {name} "
+                      f"{passes} pass{'es' if passes > 1 else ''}, "
+                      f"{float(chunks.sum()) / chunks.shape[0]:.3f} chunks "
+                      f"a lane) on {name} "
                       f"rays: vs plain hit {cmp['hit']:.6f} "
                       f"({cmp['hit_diff']} lanes), tri {cmp['tri']:.6f} "
                       f"({cmp['tri_diff']} lanes, margin "
@@ -1278,47 +1305,52 @@ def main() -> int:
                       f"lanes, margin {cmp_k1['margin']:.3g})", flush=True)
             k6[key] = [err]
 
-    # timing at all of Cornell's random rays, where K1's bound is taken
+    # timing at all of Cornell's random rays, where K1's bound is taken:
+    # each kernel, its plain version, and its route's whole call as
+    # scene_trace makes it (no prepass on the card)
     c_rays = (ro, rd, r_tmin, rt_max)
     c_v3 = (V3(*ro), V3(*rd), r_tmin, rt_max)
-    wl = trace_vpu.vpu_worklists(scene.chunk_aabb, *c_v3)
+
+    def route_ms(kernel, incull, any_hit=False):
+        s = scenes.create_cornell_box(dev, kernel=kernel, incull=incull)
+        return _time_ms(torch, lambda: trace_api.scene_trace(
+            s, *c_v3, any_hit=any_hit), 20)
+
     k5_ms = _time_ms(torch, lambda: trace_vpu.vpu_kernel(
-        scene.tri_planes, *wl, *c_rays), 20)
-    k5_prepass_ms = _time_ms(
-        torch, lambda: trace_vpu.vpu_worklists(scene.chunk_aabb, *c_v3), 20)
+        scene.tri_planes, scene.chunk_aabb, *c_rays), 20)
+    wl = trace_vpu.vpu_worklists(scene.chunk_aabb, *c_v3)
     k5_plain_ms = _time_ms(torch, lambda: trace_vpu.trace_vpu_plain(
         scene.tri_planes, *wl, *c_v3), 3)
     print(f"timing {RANDOM_RAYS} random Cornell rays: K5 {k5_ms:.4f} ms vs "
-          f"K1 {timings[RANDOM_RAYS][0]:.4f} ms; worklist prepass "
-          f"{k5_prepass_ms:.4f} ms; plain {k5_plain_ms:.4f} ms [{card}]",
-          flush=True)
-    c_io = (_nbytes(ro, rd, r_tmin, rt_max, tables["Cornell"])
-            + RANDOM_RAYS * 8)
-    for vname, _, grp, passes, incull, _ in MXU_VARIANTS:
+          f"K1 {timings[RANDOM_RAYS][0]:.4f} ms; vpu route (scene_trace) "
+          f"{route_ms('vpu', False):.4f} ms; plain {k5_plain_ms:.4f} ms; "
+          f"ptxas {' | '.join(_ptxas_entries(ptxas, 'vpu_kernel'))} "
+          f"[{card}]", flush=True)
+    c_io = (_nbytes(ro, rd, r_tmin, rt_max, tables["Cornell"],
+                    scene.chunk_aabb) + RANDOM_RAYS * 8)
+    for vname, mode, grp, passes, incull, _ in MXU_VARIANTS:
         g = grp or 2
-        args, units = k6_inputs(scene, g, incull, *c_rays)
+        chunks = k6_chunks(scene, g, incull, *c_rays)
         for any_hit in ((False, True) if incull else (False,)):
             ms = _time_ms(torch, lambda: trace_mxu.mxu_kernel(
-                tables["Cornell"], *args, *c_rays, g, passes, incull,
-                any_hit), 20)
+                tables["Cornell"], scene.chunk_aabb, *c_rays, g, passes,
+                incull, any_hit), 20)
             plain_ms = _time_ms(torch, lambda: trace_mxu.trace_mxu_plain(
-                tables["Cornell"], units, g, *c_v3, passes, any_hit), 3)
-            prepass_ms = _time_ms(torch, lambda: (
-                worklist.group_boxes(scene.chunk_aabb, g) if incull
-                else trace_mxu.mxu_worklists(scene.chunk_aabb, g, *c_v3)),
-                20)
+                tables["Cornell"], chunks, *c_v3, passes, any_hit), 3)
             tests, pairs = ((k2_tests, k2_pairs) if any_hit
                             else (k1_tests, k1_pairs))
-            nbytes = c_io + _nbytes(*(a for a in args if a is not None))
-            bound = _mxu_bound(tests, pairs, passes, nbytes)
+            bound = _mxu_bound(tests, pairs, passes, c_io)
             k6[(vname, any_hit)] += [ms, plain_ms, bound]
             print(f"timing {RANDOM_RAYS} random Cornell rays: K6 {vname}"
                   f"{' any-hit' if any_hit else ''} {ms:.4f} ms vs "
                   f"{'K2' if any_hit else 'K1'} "
                   f"{timings[RANDOM_RAYS][2 if any_hit else 0]:.4f} ms; "
-                  f"{'group boxes' if incull else 'worklist prepass'} "
-                  f"{prepass_ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
-                  f"{bound[0]:.4f} ms ({bound[1]}) [{card}]", flush=True)
+                  f"{mode}{' + cull' if incull else ''} route (scene_trace) "
+                  f"{route_ms(mode, incull, any_hit):.4f} ms; plain "
+                  f"{plain_ms:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}) "
+                  f"[{card}]", flush=True)
+    print(f"ptxas K6: {' | '.join(_ptxas_entries(ptxas, 'mxu_kernel'))} "
+          f"[{card}]", flush=True)
 
     # 14. the Cornell frame under each mode, against the same frame of
     # phase 5's default run
@@ -1326,6 +1358,40 @@ def main() -> int:
     c_first = [x.cpu() for x in c_ldrs[:2]]      # for phase 17
     del c_ldrs
     mode_launches = {}
+
+    def no_prepass(*args, **kwargs):
+        raise AssertionError("a mode's CUDA route ran the worklist prepass")
+
+    # the CUDA routes of the modes build their units in the kernel: in this
+    # phase the prepass (ops/worklist.py) raises if anything calls it
+    prepass = worklist.block_entry, worklist.worklists
+    worklist.block_entry = worklist.worklists = no_prepass
+    for mode, kernel, incull, any_hit, want in (
+            ("vpu", "vpu", False, False, "vpu_closest_hit"),
+            ("vpu", "vpu", False, True, "vpu_closest_hit"),
+            ("mxu3", "mxu3", False, False, "mxu_closest_hit"),
+            ("mxu1", "mxu1", False, False, "mxu_closest_hit"),
+            ("mxuw8", "mxuw", False, False, "mxu_closest_hit"),
+            ("incull", "mxuf2", True, False, "mxu_closest_hit"),
+            ("incull", "mxuf2", True, True, "mxu_any_hit")):
+        # one trace call, one kernel launch
+        s = scenes.create_cornell_box(dev, kernel=kernel, incull=incull)
+        trace_api.reset_launch_counts()
+        trace_api.scene_trace(s, V3(*primary[0]), V3(*primary[1]), *p_win,
+                              any_hit=any_hit)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in trace_api.LAUNCHES.items() if v}
+        if got != {want: 1}:
+            raise AssertionError(f"{mode} {'any' if any_hit else 'closest'}"
+                                 f"-hit scene_trace launched {got}, not "
+                                 f"{{{want!r}: 1}}")
+        if mode == "mxu1":
+            # mxu1 renders no frame (the reference's own note: broken for
+            # rendering); its launches are those of one scene_trace call
+            mode_launches["mxu1"] = dict(trace_api.LAUNCHES)
+    print(f"modes: one scene_trace call under vpu, mxu3, mxu1, mxuw and the "
+          f"cull (closest and any) launches its kernel once and nothing "
+          f"else, with no prepass", flush=True)
     for mode, kernel, incull, on, floor in (
             ("vpu", "vpu", False, vpu_kernels, VPU_DB),
             ("mxu3", "mxu3", False, ["mxu_closest_hit", "any_hit"],
@@ -1349,15 +1415,7 @@ def main() -> int:
                             MODE_WARMUP + MODE_TIMED)
               + f"; PSNR {p:.2f} dB against the default frame (floor "
               f"{floor})", flush=True)
-    # mxu1 renders no frame (the reference's own note: broken for
-    # rendering); its launches are those of one scene_trace call
-    s = scenes.create_cornell_box(dev, kernel="mxu1")
-    trace_api.reset_launch_counts()
-    trace_api.scene_trace(s, V3(*primary[0]), V3(*primary[1]), *p_win)
-    torch.cuda.synchronize()
-    mode_launches["mxu1"] = dict(trace_api.LAUNCHES)
-    print(f"mxu1: one scene_trace call on the primary rays: launches "
-          f"{mode_launches['mxu1']}", flush=True)
+    worklist.block_entry, worklist.worklists = prepass
 
     # 15. the 64^2 golden under mxu3
     m_psnr, ml_launches = _golden_psnr(

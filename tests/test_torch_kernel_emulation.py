@@ -76,9 +76,9 @@ def _build(out, names, defines=()):
         "tpurt_stream_any_hit": [ptr] * 6 + [i32] * 2 + [ptr] * 3,
         "tpurt_inst_closest_hit": [ptr] * 9 + [i32] * 3 + [ptr] * 4,
         "tpurt_inst_any_hit": [ptr] * 9 + [i32] * 3 + [ptr] * 4,
-        "tpurt_vpu_closest_hit": [ptr] * 7 + [i32] * 2 + [ptr] * 3,
-        "tpurt_mxu_closest_hit": [ptr] * 8 + [i32] * 5 + [ptr] * 3,
-        "tpurt_mxu_any_hit": [ptr] * 8 + [i32] * 3 + [ptr] * 3,
+        "tpurt_vpu_closest_hit": [ptr] * 6 + [i32] * 3 + [ptr] * 3,
+        "tpurt_mxu_closest_hit": [ptr] * 6 + [i32] * 5 + [ptr] * 3,
+        "tpurt_mxu_any_hit": [ptr] * 6 + [i32] * 3 + [ptr] * 3,
         "tpurt_table_gather": [ptr] * 2 + [i32] * 3 + [ptr] * 2,
     }
     for name, argtypes in signatures.items():
@@ -550,61 +550,112 @@ def cornell():
     return scenes.create_cornell_box("cpu")
 
 
-def test_vpu_kernel_matches_plain(lib, cornell):
-    """K5 walks the worklists of `trace_vpu.vpu_worklists` and equals its
-    plain version and K1's plain scan on every lane."""
-    o, d, t_min, t_max = _rays(0, -0.95, 0.95, 3.0)
-    counts, chunk_list = trace_vpu.vpu_worklists(cornell.chunk_aabb, V3(*o),
-                                                 V3(*d), t_min, t_max)
-    want = trace_vpu.trace_vpu_plain(cornell.tri_planes, counts, chunk_list,
-                                     V3(*o), V3(*d), t_min, t_max)
-    t = torch.empty(RAYS)
-    tri = torch.empty(RAYS, dtype=torch.int32)
-    err = lib.tpurt_vpu_closest_hit(
-        o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
-        cornell.tri_planes.data_ptr(), counts.data_ptr(),
-        chunk_list.data_ptr(), RAYS, cornell.tri_planes.shape[2],
-        t.data_ptr(), tri.data_ptr(), None)
-    assert err == 0
-    _check({"t": t, "tri": tri}, want, t_max, False)
-    _check(want, trace_api.trace_plain(cornell.tri_planes, cornell.chunk_aabb,
-                                       V3(*o), V3(*d), t_min, t_max),
-           t_max, False)
+# (table, rays) of K5's cases: random rays on Cornell's 11 chunks and on
+# the 256-chunk table, that table's edge cases, and the two-chunk exact-t
+# tie entered at the tie's t
+VPU_CASES = [("cornell", "random"), ("max", "random"), ("max", "one_lane"),
+             ("max", "ragged"), ("max", "empty"), ("entry_tie", "tie")]
+
+
+@pytest.mark.parametrize("max_units", [32, 64], ids=["units32", "units64"])
+@pytest.mark.parametrize("table,case", VPU_CASES,
+                         ids=[f"{t}-{c}" for t, c in VPU_CASES])
+def test_vpu_kernel_matches_plain(lib, layered, cornell, table, case,
+                                  max_units):
+    """K5, the sweep of csrc/sweep.cuh at each unit capacity it takes,
+    equals its plain version (the worklists of `trace_vpu.vpu_worklists`)
+    and K1's plain scan on every lane: tri equal, t bit-equal; R = 0
+    launches nothing and writes nothing, and a capacity it has no
+    instance for is refused."""
+    if table == "entry_tie":
+        planes, aabb, (o, d, t_min, t_max) = _entry_tie_table()
+    elif table == "cornell":
+        planes, aabb = cornell.tri_planes, cornell.chunk_aabb
+        o, d, t_min, t_max = _rays(0, -0.95, 0.95, 3.0)
+    else:
+        planes, aabb, rays = _swept_table("max", layered)
+        planes, aabb, (o, d, t_min, t_max) = _stream_case(
+            (planes, aabb, rays), case)
+        if case == "random":
+            o, d, t_min, t_max = rays
+    def k5(*args, units=max_units):
+        return lib.tpurt_vpu_closest_hit(*args[:8], units, *args[8:])
+
+    if case == "empty":
+        _check_empty(k5, planes, aabb, o, d, t_min, t_max)
+        assert k5(o.data_ptr(), d.data_ptr(), t_min.data_ptr(),
+                  t_max.data_ptr(), planes.data_ptr(), aabb.data_ptr(), 0,
+                  planes.shape[2], None, None, None, units=16) != 0
+        return
+    counts, chunk_list = trace_vpu.vpu_worklists(aabb, V3(*o), V3(*d),
+                                                 t_min, t_max)
+    want = trace_vpu.trace_vpu_plain(planes, counts, chunk_list, V3(*o),
+                                     V3(*d), t_min, t_max)
+    got = _run_flat(k5, planes, aabb, o, d, t_min, t_max)
+    _check(got, want, t_max, False)
+    _check(want, trace_api.trace_plain(planes, aabb, V3(*o), V3(*d), t_min,
+                                       t_max), t_max, False)
+    if case == "tie":
+        assert bool((want["tri"] == 0).all())
+    if case == "one_lane":
+        assert int((t_max > 0).sum()) == 1 and bool(want["tri"][7] >= 0)
 
 
 # (mode, grp, passes, incull, any_hit): every K6 variant a route takes, on
-# Cornell's 11 chunks (mxuw's units of 8 and incull's groups of 2 end short)
+# Cornell's 11 chunks (mxuw's hulls of 8 and incull's groups of 2 end short)
 K6_VARIANTS = [("mxu3", 1, 3, False, False), ("mxu1", 1, 1, False, False),
                ("mxuw", 8, 3, False, False), ("incull", 2, 3, True, False),
                ("incull_any", 2, 3, True, True)]
 
 
+def _k6_rays(case, scene):
+    """Cornell rays of one K6 case: RAYS random rays ("random"), a block whose second warp is live but misses every
+    box ("idle_warp"), one live lane that hits ("one_lane"), R = 300
+    ("ragged") and R = 0 ("empty")."""
+    o, d, t_min, t_max = _rays(0, -0.95, 0.95, 3.0)
+    if case == "idle_warp":
+        o, d, t_min, t_max = (x[..., :128].clone() for x in (o, d, t_min,
+                                                           t_max))
+        o[:, 32:64] = torch.tensor([[0.0], [0.0], [50.0]])
+        d[:, 32:64] = torch.tensor([[0.0], [0.0], [1.0]])
+        t_max[32:64] = 3.0
+    elif case == "one_lane":
+        t_max = torch.full_like(t_max, 3.0)
+        hit = trace_api.trace_plain(scene.tri_planes, scene.chunk_aabb,
+                                    V3(*o), V3(*d), t_min, t_max)["tri"]
+        lanes = torch.full((128,), int(torch.nonzero(hit >= 0)[0]))
+        o, d = o[:, lanes].contiguous(), d[:, lanes].contiguous()
+        t_min = t_min[:128].contiguous()
+        t_max = torch.where(torch.arange(128) == 7, 3.0, 0.0)
+    elif case != "random":
+        n = 300 if case == "ragged" else 0
+        o, d, t_min, t_max = (x[..., :n].contiguous()
+                              for x in (o, d, t_min, t_max))
+    return o, d, t_min, t_max
+
+
+@pytest.mark.parametrize("case", ["random", "idle_warp", "one_lane",
+                                  "ragged", "empty"])
 @pytest.mark.parametrize("mode,grp,passes,incull,any_hit", K6_VARIANTS,
                          ids=[v[0] for v in K6_VARIANTS])
 def test_mxu_kernel_matches_plain(lib, cornell, mode, grp, passes, incull,
-                                  any_hit):
+                                  any_hit, case):
     """K6 under the emulation's mma (exact products summed in f64, one
     rounding, as the plain version sums them) equals its plain version
-    bit for bit: the fragment layout, the worklist or in-kernel cull and
-    the window test all match."""
-    o, d, t_min, t_max = _rays(0, -0.95, 0.95, 3.0)
+    over the kernel's own (lane, chunk) set, `trace_mxu.lane_chunks`, bit
+    for bit: the table's fragment layout, the units built in the kernel,
+    the compacted row tiles, the division after the test, the folds and
+    the any-hit exit all match. Also a block whose second warp wants no
+    unit, one live lane, R = 300 and R = 0 (no launch, nothing
+    written)."""
+    o, d, t_min, t_max = _k6_rays(case, cornell)
     table = trace_mxu.kernel_table(cornell.tri_planes)
     nc = cornell.chunk_aabb.shape[0]
-    if incull:
-        boxes = worklist.group_boxes(cornell.chunk_aabb, grp)
-        units = trace_mxu.incull_units(boxes, V3(*o), V3(*d), t_min, t_max)
-        args = (boxes.data_ptr(), None, None)
-    else:
-        counts, unit_list = trace_mxu.mxu_worklists(
-            cornell.chunk_aabb, grp, V3(*o), V3(*d), t_min, t_max)
-        units = trace_mxu.worklist_units(counts, unit_list)
-        args = (None, counts.data_ptr(), unit_list.data_ptr())
-    want = trace_mxu.trace_mxu_plain(table, units, grp, V3(*o), V3(*d),
-                                     t_min, t_max, passes, any_hit)
-    t = torch.empty(RAYS)
-    tri = torch.empty(RAYS, dtype=torch.int32)
+    n = o.shape[1]
+    t = torch.full((max(n, 1),), 7.0)
+    tri = torch.full((max(n, 1),), 7, dtype=torch.int32)
     common = (o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
-              table.data_ptr(), *args, RAYS, nc, grp)
+              table.data_ptr(), cornell.chunk_aabb.data_ptr(), n, nc, grp)
     if any_hit:
         err = lib.tpurt_mxu_any_hit(*common, t.data_ptr(), tri.data_ptr(),
                                     None)
@@ -612,10 +663,47 @@ def test_mxu_kernel_matches_plain(lib, cornell, mode, grp, passes, incull,
         err = lib.tpurt_mxu_closest_hit(*common, passes, int(incull),
                                         t.data_ptr(), tri.data_ptr(), None)
     assert err == 0
+    if n == 0:
+        assert t.item() == 7.0 and tri.item() == 7
+        return
+    chunks = trace_mxu.lane_chunks(cornell.chunk_aabb, grp, incull, V3(*o),
+                                   V3(*d), t_min, t_max)
+    want = trace_mxu.trace_mxu_plain(table, chunks, V3(*o), V3(*d), t_min,
+                                     t_max, passes, any_hit)
     got = {"t": t, "tri": tri}
     for k in want:
         assert torch.equal(got[k], want[k]), k
     assert (want["tri"] >= 0).any()
+    if case == "idle_warp":
+        assert not chunks[32:64].any() and chunks[:32].any()
+    if case == "one_lane":
+        assert int(chunks.any(dim=1).sum()) == 1
+
+
+@pytest.mark.parametrize("grp,passes", [(1, 3), (1, 1), (4, 3)],
+                         ids=["mxu3", "mxu1", "mxuw4"])
+def test_mxu_kernel_hulls(lib, layered, grp, passes):
+    """K6 on the 256-chunk table, whose chunks it tests through hulls of
+    8 chunks first (at most 32 hulls; mxuw4's units of 4 grow to 8):
+    equal to its plain version bit for bit on random rays, so a hull
+    never drops a chunk that a lane's window passes."""
+    planes, aabb, (o, d, t_min, t_max) = _swept_table("max", layered)
+    o, d, t_min, t_max = (x[..., :128].contiguous()
+                          for x in (o, d, t_min, t_max))
+    table = trace_mxu.kernel_table(planes)
+    n = o.shape[1]
+    t = torch.empty(n)
+    tri = torch.empty(n, dtype=torch.int32)
+    assert lib.tpurt_mxu_closest_hit(
+        o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
+        table.data_ptr(), aabb.data_ptr(), n, aabb.shape[0], grp, passes, 0,
+        t.data_ptr(), tri.data_ptr(), None) == 0
+    chunks = trace_mxu.lane_chunks(aabb, grp, False, V3(*o), V3(*d), t_min,
+                                   t_max)
+    want = trace_mxu.trace_mxu_plain(table, chunks, V3(*o), V3(*d), t_min,
+                                     t_max, passes)
+    assert torch.equal(t, want["t"]) and torch.equal(tri, want["tri"])
+    assert (want["tri"] >= 0).any() and chunks.shape[1] > 32
 
 
 @pytest.mark.parametrize("c,r", [(15, 1000), (23, 513), (35, 300), (35, 0)])

@@ -38,7 +38,8 @@ from tpu_raytracer.render import renderer as ref_renderer
 from tpu_raytracer.utils.image import psnr
 from tpu_raytracer_torch import convert
 from tpu_raytracer_torch.models import scenes
-from tpu_raytracer_torch.ops import trace_api, trace_mxu, trace_vpu, worklist
+from tpu_raytracer_torch.ops import (trace_api, trace_mxu, trace_stream,
+                                     trace_vpu, worklist)
 from tpu_raytracer_torch.render import pipeline, renderer
 from tpu_raytracer_torch.scene.builder import SceneBuilder
 from tpu_raytracer_torch.scene.geometry import create_cube
@@ -177,9 +178,10 @@ def test_mt_coef48_matches_reference(soup12, group):
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(got.float().numpy(), want)
     if group == 1:
+        # K6's fragment layout holds exactly mt_coef48's columns
         np.testing.assert_array_equal(
-            trace_mxu.kernel_table(torch.from_numpy(planes)).float().numpy(),
-            want.T)
+            trace_mxu.table_columns(trace_mxu.kernel_table(
+                torch.from_numpy(planes))).float().numpy(), want.T)
 
 
 def test_split_bf16_matches_reference():
@@ -312,6 +314,16 @@ def test_route_table(args, want):
     assert trace_api.trace_route(*args) == want
 
 
+@pytest.mark.parametrize("tp", [CT, 11 * CT, _F, _F + CT, 4 * _F])
+def test_vpu_capacity_follows_route(tp):
+    """K5 takes K1's unit capacity where the default query goes to K1, and
+    K3's where it goes to K3."""
+    route = trace_api.trace_route("mxuf2", False, tp, False)[0]
+    want = {"swept": trace_api.SWEPT_MAX_UNITS,
+            "stream": trace_stream.MAX_UNITS}[route]
+    assert trace_vpu.vpu_max_units(tp) == want
+
+
 @pytest.mark.parametrize("kernel", ["mxu2", "mxuw0", "any2", "mxus8", "VPU",
                                     "mxuf2 ", ""])
 def test_unknown_mode_raises(kernel):
@@ -416,12 +428,9 @@ def test_cpu_modes_never_launch_kernels(kernel, incull):
     assert not any(trace_api.LAUNCHES.values()), trace_api.LAUNCHES
     flat = torch.zeros((3, 8))
     with pytest.raises(ValueError):
-        trace_vpu.vpu_kernel(scene.tri_planes, torch.zeros(1, dtype=torch.int32),
-                             torch.zeros((11, 1), dtype=torch.int32), flat, flat,
+        trace_vpu.vpu_kernel(scene.tri_planes, scene.chunk_aabb, flat, flat,
                              torch.zeros(8), torch.ones(8))
     with pytest.raises(ValueError):
-        trace_mxu.mxu_kernel(trace_mxu.kernel_table(scene.tri_planes), None,
-                             torch.zeros(1, dtype=torch.int32),
-                             torch.zeros((11, 1), dtype=torch.int32), flat, flat,
-                             torch.zeros(8), torch.ones(8), 1, 3, False,
-                             False)
+        trace_mxu.mxu_kernel(trace_mxu.kernel_table(scene.tri_planes),
+                             scene.chunk_aabb, flat, flat, torch.zeros(8),
+                             torch.ones(8), 1, 3, False, False)

@@ -8,17 +8,18 @@
 //     threads because only one block runs at a time;
 //   - cp.async (<cuda_pipeline.h>) is a plain copy, made at once; commit
 //     and wait are no-ops;
-//   - the warp votes and reductions (__ballot_sync, __reduce_min_sync,
-//     __reduce_or_sync) exchange the lanes' values through a static
-//     buffer between block barriers, so every thread of the block must
-//     call them the same number of times; __syncthreads_count counts on
-//     an atomic as __syncthreads_or does;
+//   - __syncwarp() on one std::barrier per warp; the warp votes and
+//     reductions (__ballot_sync, __reduce_min_sync, __reduce_or_sync)
+//     exchange the lanes' values through a static buffer between warp
+//     barriers, so every thread of a warp must call them the same number
+//     of times (warps may differ); __syncthreads_count counts on an
+//     atomic as __syncthreads_or does;
 //   - atomicMin, atomicOr, atomicExch and atomicAdd are std::atomic_ref
 //     operations;
 //   - the warp-level bf16 product of csrc/mma.cuh (mma_split) exchanges
-//     the fragments through a static buffer between two barriers and sums
-//     each output's exact products in f64, rounding once to f32; every
-//     thread of the block must call it the same number of times;
+//     the fragments through a static buffer between two warp barriers and
+//     sums each output's exact products in f64, rounding once to f32;
+//     every thread of a warp must call it the same number of times;
 //   - a launch `k<<<grid, block, 0, stream>>>(args)` must be rewritten
 //     to `emu_launch(k, grid, block)(args)` before compiling.
 // Build with -std=c++20 -ffp-contract=off (as nvcc's -fmad=false).
@@ -29,6 +30,7 @@
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <deque>
 #include <thread>
 #include <vector>
 
@@ -73,6 +75,9 @@ struct alignas(16) float4 {
 inline float4 make_float4(float x, float y, float z, float w) {
     return {x, y, z, w};
 }
+struct alignas(16) uint4 {
+    unsigned x, y, z, w;
+};
 
 inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n) {
     std::memcpy(dst, src, n);
@@ -99,9 +104,14 @@ inline int atomicAdd(int* p, int v) {
 }
 
 inline std::barrier<>* emu_barrier;
+inline std::deque<std::barrier<>>* emu_warp_barriers;   // one a warp
 inline std::atomic<int> emu_or{0};
 
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
+
+inline void __syncwarp(unsigned = 0xffffffffu) {
+    (*emu_warp_barriers)[threadIdx.x / 32].arrive_and_wait();
+}
 
 inline int __syncthreads_or(int p) {
     emu_barrier->arrive_and_wait();  // every thread has read the last result
@@ -127,9 +137,9 @@ inline int __syncthreads_count(int p) {
 template <class F>
 inline unsigned emu_warp_fold(unsigned v, unsigned init, F f) {
     static unsigned lanes[1024];
-    __syncthreads();                 // the last call's reads are done
+    __syncwarp();                    // the last call's reads are done
     lanes[threadIdx.x] = v;
-    __syncthreads();
+    __syncwarp();
     const unsigned base = threadIdx.x / 32 * 32;
     unsigned acc = init;
     for (unsigned l = 0; l < 32; ++l) acc = f(acc, l, lanes[base + l]);
@@ -170,13 +180,13 @@ inline void emu_mma_split(int passes, int mt, int nq, float* c,
                           const uint32_t* b_hi, const uint32_t* b_lo) {
     static EmuFrags frags[1024];
     const unsigned tid = threadIdx.x;
-    __syncthreads();                 // the last call's reads are done
+    __syncwarp();                    // the last call's reads are done
     EmuFrags& mine = frags[tid];
     std::memcpy(mine.a[0], a_hi, sizeof(uint32_t) * 4 * mt);
     std::memcpy(mine.a[1], a_lo, sizeof(uint32_t) * 4 * mt);
     std::memcpy(mine.b[0], b_hi, sizeof(uint32_t) * 2 * nq);
     std::memcpy(mine.b[1], b_lo, sizeof(uint32_t) * 2 * nq);
-    __syncthreads();
+    __syncwarp();
     const unsigned warp = tid / 32 * 32, g = tid % 32 / 4, q = tid % 4;
     // A[row][k] of row tile m, operand half s (0 hi, 1 lo)
     auto a_at = [&](int s, int m, int row, int k) {
@@ -194,7 +204,8 @@ inline void emu_mma_split(int passes, int mt, int nq, float* c,
                 const int row = g + 8 * (e / 2), col = 2 * q + e % 2;
                 double s = 0.0;
                 for (int k = 0; k < 16; ++k) {
-                    const double ah = a_at(0, m, row, k), bh = b_at(0, n, k, col);
+                    const double ah = a_at(0, m, row, k);
+                    const double bh = b_at(0, n, k, col);
                     s += ah * bh;
                     if (passes == 3) {
                         s += ah * double(b_at(1, n, k, col));
@@ -217,6 +228,9 @@ struct EmuLaunch {
         for (unsigned b = 0; b < grid.x; ++b) {
             std::barrier<> bar(block);
             emu_barrier = &bar;
+            std::deque<std::barrier<>> warps;
+            for (unsigned w = 0; w < block / 32; ++w) warps.emplace_back(32);
+            emu_warp_barriers = &warps;
             std::vector<std::thread> threads;
             for (unsigned t = 0; t < block; ++t) {
                 threads.emplace_back([&, t, b] {

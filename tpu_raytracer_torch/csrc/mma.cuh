@@ -12,9 +12,9 @@
 //   C (16 x 8, f32)         c[0..1] = C[g][2q..2q+1]   c[2..3] = C[g+8][2q..]
 //
 // Under the host emulation (csrc/host/emulation/cuda_runtime.h) the same
-// function exchanges the fragments between the threads and sums the exact
-// products in f64, rounding once; every thread of the block must call it
-// the same number of times.
+// function exchanges the fragments between the threads of the warp and sums
+// the exact products in f64, rounding once; every thread of the warp must
+// call it the same number of times (warps may differ).
 
 #pragma once
 

@@ -95,7 +95,7 @@ def trace_route(kernel: str, incull: bool, tp: int, any_hit: bool):
       "incull" - K6 with the in-kernel group cull, closest- and any-hit,
                  grp 2 (<= 48 chunks) or 4 (#5; mxuf* only);
       "vpu"    - K5 for both queries (any-hit reads `tri >= 0`) (#8);
-      "mxu"    - K6 over worklists of grp-chunk units, closest-hit only,
+      "mxu"    - K6 over units of grp chunks, closest-hit only,
                  passes 3 or 1 (#7: mxu3, mxu1; #6: mxuw[N], grp N);
       "swept"  - K1 / K2, the default (#1-#3);
       "stream" - K3 past MXUF_MAX_TP slots (#4).
@@ -320,15 +320,15 @@ def load_kernels() -> ctypes.CDLL:
                lib.tpurt_stream_closest_hit, lib.tpurt_stream_any_hit):
         fn.restype = i32
         fn.argtypes = [ptr] * 6 + [i32] * 2 + [ptr] * 3
+    lib.tpurt_vpu_closest_hit.restype = i32
+    lib.tpurt_vpu_closest_hit.argtypes = [ptr] * 6 + [i32] * 3 + [ptr] * 3
     for fn in (lib.tpurt_inst_closest_hit, lib.tpurt_inst_any_hit):
         fn.restype = i32
         fn.argtypes = [ptr] * 9 + [i32] * 3 + [ptr] * 4
-    lib.tpurt_vpu_closest_hit.restype = i32
-    lib.tpurt_vpu_closest_hit.argtypes = [ptr] * 7 + [i32] * 2 + [ptr] * 3
     lib.tpurt_mxu_closest_hit.restype = i32
-    lib.tpurt_mxu_closest_hit.argtypes = [ptr] * 8 + [i32] * 5 + [ptr] * 3
+    lib.tpurt_mxu_closest_hit.argtypes = [ptr] * 6 + [i32] * 5 + [ptr] * 3
     lib.tpurt_mxu_any_hit.restype = i32
-    lib.tpurt_mxu_any_hit.argtypes = [ptr] * 8 + [i32] * 3 + [ptr] * 3
+    lib.tpurt_mxu_any_hit.argtypes = [ptr] * 6 + [i32] * 3 + [ptr] * 3
     lib.tpurt_table_gather.restype = i32
     lib.tpurt_table_gather.argtypes = [ptr] * 2 + [i32] * 3 + [ptr] * 2
     return lib
@@ -355,11 +355,13 @@ def trace_kernel(tri_planes, chunk_aabb, o, d, t_min, t_max,
 
 
 def launch_sweep(kind: str, tri_planes, chunk_aabb, o, d, t_min, t_max,
-                 any_hit: bool):
+                 any_hit: bool, max_units: int | None = None):
     """Check the inputs of an instance of the sweep of `csrc/sweep.cuh`
     and launch it: `kind` "" is K1/K2 (`tpurt_closest_hit`,
-    `tpurt_any_hit`), "stream_" K3 (`tpurt_stream_*`). Counts the launch
-    in LAUNCHES under the entry's name."""
+    `tpurt_any_hit`), "stream_" K3 (`tpurt_stream_*`), "vpu_" K5
+    (`tpurt_vpu_closest_hit`, closest-hit only, which also takes its unit
+    capacity, `max_units`). Counts the launch in LAUNCHES under the
+    entry's name."""
     device = o.device
     if device.type != "cuda":
         raise ValueError(f"the {kind}sweep kernels need CUDA tensors, got "
@@ -385,8 +387,9 @@ def launch_sweep(kind: str, tri_planes, chunk_aabb, o, d, t_min, t_max,
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(o.data_ptr(), d.data_ptr(), t_min.data_ptr(),
                  t_max.data_ptr(), tri_planes.data_ptr(),
-                 chunk_aabb.data_ptr(), r, tp, t_out.data_ptr(),
-                 tri_out.data_ptr(), stream)
+                 chunk_aabb.data_ptr(), r, tp,
+                 *(() if max_units is None else (max_units,)),
+                 t_out.data_ptr(), tri_out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1

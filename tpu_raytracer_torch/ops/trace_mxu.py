@@ -9,11 +9,14 @@ with f32 accumulation, and tests the window on the products
 (`tpu_raytracer/ops/pallas_trace.py:251-376, 701-794, 1070-1254`).
 This module holds:
   - the twins of `mt_coef_device` (both layouts), `_split_bf16`,
-    `mt_coef48` and the feature rows of `_feat48_from`;
-  - `trace_mxu_plain`, the plain version of kernel K6: the bf16 products
-    formed exactly and summed in f64, rounded once to f32, then the
-    reference's window test;
-  - `trace_mxu`, which launches K6 (`csrc/trace_mxu.cu`) on CUDA tensors.
+    `mt_coef48` and the feature rows of `_feat48_from`, and K6's layout
+    of `mt_coef48`, `kernel_table` (`table_columns` undoes it);
+  - `trace_mxu_plain`, the plain version of kernel K6 over the kernel's
+    own (lane, chunk) set, `lane_chunks`: the bf16 products formed exactly
+    and summed in f64, rounded once to f32, then the reference's window
+    test;
+  - `trace_mxu`, which launches K6 (`csrc/trace_mxu.cu`) on CUDA tensors;
+    the kernel builds its units itself, with no prepass.
 Each lane keeps its (t, triangle id) pairs lexicographically, so an
 exact-t tie goes to the lowest id in any sweep order (the port's rule).
 Any-hit returns tri = 1 / -1 and t = t_max, K2's contract.
@@ -25,11 +28,14 @@ import torch
 
 from ..utils.vec3 import V3
 from . import worklist
-from .trace_api import (CT, INF, LAUNCHES, MT_EPS, MXUW_GROUP, _check,
-                        _cross, _dot, load_kernels, safe_inv, slab_pass,
-                        trace_route)
+from .trace_api import (CT, INCULL_MAX_CHUNKS, INF, LAUNCHES, MT_EPS,
+                        MXU_MAX_TP, MXUW_GROUP, _check, _cross, _dot,
+                        load_kernels, safe_inv, slab_pass, trace_route)
 
-BLOCK = 128       # rays per K6 block: one worklist, four warps of 32 rays
+# K6's capacities (csrc/trace_mxu.cu): the routes' largest tables in
+# chunks, and the in-kernel cull's in groups of 2
+MAX_UNITS = MXU_MAX_TP // CT
+MAX_GROUPS = INCULL_MAX_CHUNKS // 2
 
 
 # ---------------------------------------------------------------------------
@@ -101,10 +107,31 @@ def mt_coef48(tri_planes: torch.Tensor, group: int = 1) -> torch.Tensor:
 
 
 def kernel_table(tri_planes: torch.Tensor) -> torch.Tensor:
-    """K6's coefficient table: `mt_coef48` at group 1, one row of 48 bf16
-    per column of it [NC*4*CT, 48], so a thread reads a column's k-pairs
-    as 32-bit words."""
-    return mt_coef48(tri_planes).T.contiguous()
+    """K6's coefficient table: the hi and lo halves of `mt_coef48` at
+    group 1 in mma.sync's A-fragment order, triangles as the product's
+    rows: [NC, CT/16, 4, 32, 16] bf16. Entry [c, tt, qd, lane] holds the
+    eight 32-bit words thread `lane` = 4 g + q of a warp needs for the
+    16-triangle tile tt of chunk c in quantity block qd (det, u, v, t):
+    the hi pairs k = 2q, 2q+1 of triangles 16 tt + g and 16 tt + g + 8,
+    then their pairs k = 2q+8, 2q+9, then the same lo pairs, the lower k
+    in the lower half, so it loads them as two 16-byte words.
+    `table_columns` undoes it."""
+    coef = mt_coef48(tri_planes)[:32]          # hi rows, lo rows
+    nc = coef.shape[1] // (4 * CT)
+    # row hl*16 + j*8 + q*2 + half, column c*4CT + qd*CT + tt*16 + hh*8 + g
+    x = coef.reshape(2, 2, 4, 2, nc, 4, CT // 16, 2, 8)
+    return (x.permute(4, 6, 5, 8, 2, 0, 1, 7, 3)
+            .reshape(nc, CT // 16, 4, 32, 16).contiguous())
+
+
+def table_columns(table: torch.Tensor) -> torch.Tensor:
+    """`mt_coef48`'s columns [NC*4*CT, 48] (rows hi, lo, hi) from
+    `kernel_table`'s layout, bit for bit."""
+    nc = table.shape[0]
+    # c, tt, qd, g, q, hl, j, hh, half -> c, qd, tt, hh, g, hl, j, q, half
+    x = table.reshape(nc, CT // 16, 4, 8, 4, 2, 2, 2, 2)
+    x = x.permute(0, 2, 1, 7, 3, 5, 6, 4, 8).reshape(nc * 4 * CT, 32)
+    return torch.cat([x, x[:, :16]], dim=1)
 
 
 def mode_table(tri_planes: torch.Tensor, kernel: str, incull: bool,
@@ -155,133 +182,110 @@ def window_test(prod: torch.Tensor, t_min, t_max, any_hit: bool):
     return inside & (t_val > t_min) & (t_val < t_max), t_val
 
 
-def trace_mxu_plain(coef48_t, units, grp: int, o: V3, d: V3, t_min, t_max,
-                    passes: int = 3, any_hit: bool = False,
-                    block: int = BLOCK):
-    """K6's plain version. coef48_t: `kernel_table` [NC*4*CT, 48] bf16;
-    units [nb, NU] bool: the units (grp consecutive chunks) block b of
-    `block` lanes sweeps. Per swept chunk the products are phi's bf16
-    split against the table's, `passes` = 3 (hi*hi + hi*lo + lo*hi) or 1
-    (hi*hi), each exact in f64 and summed there, rounded once to f32; the
-    sum's order then does not matter. Returns {"t", "tri"}."""
+def trace_mxu_plain(table, chunks, o: V3, d: V3, t_min, t_max,
+                    passes: int = 3, any_hit: bool = False):
+    """K6's plain version. table: `kernel_table`; chunks [R, NC] bool:
+    lane r tests chunk c when chunks[r, c] (`lane_chunks`, the kernel's
+    own set). Per tested chunk the products are phi's bf16 split against
+    the table's, `passes` = 3 (hi*hi + hi*lo + lo*hi) or 1 (hi*hi), each
+    exact in f64 and summed there, rounded once to f32; the sum's order
+    then does not matter. Returns {"t", "tri"}."""
     r = t_min.shape[0]
-    nc = coef48_t.shape[0] // (4 * CT)
+    cols = table_columns(table)
     k = 48 if passes == 3 else 16
     f48 = feat48(o, d).T[:, :k].double()                     # [R, k]
-    table = coef48_t[:, :k].double()
+    cols = cols[:, :k].double()
     t_best = torch.full((r,), INF, dtype=torch.float32, device=t_min.device)
     idx_best = torch.full((r,), -1, dtype=torch.int32, device=t_min.device)
     hit_any = torch.zeros((r,), dtype=torch.bool, device=t_min.device)
-    lane = torch.arange(block, device=t_min.device)
-    for u in range(units.shape[1]):
-        blocks = torch.nonzero(units[:, u]).squeeze(1)
-        if blocks.numel() == 0:
+    for c in range(chunks.shape[1]):
+        lanes = torch.nonzero(chunks[:, c]).squeeze(1)
+        if lanes.numel() == 0:
             continue
-        lanes = (blocks[:, None] * block + lane).reshape(-1)
-        lanes = lanes[lanes < r]
         lo, hi = t_min[lanes, None], t_max[lanes, None]
-        for c in range(u * grp, min((u + 1) * grp, nc)):
-            cols = table[c * 4 * CT:(c + 1) * 4 * CT]         # [4*CT, k]
-            prod = (f48[lanes] @ cols.T).float()
-            hit, t_val = window_test(prod, lo, hi, any_hit)
-            if any_hit:
-                hit_any[lanes] |= hit.any(dim=1)
-                continue
-            t_cand = torch.where(hit, t_val, INF)
-            t_new, j = t_cand.min(dim=1)                      # first minimum
-            ids = (j + c * CT).to(torch.int32)
-            tb, ib = t_best[lanes], idx_best[lanes]
-            better = (t_new < tb) | ((t_new == tb) & (t_new < INF)
-                                     & (ids < ib))
-            t_best[lanes] = torch.where(better, t_new, tb)
-            idx_best[lanes] = torch.where(better, ids, ib)
+        chunk = cols[c * 4 * CT:(c + 1) * 4 * CT]             # [4*CT, k]
+        prod = (f48[lanes] @ chunk.T).float()
+        hit, t_val = window_test(prod, lo, hi, any_hit)
+        if any_hit:
+            hit_any[lanes] |= hit.any(dim=1)
+            continue
+        t_cand = torch.where(hit, t_val, INF)
+        t_new, j = t_cand.min(dim=1)                          # first minimum
+        ids = (j + c * CT).to(torch.int32)
+        tb, ib = t_best[lanes], idx_best[lanes]
+        better = (t_new < tb) | ((t_new == tb) & (t_new < INF) & (ids < ib))
+        t_best[lanes] = torch.where(better, t_new, tb)
+        idx_best[lanes] = torch.where(better, ids, ib)
     if any_hit:
         return {"t": t_max.clone(),
                 "tri": torch.where(hit_any, 1, -1).to(torch.int32)}
     return {"t": torch.where(idx_best < 0, INF, t_best), "tri": idx_best}
 
 
-def incull_units(group_aabb, o: V3, d: V3, t_min, t_max,
-                 block: int = BLOCK) -> torch.Tensor:
-    """[nb, NG] bool: block b sweeps group g when some live lane's window
-    (t_min, t_max) passes the group box's padded slab test (`slab_pass`):
-    the in-kernel guard of #5 (`slab_any`, :727-743), made conservative
-    as K1's cull is."""
-    r = t_min.shape[0]
-    nb = max(-(-r // block), 1)
+def lane_chunks(chunk_aabb, grp: int, incull: bool, o: V3, d: V3, t_min,
+                t_max) -> torch.Tensor:
+    """[R, NC] bool: the chunks K6 tests for each lane. A live lane (t_max
+    > 0) tests chunk c when its window (t_min, t_max) passes c's padded
+    box (`slab_pass`; mxu3, mxu1, mxuw[N]: grp only groups the kernel's
+    box tests), or with `incull` the padded union box of c's group of grp
+    chunks (the in-kernel guard of #5, `slab_any`, :727-743, made
+    conservative as K1's cull is)."""
     inv = safe_inv(d)
-    live = t_max > 0.0
-    cols = []
-    for box in group_aabb.cpu().tolist():
-        ok = live & slab_pass(box, o, inv, t_min, t_max)
-        ok = torch.cat([ok, ok.new_zeros((nb * block - r,))])
-        cols.append(ok.reshape(nb, block).any(dim=1))
-    return torch.stack(cols, dim=1)
-
-
-def worklist_units(counts, unit_list) -> torch.Tensor:
-    """[nb, NU] bool from worklists: block b sweeps its first counts[b]
-    units."""
-    n_units, nb = unit_list.shape
-    units = torch.zeros((nb, n_units), dtype=torch.bool,
-                        device=counts.device)
-    listed = torch.arange(n_units, device=counts.device)[:, None] \
-        < counts[None, :]
-    units[torch.arange(nb, device=counts.device).expand(n_units, nb)[listed],
-          unit_list[listed].long()] = True
-    return units
+    nc = chunk_aabb.shape[0]
+    if incull:
+        boxes = worklist.group_boxes(chunk_aabb, grp).cpu().tolist()
+        groups = torch.stack([slab_pass(box, o, inv, t_min, t_max)
+                              for box in boxes], dim=1)
+        chunks = groups.repeat_interleave(grp, dim=1)[:, :nc]
+    else:
+        chunks = torch.stack([slab_pass(box, o, inv, t_min, t_max)
+                              for box in chunk_aabb.cpu().tolist()], dim=1)
+    return chunks & (t_max > 0.0)[:, None]
 
 
 # ---------------------------------------------------------------------------
 # K6 (CUDA tensors) and the mode's entry point
 # ---------------------------------------------------------------------------
 
-def mxu_kernel(coef48_t, group_aabb, counts, unit_list, o, d, t_min, t_max,
-               grp, passes, incull, any_hit):
+def mxu_kernel(table, chunk_aabb, o, d, t_min, t_max, grp, passes,
+               incull, any_hit):
     """Launch K6 on CUDA tensors: o, d [3, R] f32; t_min, t_max [R] f32
-    (t_max <= 0: dead lane); coef48_t from `kernel_table`; with `incull`
-    the units' union boxes group_aabb, else the worklists of
-    `mxu_worklists`; all contiguous on one CUDA device. Raises on
-    anything else, and on a variant no route takes."""
+    (t_max <= 0: dead lane); table from `kernel_table`; chunk_aabb [NC, 8]
+    f32; all contiguous on one CUDA device. The kernel builds its units
+    itself (`lane_chunks`). Raises on anything else, and on a variant no
+    route takes."""
     device = o.device
     if device.type != "cuda":
         raise ValueError(f"mxu_kernel needs CUDA tensors, got {device}")
     r = o.shape[1]
     f32 = torch.float32
-    cols = coef48_t.shape[0]
-    if cols % (4 * CT):
-        raise ValueError(f"coefficient table has {cols} columns, not a "
-                         f"multiple of {4 * CT}")
-    nc = cols // (4 * CT)
-    nb = max(-(-r // BLOCK), 1)
+    nc = table.shape[0]
     _check(o, "o", (3, r), f32, device)
     _check(d, "d", (3, r), f32, device)
     _check(t_min, "t_min", (r,), f32, device)
     _check(t_max, "t_max", (r,), f32, device)
-    _check(coef48_t, "coef48_t", (cols, 48), torch.bfloat16, device)
-    if incull:
-        _check(group_aabb, "group_aabb", (-(-nc // grp), 8), f32, device)
-    else:
-        _check(counts, "counts", (nb,), torch.int32, device)
-        _check(unit_list, "unit_list", (-(-nc // grp), nb), torch.int32,
-               device)
+    _check(table, "table", (nc, CT // 16, 4, 32, 16), torch.bfloat16,
+           device)
+    _check(chunk_aabb, "chunk_aabb", (nc, 8), f32, device)
     if passes not in (1, 3) or (incull and passes != 3) \
             or (any_hit and not incull):
         raise ValueError(f"K6 has no variant passes={passes}, "
                          f"incull={incull}, any_hit={any_hit}")
-    if r >= 2 ** 31 or 48 * cols >= 2 ** 31:
-        raise ValueError("rays or table exceed int32 indexing")
+    if grp < 1 or not 1 <= (-(-nc // grp) if incull else nc) <= (
+            MAX_GROUPS if incull else MAX_UNITS):
+        raise ValueError(f"K6 takes up to {MAX_UNITS} chunks, or "
+                         f"{MAX_GROUPS} groups with the cull, not {nc} "
+                         f"chunks in groups of {grp}")
+    if r >= 2 ** 31:
+        raise ValueError("rays exceed int32 indexing")
     lib = load_kernels()
     t_out = torch.empty((r,), dtype=f32, device=device)
     tri_out = torch.empty((r,), dtype=torch.int32, device=device)
-    null = 0
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         args = (o.data_ptr(), d.data_ptr(), t_min.data_ptr(),
-                t_max.data_ptr(), coef48_t.data_ptr(),
-                group_aabb.data_ptr() if incull else null,
-                null if incull else counts.data_ptr(),
-                null if incull else unit_list.data_ptr(), r, nc, grp)
+                t_max.data_ptr(), table.data_ptr(), chunk_aabb.data_ptr(), r,
+                nc, grp)
         if any_hit:
             err = lib.tpurt_mxu_any_hit(*args, t_out.data_ptr(),
                                         tri_out.data_ptr(), stream)
@@ -296,38 +300,21 @@ def mxu_kernel(coef48_t, group_aabb, counts, unit_list, o, d, t_min, t_max,
     return {"t": t_out, "tri": tri_out}
 
 
-def mxu_worklists(chunk_aabb, grp: int, o: V3, d: V3, t_min, t_max):
-    """(counts, unit_list): worklists of grp-chunk units over blocks of
-    BLOCK lanes, from the padded chunk boxes."""
-    counts, unit_list, _ = worklist.worklists(worklist.block_entry(
-        o, d, t_min, t_max, worklist.pad_boxes(chunk_aabb),
-        chunk_aabb.shape[0], BLOCK, grp))
-    return counts, unit_list
-
-
-def trace_mxu(coef48_t, chunk_aabb, o: V3, d: V3, t_min, t_max, grp: int,
+def trace_mxu(table, chunk_aabb, o: V3, d: V3, t_min, t_max, grp: int,
               passes: int = 3, incull: bool = False, any_hit: bool = False):
-    """One query of a K6 route: the plain version on CPU tensors, K6 on
-    CUDA tensors (it launches or raises). Worklist variants (`mxu3`,
-    `mxu1`, `mxuw[N]`) sweep `mxu_worklists`; the in-kernel cull
-    (`incull`) slab-tests each group's padded union box against the
-    block's windows in the kernel. Any-hit is served only by the
-    in-kernel cull, as in the reference's routes."""
-    if coef48_t is None:
+    """One query of a K6 route: the plain version over `lane_chunks` on
+    CPU tensors, K6 on CUDA tensors (it launches or raises). A lane tests
+    the chunks whose boxes its window passes (`mxu3`, `mxu1`, `mxuw[N]`),
+    or with `incull` the chunks of the groups of grp whose union box it
+    passes. Any-hit is served only by the in-kernel cull, as in the
+    reference's routes."""
+    if table is None:
         raise ValueError("the scene carries no coefficient table for K6: "
                          "build it under a mode whose route takes K6")
-    group_aabb = counts = unit_list = None
-    if incull:
-        group_aabb = worklist.group_boxes(chunk_aabb, grp)
-    else:
-        counts, unit_list = mxu_worklists(chunk_aabb, grp, o, d, t_min,
-                                          t_max)
     if o.x.device.type == "cpu":
-        units = (incull_units(group_aabb, o, d, t_min, t_max) if incull
-                 else worklist_units(counts, unit_list))
-        return trace_mxu_plain(coef48_t, units, grp, o, d, t_min, t_max,
-                               passes, any_hit)
-    return mxu_kernel(coef48_t, group_aabb, counts, unit_list,
-                      torch.stack(list(o)), torch.stack(list(d)),
-                      t_min.contiguous(), t_max.contiguous(), grp, passes,
-                      incull, any_hit)
+        chunks = lane_chunks(chunk_aabb, grp, incull, o, d, t_min, t_max)
+        return trace_mxu_plain(table, chunks, o, d, t_min, t_max, passes,
+                               any_hit)
+    return mxu_kernel(table, chunk_aabb, torch.stack(list(o)),
+                      torch.stack(list(d)), t_min.contiguous(),
+                      t_max.contiguous(), grp, passes, incull, any_hit)

@@ -1,16 +1,17 @@
-"""Closest-hit by the elementwise exact-f32 sweep of chunk worklists:
-the trace-kernel mode `vpu` (the reference's `_mt_kernel`,
-`tpu_raytracer/ops/pallas_trace.py:1257-1323`, fed by the prepass
-`_block_entry`, :1326).
+"""Closest-hit by the exact-f32 sweep of the trace-kernel mode `vpu` (the
+reference's `_mt_kernel`, `tpu_raytracer/ops/pallas_trace.py:1257-1323`,
+fed by the prepass `_block_entry`, :1326).
 
   - `trace_vpu_plain`, the plain version: per block of BLOCK lanes, the
-    chunks of its worklist (ops/worklist.py), each tested with
-    `trace_api.mt_argmin`;
+    chunks of its worklist (ops/worklist.py, the twin of the reference's
+    prepass), each tested with `trace_api.mt_argmin`;
   - kernel K5 (`csrc/trace_vpu.cu`, `tpurt_vpu_closest_hit`), which
-    `trace_vpu` launches on CUDA tensors.
+    `trace_vpu` launches on CUDA tensors: an instance of the sweep of
+    `csrc/sweep.cuh`, which builds its units in the kernel, so the CUDA
+    route runs no prepass.
 The test is K1's and each lane keeps (t, triangle id) lexicographically;
 the worklists come from padded boxes, so they hold every chunk K1's cull
-keeps and both return `trace_api.trace_plain`'s answer on every lane.
+keeps, and both return `trace_api.trace_plain`'s answer on every lane.
 `vpu` serves occlusion queries with the same sweep: `tri >= 0`.
 """
 
@@ -19,10 +20,11 @@ from __future__ import annotations
 import torch
 
 from ..utils.vec3 import V3
-from . import worklist
-from .trace_api import CT, INF, LAUNCHES, _check, load_kernels, mt_argmin
+from . import trace_stream, worklist
+from .trace_api import (CT, INF, MXUF_MAX_TP, SWEPT_MAX_UNITS, launch_sweep,
+                        mt_argmin)
 
-BLOCK = 128       # rays per K5 block: one worklist, one thread a ray
+BLOCK = 128       # rays per block of the plain version's worklists
 
 
 def trace_vpu_plain(tri_planes, counts, chunk_list, o: V3, d: V3, t_min,
@@ -56,47 +58,26 @@ def trace_vpu_plain(tri_planes, counts, chunk_list, o: V3, d: V3, t_min,
     return {"t": torch.where(idx_best < 0, INF, t_best), "tri": idx_best}
 
 
-def vpu_kernel(tri_planes, counts, chunk_list, o, d, t_min, t_max):
-    """Launch K5 on CUDA tensors: o, d [3, R] f32; t_min, t_max [R] f32
-    (t_max <= 0: dead lane); tri_planes [4, 3, Tp] f32; the worklists of
-    `vpu_worklists`, all contiguous on one CUDA device. Raises on
-    anything else."""
-    device = o.device
-    if device.type != "cuda":
-        raise ValueError(f"vpu_kernel needs CUDA tensors, got {device}")
-    r = o.shape[1]
-    tp = tri_planes.shape[2]
-    if tp % CT:
-        raise ValueError(f"tri_planes width {tp} is not a multiple of {CT}")
-    nb = max(-(-r // BLOCK), 1)
-    f32 = torch.float32
-    _check(o, "o", (3, r), f32, device)
-    _check(d, "d", (3, r), f32, device)
-    _check(t_min, "t_min", (r,), f32, device)
-    _check(t_max, "t_max", (r,), f32, device)
-    _check(tri_planes, "tri_planes", (4, 3, tp), f32, device)
-    _check(counts, "counts", (nb,), torch.int32, device)
-    _check(chunk_list, "chunk_list", (tp // CT, nb), torch.int32, device)
-    if r >= 2 ** 31 or 12 * tp >= 2 ** 31:
-        raise ValueError("rays or triangle slots exceed int32 indexing")
-    lib = load_kernels()
-    t_out = torch.empty((r,), dtype=f32, device=device)
-    tri_out = torch.empty((r,), dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.tpurt_vpu_closest_hit(
-            o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
-            tri_planes.data_ptr(), counts.data_ptr(), chunk_list.data_ptr(),
-            r, tp, t_out.data_ptr(), tri_out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"K5 launch failed: CUDA error {err}")
-    LAUNCHES["vpu_closest_hit"] += 1
-    return {"t": t_out, "tri": tri_out}
+def vpu_max_units(tp: int) -> int:
+    """K5's unit capacity at `tp` triangle slots: K1's up to MXUF_MAX_TP
+    and K3's past it, the rule by which `trace_api.trace_route` sends the
+    default query to K1 or K3."""
+    return SWEPT_MAX_UNITS if tp <= MXUF_MAX_TP else trace_stream.MAX_UNITS
+
+
+def vpu_kernel(tri_planes, chunk_aabb, o, d, t_min, t_max):
+    """Launch K5 on CUDA tensors at `vpu_max_units(Tp)` units: o, d [3, R]
+    f32; t_min, t_max [R] f32 (t_max <= 0: dead lane); tri_planes [4, 3,
+    Tp] and chunk_aabb [Tp/128, 8] f32, all contiguous on one CUDA
+    device. Raises on anything else."""
+    return launch_sweep("vpu_", tri_planes, chunk_aabb, o, d, t_min, t_max,
+                        any_hit=False,
+                        max_units=vpu_max_units(tri_planes.shape[2]))
 
 
 def vpu_worklists(chunk_aabb, o: V3, d: V3, t_min, t_max):
     """(counts, chunk_list): worklists of single chunks over blocks of
-    BLOCK lanes, from the padded chunk boxes."""
+    BLOCK lanes, from the padded chunk boxes (the plain version's)."""
     counts, chunk_list, _ = worklist.worklists(worklist.block_entry(
         o, d, t_min, t_max, worklist.pad_boxes(chunk_aabb),
         chunk_aabb.shape[0], BLOCK))
@@ -104,12 +85,12 @@ def vpu_worklists(chunk_aabb, o: V3, d: V3, t_min, t_max):
 
 
 def trace_vpu(tri_planes, chunk_aabb, o: V3, d: V3, t_min, t_max):
-    """The `vpu` route's query: `vpu_worklists`, then the plain version
-    on CPU tensors or K5 on CUDA tensors (it launches or raises)."""
-    counts, chunk_list = vpu_worklists(chunk_aabb, o, d, t_min, t_max)
+    """The `vpu` route's query: on CPU tensors `vpu_worklists` and the
+    plain version, on CUDA tensors K5 alone (it launches or raises)."""
     if o.x.device.type == "cpu":
+        counts, chunk_list = vpu_worklists(chunk_aabb, o, d, t_min, t_max)
         return trace_vpu_plain(tri_planes, counts, chunk_list, o, d, t_min,
                                t_max)
-    return vpu_kernel(tri_planes, counts, chunk_list, torch.stack(list(o)),
+    return vpu_kernel(tri_planes, chunk_aabb, torch.stack(list(o)),
                       torch.stack(list(d)), t_min.contiguous(),
                       t_max.contiguous())

@@ -1,4 +1,7 @@
-"""Per-block chunk worklists for the K5 and K6 sweeps.
+"""Per-block chunk worklists: the plain version of K5's route
+(`trace_vpu.trace_vpu_plain`, the `vpu` mode on CPU tensors) and the
+reference's prepass, held to it by the tests. On the card K5 and K6 build
+their units in the kernel and run no prepass.
 
 Port of the reference's XLA prepass `_block_entry`
 (`tpu_raytracer/ops/pallas_trace.py:1326-1397`) and of the stable sort
@@ -9,7 +12,7 @@ t_max) crosses one of its boxes, with the block's least entry t as its
 sort key. The arithmetic is the reference's, operation for operation,
 so on the same boxes the entries, counts and lists are its bit for bit.
 
-The kernels' route passes boxes padded by `pad_boxes` (the padding of
+The `vpu` route passes boxes padded by `pad_boxes` (the padding of
 `csrc/mt.cuh:slab_window`), so the worklists are conservative as K1's
 cull is: a chunk holding a hit is never dropped, and a sweep of the
 worklist returns K1's answer. Plain torch ops: the reference computes

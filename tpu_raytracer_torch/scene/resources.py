@@ -67,7 +67,7 @@ class CompiledScene:
     instanced: bool
     # the trace-kernel mode of a flattened scene's queries
     # (`ops/trace_api.py:trace_route`), and K6's coefficient table
-    # [Tp/128 * 512, 48] bf16 (`ops/trace_mxu.py:kernel_table`) when a
+    # [Tp/128, 8, 4, 32, 16] bf16 (`ops/trace_mxu.py:kernel_table`) when a
     # route of the mode reads it
     kernel: str = "mxuf2"
     incull: bool = False

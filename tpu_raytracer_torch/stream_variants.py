@@ -47,10 +47,11 @@ def _card() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def _build_all(source, variants, entries, argtypes):
+def _build_all(source, variants, entries, argtypes, allow_fail=False):
     """Start one nvcc per (name, csrc dir, defines) at once, each building
     <csrc dir>/<source>; bind each library's `entries` with `argtypes`.
-    Returns {name: (ctypes library, ptxas lines)}."""
+    Returns {name: (ctypes library, ptxas lines)}. A build that fails
+    raises, or with `allow_fail` gives (None, the compiler's last lines)."""
     out_dir = os.path.join(BUILD_DIR, "variants")
     os.makedirs(out_dir, exist_ok=True)
     stem = os.path.splitext(source)[0]
@@ -66,6 +67,9 @@ def _build_all(source, variants, entries, argtypes):
     libs = {}
     for name, (so, proc) in procs.items():
         log = proc.communicate(timeout=600)[0]
+        if proc.returncode != 0 and allow_fail:
+            libs[name] = (None, log.strip().splitlines()[-12:])
+            continue
         if proc.returncode != 0:
             raise RuntimeError(f"building {name} failed:\n{log}")
         lib = ctypes.CDLL(so)
