@@ -103,7 +103,9 @@ is non-zero):
                 bit for bit: Cornell's tri_table and mat_table, the knot's
                 tri_table, the gallery's inst_table and the restir scene's
                 light_table (100 lights), at GATHER_RAYS random indices
-                (negative ones and ones past the table included). Timed
+                (the random sets' counts and the app's, config 4's and
+                config 5's frames; negative ones and ones past the table
+                included). Timed
                 beside the plain version and one torch.index_select call
                 on the transposed table (the yardstick, `library_ms`).
  17. fetch    - the first 2 Cornell 512^2 frames again with
@@ -122,12 +124,48 @@ is non-zero):
                 resolve_tonemap) must be finite and above the un-denoised
                 frame 2's. Peak device memory of a frame and of the
                 denoise; the ScreenshotSaver's PNG read back.
-Every frame phase (5, 6, 8, 10, 11, 14, 15, 18, 19) also checks that K7
-launched and prints its launches a frame. Then one JSON line of
+ 20. config 4 - bench.py's config-4 sequence: the Cornell box at 1920 x
+                1080, FLY_WARMUP + FLY_TIMED frames; each presses `d` for
+                1/60 s (the accumulation restarts), moves the crystal
+                (instance 6) by bench.py's wobble and refits it with
+                ops/refit.py:update_instances(changed=(6,)), static_ok
+                False. From the second frame on every refit runs under
+                torch.cuda.set_sync_debug_mode("error"): no host sync.
+                fps_1080p_flythrough_refit, Mrays/s, the refit's time a
+                frame (on the host in the frame loop, and its device time
+                and kernel launches under torch.profiler over REFIT_REPS
+                refits), launches a frame (K1, K2 and K7;
+                nothing else), peak memory. Checks:
+                the last refit against a full refit (changed=None) of the
+                same transforms within REFIT_ATOL on tri_planes,
+                chunk_aabb, tri_table, bvh_rec, inst_transform and
+                inst_normal_mat; every box record of bvh_rec contains its
+                triangles; K1/K2 on the refit scene's 1920 x 1080 primary
+                rays against plain (tri on every lane, t bit-equal;
+                occlusion equal); the refit scene's frame with the plain
+                fetch within VPU_DB of the same frame through K7; a
+                repack=True refit keeps K1's hit/miss
+                and t bit for bit, its rows follow the Morton order, and a
+                winner that moved is an exact-t tie.
+ 21. app      - in process, on the app's default scene and camera at
+                1280 x 720: K1/K2 on the primary rays against plain (as in
+                phase 20), and the first frame with the plain fetch
+                within VPU_DB of K7's. Then
+                `python -m tpu_raytracer_torch --scale=1280x720
+                --max-frames 12 --no-preview --target-spp 8 --checkpoint
+                <tmp> --out-dir <tmp>` as a subprocess, stdin not a tty:
+                exit code 0, one PNG read back through utils/png.py, the
+                checkpoint's frame_count 12, K1, K2 and K7 launched; then
+                2 more frames resumed from the checkpoint, starting at
+                frame 12. Prints the app's FrameStats fps and Mrays/s.
+Every frame phase (5, 6, 8, 10, 11, 14, 15, 18, 19, 20) also checks that
+K7 launched and prints its launches a frame. Then one JSON line of
 per-kernel results (K1-K6: time, plain time and bound at 524,288 random
 rays; K7: at 524,288 rows of Cornell's tri_table; launches on each
-kernel's frames), and last the device line {"ok": true, "device":
-{...}}. Without a CUDA device it exits with 1 and prints no result.
+kernel's frames; K1, K2 and K7 also their launches a frame on config 4's
+frames, `launches_per_frame`), and last the device line {"ok": true,
+"device": {...}}. Without a CUDA device it exits with 1 and prints no
+result.
 
 A kernel's bound is the least time the card could take for the work
 this run's rays need: the ray-triangle tests (MT_FLOPS each, counted from
@@ -190,9 +228,20 @@ MXU_VARIANTS = (("mxu3", "mxu3", 1, 3, False, 1186),
                 ("mxu1", "mxu1", 1, 1, False, 1186),
                 ("mxuw8", "mxuw", 8, 3, False, 1070),
                 ("incull", "mxuf2", None, 3, True, 701))
-GATHER_RAYS = (262144, 524288, 3840 * 2160)   # K7's index counts
 PROGRESSIVE_FRAMES = 34    # config 1 (bench.py:151-172), 2 untimed
 SHOT_W, SHOT_H, SHOT_FRAMES = 3840, 2160, 32   # config 5 (bench.py:207-279)
+# config 4 (bench.py:187-206): the 1080p fly-through, the crystal
+# (instance 6) refit every frame
+FLY_W, FLY_H, FLY_WARMUP, FLY_TIMED, CRYSTAL = 1920, 1080, 2, 6, 6
+# the changed-instance refit against the full one; the same bound holds
+# the port's refit tables to the reference's (tests/test_torch_refit.py)
+REFIT_ATOL = 1e-6
+REFIT_REPS = 5      # refits under torch.profiler for their device time
+# the app (phase 21): the reference app's default size (src/main.rs:122)
+APP_W, APP_H, APP_FRAMES, APP_SPP, APP_RESUME = 1280, 720, 12, 8, 2
+# K7's index counts: the random sets, the app's, config 4's and config 5's
+# frames
+GATHER_RAYS = (262144, 524288, APP_W * APP_H, FLY_W * FLY_H, 3840 * 2160)
 
 
 def _card() -> str:
@@ -746,6 +795,337 @@ def _screenshot_phase(torch, scene, dev, card, width, height, frames):
           f"{den_peak / 2**30:.2f} GiB of {total / 2**30:.1f} GiB; PNG "
           f"{png_shape} read back; launches {launches}; "
           f"{_k7_line(launches, frames)} [{card}]", flush=True)
+    return launches
+
+
+def _check_primary(torch, scene, uniform, width, height, what):
+    """Raise unless K1 and K2 on `scene`'s width x height primary rays
+    equal their plain versions (tri on every lane and t bit for bit; K2's
+    occlusion equal and its t t_max). Returns the rays (o, d as [3, n]
+    tensors, po, pd as V3s, t_min, t_max)."""
+    from tpu_raytracer_torch.ops import gbuffer, trace_api
+
+    po, pd = gbuffer.generate_primary_rays(uniform, width, height)
+    o, d = (torch.stack(list(x)).contiguous() for x in (po, pd))
+    n = o.shape[1]
+    t_min = torch.full((n,), gbuffer.T_MIN, device=o.device)
+    t_max = torch.full((n,), gbuffer.T_MAX, device=o.device)
+    got, got_a = (trace_api.trace_kernel(scene.tri_planes, scene.chunk_aabb,
+                                         o, d, t_min, t_max, any_hit=a)
+                  for a in (False, True))
+    want = trace_api.trace_plain(scene.tri_planes, scene.chunk_aabb, po, pd,
+                                 t_min, t_max)
+    torch.cuda.synchronize()
+    if not torch.equal(got["tri"], want["tri"]):
+        raise AssertionError(f"{what}: K1's tri differs from plain on "
+                             f"{int((got['tri'] != want['tri']).sum())} "
+                             f"lanes")
+    if not torch.equal(got["t"].view(torch.int32),
+                       want["t"].view(torch.int32)):
+        raise AssertionError(f"{what}: K1's t is not bit-equal to plain")
+    if not (torch.equal(got_a["tri"] >= 0, want["tri"] >= 0)
+            and torch.equal(got_a["t"], t_max)):
+        raise AssertionError(f"{what}: K2's occlusion differs from plain "
+                             f"or its t is not t_max")
+    return o, d, po, pd, t_min, t_max
+
+
+def _check_fetch(torch, scene, uniform, width, height, what):
+    """Raise unless one ReSTIR frame of `scene` at width x height from a
+    fresh state (frame 0, static_ok False) with hit.fetch_cols set to the
+    plain gather is within VPU_DB of the same frame through K7, as phase
+    17 holds them. Returns (max |diff|, PSNR)."""
+    from tpu_raytracer_torch.ops import hit, table_gather, trace_api
+    from tpu_raytracer_torch.render import pipeline
+
+    def frame():
+        trace_api.reset_launch_counts()
+        state = pipeline.init_state(width, height, scene.tri_planes.device)
+        ldr = pipeline.render_frame(scene, uniform, 0, state, width, height,
+                                    static_ok=False)[0]
+        return ldr.cpu().numpy(), trace_api.LAUNCHES["table_gather"]
+
+    want, k7_launched = frame()
+    saved = hit.fetch_cols
+    hit.fetch_cols = lambda table, idx: list(
+        table_gather.table_gather_plain(table, idx).unbind(0))
+    try:
+        got, plain_launched = frame()
+    finally:
+        hit.fetch_cols = saved
+    if not k7_launched or plain_launched:
+        raise AssertionError(f"{what}: the K7 frame must launch K7 and the "
+                             f"plain-fetch frame not: {k7_launched}, "
+                             f"{plain_launched}")
+    diff, psnr = float(np.abs(got - want).max()), _psnr(got, want)
+    if not psnr >= VPU_DB:
+        raise AssertionError(f"{what}: the plain-fetch frame is at PSNR "
+                             f"{psnr:.2f} dB of K7's, < {VPU_DB}")
+    return diff, psnr
+
+
+def _boxes_contain(torch, scene):
+    """Raise unless every box record of scene.bvh_rec contains each
+    triangle record of its subtree (records box+1 .. skip-1), exactly.
+    Returns the number of (box, triangle) pairs checked."""
+    rec, skip = scene.bvh_rec, scene.bvh_skip
+    boxes = torch.nonzero(skip >= 0).squeeze(1)
+    tris = torch.nonzero(skip < 0).squeeze(1)
+    v0 = rec[tris, 0:3]
+    v1, v2 = v0 + rec[tris, 3:6], v0 + rec[tris, 6:9]
+    t_mn = torch.minimum(torch.minimum(v0, v1), v2)
+    t_mx = torch.maximum(torch.maximum(v0, v1), v2)
+    inside = ((tris[None, :] > boxes[:, None])
+              & (tris[None, :] < skip[boxes][:, None]))
+    ok = ((rec[boxes, None, 0:3] <= t_mn[None]).all(-1)
+          & (t_mx[None] <= rec[boxes, None, 3:6]).all(-1))
+    bad = int((inside & ~ok).sum())
+    if bad:
+        raise AssertionError(f"config 4: {bad} (box, triangle) pairs of the "
+                             f"refit BVH are not contained")
+    return int(inside.sum())
+
+
+def _flythrough_phase(torch, dev, card):
+    """Phase 20, bench.py's config 4: the Cornell box at FLY_W x FLY_H,
+    FLY_WARMUP + FLY_TIMED frames; each frame presses `d` for 1/60 s
+    (the accumulation restarts), moves the crystal by bench.py's wobble
+    and refits with changed=(CRYSTAL,), then renders with static_ok
+    False. From the second frame on every update_instances call runs
+    under torch.cuda.set_sync_debug_mode("error"). Then the checks:
+    the last refit against a full refit of the same transforms, K1/K2 on
+    the refit scene against plain, the refit boxes, and a repack.
+    Returns (launches, frames)."""
+    from tpu_raytracer_torch.models import scenes
+    from tpu_raytracer_torch.ops import lbvh, refit, trace_api
+    from tpu_raytracer_torch.render import camera, pipeline, renderer
+    from tpu_raytracer_torch.utils.math3d import (rotation_y, scale,
+                                                  translation)
+    from tpu_raytracer_torch.utils.vec3 import V3
+
+    scene0 = scene = scenes.create_cornell_box(dev)
+    base = scene.inst_transform.cpu().numpy()
+
+    def wobble(i):
+        """bench.py:194-199; uploaded here, before the refit runs."""
+        tf = base.copy()
+        tf[CRYSTAL] = (translation([0.4, -0.5 + 0.02 * (i % 8), 0.3])
+                       @ rotation_y(0.1 * i) @ scale(0.5))[:3, :4]
+        return torch.as_tensor(tf, dtype=torch.float32, device=dev)
+
+    cam = camera.CameraController()
+    state = pipeline.init_state(FLY_W, FLY_H, dev)
+    frames = FLY_WARMUP + FLY_TIMED
+    trace_api.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    rays, host_ms = [], []
+    for i in range(frames):
+        cam.press("d")
+        cam.update(1.0 / 60.0)
+        cam.release("d")
+        tf = wobble(i)
+        h0 = time.perf_counter()
+        if i > 0:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            scene = refit.update_instances(scene, tf, changed=(CRYSTAL,))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        h1 = time.perf_counter()
+        uniform = renderer.camera_to_device(
+            cam.uniform(FLY_W / FLY_H, 0, scene.num_lights), dev)
+        ldr, hdr, state, aux = pipeline.render_frame(
+            scene, uniform, 0, state, FLY_W, FLY_H, static_ok=False)
+        if i == FLY_WARMUP - 1:
+            torch.cuda.synchronize()
+            t0 = time.time()
+        elif i >= FLY_WARMUP:
+            rays.append(aux["rays"])
+            host_ms.append((h1 - h0) * 1e3)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(trace_api.LAUNCHES)
+    rays = [float(r) for r in rays]
+    on = ["closest_hit", "any_hit", "table_gather"]
+    if min(launches[k] for k in on) <= 0 or any(
+            v for k, v in launches.items() if k not in on):
+        raise AssertionError(f"config 4 must launch {on} and nothing else: "
+                             f"{launches}")
+    if not (torch.isfinite(ldr).all() and ldr.min() >= 0 and ldr.max() <= 1
+            and torch.isfinite(hdr).all() and min(rays) > 0):
+        raise AssertionError("config 4: ldr not finite in [0, 1], hdr not "
+                             "finite or no rays")
+    if ldr.shape != (FLY_W * FLY_H, 3):
+        raise AssertionError(f"config 4: ldr is {tuple(ldr.shape)}")
+
+    # the last changed-instance refit against a full one
+    tf = wobble(frames - 1)
+    full = refit.update_instances(scene0, tf)
+    gaps = {}
+    for name in ("tri_planes", "chunk_aabb", "tri_table", "bvh_rec",
+                 "inst_transform", "inst_normal_mat"):
+        gaps[name] = float((getattr(scene, name)
+                            - getattr(full, name)).abs().max())
+    if not max(gaps.values()) <= REFIT_ATOL:
+        raise AssertionError(f"config 4: the changed refit differs from the "
+                             f"full one beyond {REFIT_ATOL}: {gaps}")
+    pairs = _boxes_contain(torch, scene)
+
+    # the refit's device time and kernel launches, from torch.profiler
+    # over REFIT_REPS refits
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(REFIT_REPS):
+            refit.update_instances(scene, tf, changed=(CRYSTAL,))
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    refit_dev_ms = sum(e.self_device_time_total for e in avgs if e.device_type
+                       == torch.autograd.DeviceType.CUDA) / 1e3 / REFIT_REPS
+    refit_launches = sum(e.count for e in avgs if e.key in (
+        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")) \
+        / REFIT_REPS
+    if not (refit_dev_ms > 0 and refit_launches > 0):
+        raise AssertionError("config 4: the profiler saw no refit kernels")
+
+    # K1 / K2 on the refit scene's primary rays against plain, and its
+    # frame with the plain fetch against K7's
+    uniform = renderer.camera_to_device(
+        cam.uniform(FLY_W / FLY_H, 0, scene.num_lights), dev)
+    o, d, po, pd, t_min, t_max = _check_primary(torch, scene, uniform, FLY_W,
+                                                FLY_H, "config 4")
+    n = o.shape[1]
+    fetch_diff, fetch_psnr = _check_fetch(torch, scene, uniform, FLY_W, FLY_H,
+                                          "config 4")
+
+    def k1(s):
+        return trace_api.trace_kernel(s.tri_planes, s.chunk_aabb, o, d,
+                                      t_min, t_max)
+
+    # a repack keeps K1's answers; each winner's row follows its triangle
+    packed = refit.update_instances(scene0, tf, repack=True)
+    order = lbvh.morton_order(full)
+    if not torch.equal(packed.tri_table, full.tri_table[order]):
+        raise AssertionError("config 4: the repacked rows do not follow the "
+                             "Morton order")
+    f_res, p_res = k1(full), k1(packed)
+    hit = f_res["tri"] >= 0
+    if not (torch.equal(p_res["tri"] >= 0, hit) and torch.equal(
+            p_res["t"].view(torch.int32), f_res["t"].view(torch.int32))):
+        raise AssertionError("config 4: the repack changed K1's hit/miss or "
+                             "t")
+    moved = hit & (order[p_res["tri"].clamp(min=0).long()] != f_res["tri"])
+    lanes = torch.nonzero(moved).squeeze(1)
+    if lanes.numel():
+        # a different winner only at an exact-t tie (ids order ties)
+        ids = order[p_res["tri"][lanes].long()]
+        t_other, _ = trace_api.mt_argmin(
+            full.tri_planes[:, :, ids][..., None],
+            V3(*(x[lanes] for x in po)), V3(*(x[lanes] for x in pd)),
+            t_min[lanes], t_max[lanes], t_max[lanes])
+        if not torch.equal(t_other, f_res["t"][lanes]):
+            raise AssertionError(f"config 4: {lanes.numel()} repacked "
+                                 f"winners are other triangles without a "
+                                 f"tie")
+    total = torch.cuda.get_device_properties(0).total_memory
+    per_frame = {k: round(launches[k] / frames, 2) for k in on}
+    print(f"config 4: Cornell {FLY_W}x{FLY_H} fly-through, crystal refit "
+          f"with changed=({CRYSTAL},) each frame, {FLY_TIMED} timed frames: "
+          f"fps_1080p_flythrough_refit {FLY_TIMED / dt:.4f}, "
+          f"{sum(rays) / dt / 1e6:.4f} Mrays/s, {dt / FLY_TIMED * 1e3:.2f} "
+          f"ms/frame; refit a frame: {np.mean(host_ms):.4f} ms of host time "
+          f"({min(host_ms):.4f}-{max(host_ms):.4f}), {refit_dev_ms:.4f} ms of "
+          f"device time in {refit_launches:.0f} kernel launches "
+          f"(torch.profiler, {REFIT_REPS} refits); no host sync in "
+          f"update_instances from frame 1 on; peak memory "
+          f"{peak / 2**30:.2f} GiB of {total / 2**30:.1f} GiB; launches a "
+          f"frame {per_frame} [{card}]", flush=True)
+    print(f"config 4 checks: changed refit against full, max |diff| "
+          f"{max(gaps.values()):.3g} (bound {REFIT_ATOL}; "
+          f"{', '.join(f'{k} {v:.3g}' for k, v in gaps.items())}); "
+          f"{pairs} (box, triangle) pairs contained; K1 equal to plain on "
+          f"{n} primary rays, t bit-equal, K2 occlusion equal; the frame "
+          f"with the plain fetch against K7's: max |diff| {fetch_diff:.3g}, "
+          f"PSNR {fetch_psnr:.2f} dB (floor {VPU_DB}); repack: K1 "
+          f"hit/miss and t bit-equal, rows follow the order, "
+          f"{lanes.numel()} winners moved within exact-t ties", flush=True)
+    return launches, frames
+
+
+def _app_phase(torch, root, dev, card):
+    """Phase 21: first, in this process, K1/K2 on the app's default scene
+    and camera at APP_W x APP_H against plain, and its first frame with
+    the plain fetch against K7's; then `python -m tpu_raytracer_torch` at
+    APP_W x APP_H for APP_FRAMES frames (no preview, stdin not a tty, an
+    auto-screenshot at APP_SPP samples, a checkpoint), then APP_RESUME
+    more frames resumed from its checkpoint. Returns the first run's
+    launches."""
+    from tpu_raytracer_torch.app import interactive
+    from tpu_raytracer_torch.render import camera, checkpoint, renderer
+    from tpu_raytracer_torch.utils import config, png
+
+    cfg = config.RenderConfig()
+    scene = interactive.load_scene(cfg.scene, dev)
+    uniform = renderer.camera_to_device(camera.CameraController().uniform(
+        APP_W / APP_H, 0, scene.num_lights), dev)
+    _check_primary(torch, scene, uniform, APP_W, APP_H, "app")
+    fetch_diff, fetch_psnr = _check_fetch(torch, scene, uniform, APP_W, APP_H,
+                                          "app")
+    print(f"app checks: the default scene ({cfg.scene}) at {APP_W}x{APP_H}: "
+          f"K1 equal to plain on {APP_W * APP_H} primary rays, t bit-equal, "
+          f"K2 occlusion equal; the first frame with the plain fetch against "
+          f"K7's: max |diff| {fetch_diff:.3g}, PSNR {fetch_psnr:.2f} dB "
+          f"(floor {VPU_DB})", flush=True)
+    del scene
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, out = os.path.join(tmp, "app.npz"), os.path.join(tmp, "shots")
+
+        def app(frames):
+            t0 = time.time()
+            proc = subprocess.run(
+                [sys.executable, "-m", "tpu_raytracer_torch",
+                 f"--scale={APP_W}x{APP_H}", "--max-frames", str(frames),
+                 "--no-preview", "--target-spp", str(APP_SPP),
+                 "--checkpoint", ck, "--out-dir", out],
+                cwd=root, stdin=subprocess.DEVNULL, capture_output=True,
+                text=True, timeout=600)
+            if proc.returncode:
+                raise AssertionError(f"the app exited {proc.returncode}: "
+                                     f"{proc.stderr[-3000:]}")
+            lines = proc.stdout.strip().splitlines()
+            return lines, json.loads(lines[-1]), time.time() - t0
+
+        lines, tel, wall = app(APP_FRAMES)
+        shots = os.listdir(out)
+        if len(shots) != 1:
+            raise AssertionError(f"the app wrote {shots}, not one PNG")
+        with open(os.path.join(out, shots[0]), "rb") as fh:
+            shape = png.decode(fh.read()).shape
+        if shape != (APP_H, APP_W, 4):
+            raise AssertionError(f"the app's PNG decodes to {shape}")
+        frame_count = checkpoint.load(ck)[1]
+        launches = tel["launches"]
+        on = ("closest_hit", "any_hit", "table_gather")
+        if not (frame_count == APP_FRAMES == tel["frames"]
+                and min(launches[k] for k in on) > 0 and "fps" in tel):
+            raise AssertionError(f"the app: checkpoint frame_count "
+                                 f"{frame_count}, telemetry {tel}")
+        r_lines, r_tel, r_wall = app(APP_RESUME)
+        resumed = f"resumed from {ck} at frame {APP_FRAMES}"
+        if resumed not in r_lines or (checkpoint.load(ck)[1]
+                                      != APP_FRAMES + APP_RESUME):
+            raise AssertionError(f"the app did not resume at frame "
+                                 f"{APP_FRAMES}: {r_lines}")
+    print(f"app: python -m tpu_raytracer_torch --scale={APP_W}x{APP_H}, "
+          f"{APP_FRAMES} frames in {wall:.2f} s of wall time (process "
+          f"included): fps {tel['fps']:.4f} and {tel['mrays_per_s']:.4f} "
+          f"Mrays/s from its FrameStats (frames 2-{APP_FRAMES}); PNG {shape} read back; checkpoint frame_count "
+          f"{frame_count}; resumed at frame {APP_FRAMES} for {APP_RESUME} "
+          f"frames ({r_wall:.2f} s); launches {launches} [{card}]",
+          flush=True)
     return launches
 
 
@@ -1444,6 +1824,12 @@ def main() -> int:
     s_launches = _screenshot_phase(torch, scene, dev, card, SHOT_W, SHOT_H,
                                    SHOT_FRAMES)
 
+    # 20. config 4: the 1080p fly-through with the crystal refit each frame
+    f_launches, f_frames = _flythrough_phase(torch, dev, card)
+
+    # 21. the app, its screenshot, checkpoint and resume
+    _app_phase(torch, root, dev, card)
+
     n = TIMED_RAYS[-1]
 
     def entry(name, src, line, launched, err, times, bound):
@@ -1467,12 +1853,17 @@ def main() -> int:
            for m in ("vpu", "mxu3", "mxuw8", "incull")},
         "golden mxu3": (ml_launches, 8),
         "config 1": (p_launches, PROGRESSIVE_FRAMES),
-        "config 5": (s_launches, SHOT_FRAMES)}
+        "config 5": (s_launches, SHOT_FRAMES),
+        "config 4": (f_launches, f_frames)}
+    config4 = {k: {"config 4": f_launches[k] / f_frames}
+               for k in ("closest_hit", "any_hit")}
     print(json.dumps({"kernels": [
-        entry("closest_hit", "trace.cu", 392, launches["closest_hit"],
-              k1_err, timings[n][:2], k1_bound),
-        entry("any_hit", "trace.cu", 611, launches["any_hit"], k2_err,
-              timings[n][2:], k2_bound),
+        {**entry("closest_hit", "trace.cu", 392, launches["closest_hit"],
+                 k1_err, timings[n][:2], k1_bound),
+         "launches_per_frame": config4["closest_hit"]},
+        {**entry("any_hit", "trace.cu", 611, launches["any_hit"], k2_err,
+                 timings[n][2:], k2_bound),
+         "launches_per_frame": config4["any_hit"]},
         entry("inst_closest_hit", "trace_inst.cu", 1916,
               g_launches["inst_closest_hit"], k4_err, k4_times[:2],
               k4_bound),

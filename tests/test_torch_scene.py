@@ -114,7 +114,14 @@ def test_import_leaves_jax_out():
             "tpu_raytracer_torch.models.scenes, tpu_raytracer_torch.convert, "
             "tpu_raytracer_torch.ops.table_gather, "
             "tpu_raytracer_torch.app.screenshot, "
-            "tpu_raytracer_torch.utils.image;"
+            "tpu_raytracer_torch.utils.image, "
+            "tpu_raytracer_torch.ops.refit, tpu_raytracer_torch.ops.lbvh, "
+            "tpu_raytracer_torch.app.interactive, "
+            "tpu_raytracer_torch.app.preview, "
+            "tpu_raytracer_torch.render.checkpoint, "
+            "tpu_raytracer_torch.utils.config, "
+            "tpu_raytracer_torch.utils.profiling, "
+            "tpu_raytracer_torch.__main__;"
             " bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'tpu_raytracer.'))"
             " or m == 'tpu_raytracer'];"

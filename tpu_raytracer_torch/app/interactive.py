@@ -1,0 +1,283 @@
+"""Interactive render loop: the reference app's event loop
+(`tpu_raytracer/app/interactive.py`), on one torch device.
+
+Replicates main.rs / state.rs behaviour headlessly (terminal keys instead
+of winit):
+  - continuous rendering with per-frame dt (main.rs:97 poll mode),
+  - WASD move / arrow rotate / Space up / Z down (camera.rs:58-111; Z
+    stands in for LShift - terminals can't see modifier state),
+  - J toggles pause (state.rs:133-135), K queues an async screenshot
+    (state.rs:136-138), Q quits, keys 0-4 switch the debug G-buffer
+    visualization (renderer.rs:407-508),
+  - camera motion resets the accumulation counter (state.rs:151-152),
+  - fps / resolution / accumulated-sample telemetry, printed where the
+    reference updates the window title (main.rs:81-95),
+  - auto-screenshot when the accumulation counter reaches target_spp
+    (state.rs:206-215), via the async saver thread,
+  - checkpoint save on exit and resume on start (--checkpoint).
+
+Every frame renders as one frame on one device, 3840x2160 included;
+row bands over several devices (--tiles) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+import select
+import sys
+import time
+
+import numpy as np
+import torch
+
+from ..models import scenes as scene_catalog
+from ..ops import gbuffer as gbuffer_ops
+from ..ops import trace_api
+from ..ops.post import resolve_tonemap
+from ..render import camera as camera_mod
+from ..render import checkpoint, pipeline, renderer
+from ..utils.config import RenderConfig
+from ..utils.math3d import rotation_x, scale, translation
+from ..utils.profiling import FrameStats
+from .screenshot import ScreenshotSaver, denoised_screenshot
+
+# the reference's scenes whose assets the port does not generate yet
+# (ROADMAP slice 15: the procedural glTF stand-ins)
+UNPORTED_SCENES = ("avocado", "helmet", "vrm", "truffle")
+
+
+def load_scene(name: str, device):
+    catalog = {
+        "cornell": scene_catalog.create_cornell_box,
+        "cornell_diffuse": scene_catalog.create_cornell_box_diffuse,
+        "restir": scene_catalog.create_restir_scene,
+        "bunny": scene_catalog.create_bunny_scene,
+        "knot": scene_catalog.create_dense_knot_scene,
+        "gallery": scene_catalog.create_instancing_gallery_scene,
+    }
+    if name in catalog:
+        return catalog[name](device)
+    if name in UNPORTED_SCENES:
+        raise ValueError(f"scene '{name}' needs the procedural glTF "
+                         f"stand-ins, not ported yet (ROADMAP slice 15)")
+    if name.endswith((".gltf", ".glb")):
+        # the reference's create_gltf_scene defaults (scenes.py:182-200)
+        return scene_catalog.create_gltf_scene(
+            device, name, model_transform=translation([0.0, -0.5, 0.0])
+            @ scale(1.0),
+            light_transform=(translation([0, 5.0, 0]) @ rotation_x(np.pi)
+                             @ scale(1.0)))
+    raise ValueError(f"unknown scene '{name}'")
+
+
+def debug_view(gb, hdr, mode: int, width: int, height: int):
+    """G-buffer visualization modes (renderer.rs:407-508).
+
+    1: position (float, through tonemap like the reference's post copy),
+    2: normal-texture contents (oct.x, oct.y, uv.x), 3: albedo (direct),
+    4: motion. Returns [n,3] display-ready values.
+    """
+    if mode == 1:
+        return resolve_tonemap(torch.abs(gb["pos"]))
+    if mode == 2:
+        return resolve_tonemap(torch.abs(torch.cat(
+            [gb["oct_normal"], gb["uv"][:, :1]], dim=-1)))
+    if mode == 4:
+        m = torch.abs(gb["motion"]) * 10.0
+        return resolve_tonemap(torch.cat([m, m.new_zeros((m.shape[0], 1))],
+                                         dim=-1))
+    return gb["albedo"]   # 3: albedo, skips post entirely (:486-508)
+
+
+class _RawTerminal:
+    """Non-blocking single-key reads; no-op when stdin isn't a tty."""
+
+    def __init__(self):
+        self.enabled = sys.stdin.isatty()
+        self._saved = None
+
+    def __enter__(self):
+        if self.enabled:
+            import termios
+            import tty
+
+            self._saved = termios.tcgetattr(sys.stdin)
+            tty.setcbreak(sys.stdin.fileno())
+        return self
+
+    def __exit__(self, *exc):
+        if self._saved is not None:
+            import termios
+
+            termios.tcsetattr(sys.stdin, termios.TCSADRAIN, self._saved)
+
+    def poll_keys(self) -> list:
+        keys = []
+        if not self.enabled:
+            return keys
+        while select.select([sys.stdin], [], [], 0)[0]:
+            ch = sys.stdin.read(1)
+            if ch == "\x1b":  # arrow escape sequences
+                seq = sys.stdin.read(2) if select.select(
+                    [sys.stdin], [], [], 0)[0] else ""
+                keys.append({"[A": "up", "[B": "down", "[C": "right",
+                             "[D": "left"}.get(seq, "esc"))
+            else:
+                keys.append(ch.lower())
+        return keys
+
+
+def _device(name: str) -> torch.device:
+    """The device the app renders on; a CUDA device that is not there
+    raises (the app never falls back to the CPU)."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: no CUDA device; pass "
+                           f"--device cpu to render on the CPU")
+    return dev
+
+
+def run(cfg: RenderConfig) -> dict:
+    """Run the interactive loop; returns the telemetry (FrameStats over
+    the last 60 frames), the frames rendered and the kernel launches of
+    the run."""
+    if cfg.tiles > 1:
+        raise ValueError(f"--tiles {cfg.tiles}: row bands over several "
+                         f"devices are not ported yet (ROADMAP slice 17)")
+    dev = _device(cfg.device)
+    w, h = cfg.width, cfg.height
+    scene = load_scene(cfg.scene, dev)
+    cam = camera_mod.CameraController()
+    state = pipeline.init_state(w, h, dev)
+    frame_count = 0
+
+    if cfg.checkpoint and os.path.exists(cfg.checkpoint):
+        st, frame_count, cam_state = checkpoint.load(cfg.checkpoint)
+        state = {k: torch.as_tensor(v, device=dev) for k, v in st.items()}
+        cam.position = cam_state["position"]
+        cam.yaw, cam.pitch = cam_state["yaw"], cam_state["pitch"]
+        cam.prev_view_proj = cam_state["prev_view_proj"]
+        print(f"resumed from {cfg.checkpoint} at frame {frame_count}")
+
+    saver = ScreenshotSaver(cfg.out_dir)
+    presenter = None
+    if cfg.preview and sys.stdout.isatty():
+        from .preview import TerminalPresenter
+
+        presenter = TerminalPresenter(cols=cfg.preview_cols)
+    paused = False
+    debug_mode = cfg.debug_mode
+    screenshot_requested = False
+    auto_shot_done = False
+    total_frames = 0
+    stats = FrameStats()       # the first frame (kernel builds) untimed
+    last_print = last_t = time.time()
+    status_line = ""
+    last_present = 0.0
+    trace_api.reset_launch_counts()
+
+    with _RawTerminal() as term:
+        while cfg.max_frames == 0 or total_frames < cfg.max_frames:
+            now = time.time()
+            dt = now - last_t
+            last_t = now
+
+            for k in term.poll_keys():
+                if k == "q":
+                    cfg.max_frames = total_frames  # exit
+                elif k == "j":
+                    paused = not paused            # state.rs:133-135
+                elif k == "k":
+                    screenshot_requested = True    # state.rs:136-138
+                elif k in "01234":
+                    debug_mode = int(k)
+                elif k in ("w", "a", "s", "d", "left", "right", "up", "down",
+                           " ", "z"):
+                    cam.press({" ": "space", "z": "shift"}.get(k, k))
+
+            if paused and not screenshot_requested:
+                # state.rs:147-149: skip everything while paused
+                time.sleep(0.01)
+                for k in list(cam.keys):
+                    cam.release(k)
+                continue
+
+            moved = cam.update(dt if cam.keys else 0.0)
+            for k in list(cam.keys):
+                cam.release(k)
+            if moved:
+                frame_count = 0                    # state.rs:151-152
+                auto_shot_done = False
+
+            uniform = renderer.camera_to_device(
+                cam.uniform(w / h, frame_count, scene.num_lights), dev)
+            # dedup eligibility: same camera as last frame, scene untouched
+            ldr, hdr, state, aux = pipeline.render_frame(
+                scene, uniform, frame_count, state, w, h,
+                static_ok=frame_count > 0)
+
+            if debug_mode != 0:
+                gb = gbuffer_ops.unpack_gb(state["gb"])
+                ldr = debug_view(gb, hdr, debug_mode, w, h)
+
+            frame_count += 1
+            total_frames += 1
+            stats.frame(aux["rays"])
+
+            # live display (blit/present analogue), throttled to spare the
+            # host<->device link at high frame rates
+            if presenter is not None and now - last_present >= 0.25:
+                img = torch.clamp(ldr, 0.0, 1.0).reshape(h, w, 3)
+                presenter.present(img.cpu().numpy(), status_line)
+                last_present = now
+
+            hit_target = (cfg.target_spp > 0 and frame_count >= cfg.target_spp
+                          and not auto_shot_done)
+            if screenshot_requested or hit_target:
+                if cfg.denoise:
+                    img = denoised_screenshot(state["gb"], hdr, w, h,
+                                              cfg.denoise_iterations)
+                else:
+                    img = torch.clamp(ldr.reshape(h, w, 3), 0.0, 1.0) ** 2.2
+                saver.submit(img)
+                screenshot_requested = False
+                if hit_target:
+                    auto_shot_done = True
+
+            if now - last_print >= 1.0:           # main.rs:81-95 telemetry
+                last_print = now
+                line = (f"FPS {stats.fps:6.2f} | {w}x{h} | samples "
+                        f"{frame_count} | {stats.mrays_per_s:.1f} Mrays/s"
+                        f" | mode {debug_mode}{' | PAUSED' if paused else ''}")
+                status_line = line
+                if presenter is None:
+                    print(line, flush=True)
+
+    if cfg.checkpoint:
+        checkpoint.save(cfg.checkpoint, state, frame_count,
+                        {"position": cam.position, "yaw": cam.yaw,
+                         "pitch": cam.pitch,
+                         "prev_view_proj": cam.prev_view_proj})
+        print(f"checkpointed to {cfg.checkpoint}")
+    saver.flush()
+    return {"fps": stats.fps, "mrays_per_s": stats.mrays_per_s,
+            "res": f"{w}x{h}", "samples": frame_count,
+            "frames": total_frames, "launches": dict(trace_api.LAUNCHES)}
+
+
+def letterbox(img: np.ndarray, out_w: int, out_h: int,
+              clear=(0.0, 0.0, 1.0)) -> np.ndarray:
+    """Aspect-correct letterboxed blit (blit.wgsl + renderer.rs:381-397;
+    blue clear color from blit.rs:119), resized nearest-neighbour."""
+    h, w = img.shape[:2]
+    s = min(out_w / w, out_h / h)
+    nw, nh = int(w * s), int(h * s)
+    u8 = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+    ys = np.minimum(((np.arange(nh) + 0.5) * h / nh).astype(np.int64), h - 1)
+    xs = np.minimum(((np.arange(nw) + 0.5) * w / nw).astype(np.int64), w - 1)
+    out = np.empty((out_h, out_w, 3), np.uint8)
+    out[:] = (np.asarray(clear) * 255).astype(np.uint8)
+    y0 = (out_h - nh) // 2
+    x0 = (out_w - nw) // 2
+    out[y0:y0 + nh, x0:x0 + nw] = u8[ys][:, xs, :3]
+    return out

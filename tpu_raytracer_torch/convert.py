@@ -18,7 +18,12 @@ from .scene.resources import CompiledScene
 _TABLES = ("tri_planes", "chunk_aabb", "tri_table", "mat_table",
            "light_table", "bvh_rec", "bvh_skip", "bvh_tri", "inst_table",
            "inst_aabb", "obj_group_aabb", "inst_group_span", "unit_inst",
-           "unit_group")
+           "unit_group",
+           # the refit's tables (ops/refit.py)
+           "bvh_left", "bvh_right", "bvh_depth", "bvh_tri_rows",
+           "tri_table_local", "tri_inst", "tri_prim", "tri_local",
+           "local_v0", "local_e1", "local_e2", "inst_mesh_id",
+           "inst_transform", "inst_normal_mat")
 
 
 def _tensor(x, device, dtype=None):
@@ -35,8 +40,10 @@ def scene_from_reference(ref, device, kernel: str = "mxuf2",
     fields are numpy -> this package's CompiledScene on `device`, under
     the trace-kernel mode (kernel, incull) with the coefficient table K6
     reads built for it. The reference's 12-wide quad-packed texels
-    [L, H, W, 12] keep their first texel, [..., :3]. Fields the port does
-    not read (coef48, the refit tables) stay behind."""
+    [L, H, W, 12] keep their first texel, [..., :3]. The refit's tables
+    come across with the rest; the fields the port does not read
+    (coef48, whose place coef48_t takes, and inst_affine_inv, which
+    inst_table holds) stay behind."""
     tables = {k: _tensor(getattr(ref, k), device) for k in _TABLES}
     return CompiledScene(
         **tables,
@@ -46,6 +53,7 @@ def scene_from_reference(ref, device, kernel: str = "mxuf2",
         data_tex=_tensor(np.asarray(ref.data_tex)[..., :3], device),
         num_lights=int(ref.num_lights),
         num_instances=int(ref.num_instances),
+        bvh_max_depth=int(ref.bvh_max_depth),
         tex_channels=frozenset(ref.tex_channels),
         instanced=bool(ref.instanced),
         kernel=check_mode(kernel),

@@ -3,11 +3,12 @@
 Port of `tpu_raytracer/scene/builder.py`. A flattened build moves every
 instance's triangles to world space in one soup, reordered into BVH-DFS
 leaf order (spatially tight 128-triangle chunks, the kernels' cull
-granularity). An instanced build keeps one object-space block per mesh
-and each instance as a transform (`_build_instanced`). Either way
-materials, lights and textures become tables. Host work is numpy,
-exactly as in the reference; `build` moves the result onto a torch
-device.
+granularity), and keeps the object-space triangles, shading rows and
+instance transforms the refit reads (ops/refit.py). An instanced build
+keeps one object-space block per mesh and each instance as a transform
+(`_build_instanced`). Either way materials, lights and textures become
+tables. Host work is numpy, exactly as in the reference; `build` moves
+the result onto a torch device.
 """
 
 from __future__ import annotations
@@ -245,9 +246,11 @@ class SceneBuilder:
         # 1. per-mesh local triangles
         local_v0, local_e1, local_e2, mesh_tri_off = self._local_triangles()
 
-        # 2. flatten instances to a world-space soup
+        # 2. flatten instances to a world-space soup; per triangle its
+        # instance, primitive and row of local_* (for the refit)
         world_v0, world_e1, world_e2 = [], [], []
-        for mesh_id, _, tf in self.instances:
+        tri_inst, tri_prim, tri_local, inst_nm = [], [], [], []
+        for inst_id, (mesh_id, _, tf) in enumerate(self.instances):
             nt = self.meshes[mesh_id].num_triangles
             a, t = tf[:3, :3], tf[:3, 3]
             lo = mesh_tri_off[mesh_id]
@@ -258,30 +261,45 @@ class SceneBuilder:
             world_v0.append(wv0)
             world_e1.append(wv1 - wv0)
             world_e2.append(wv2 - wv0)
+            tri_inst.append(np.full(nt, inst_id, np.int32))
+            tri_prim.append(np.arange(nt, dtype=np.int32))
+            tri_local.append(np.arange(lo, lo + nt, dtype=np.int32))
+            inst_nm.append(np.linalg.inv(a).T.astype(np.float32))
         world_v0 = _cat(world_v0, 3)
         world_e1 = _cat(world_e1, 3)
         world_e2 = _cat(world_e2, 3)
+        tri_inst, tri_prim, tri_local = (_cat(x, 0).astype(np.int32)
+                                         for x in (tri_inst, tri_prim,
+                                                   tri_local))
         t_total = world_v0.shape[0]
 
-        # 2b. per-triangle shading rows; normals and tangents stay
-        # unnormalized so normalize(interp(..)) matches the reference's
+        # 2b. per-triangle shading rows, in world space and (for the refit)
+        # object space; normals and tangents stay unnormalized so
+        # normalize(interp(..)) matches the reference's
         # transform-after-interpolate order (restir.wgsl:422-431)
         tri_table = np.zeros((max(t_total, 1), 26), np.float32)
+        tri_table_local = np.zeros_like(tri_table)
         row = 0
-        for mesh_id, mat_id, tf in self.instances:
+        for (mesh_id, mat_id, _), nm in zip(self.instances, inst_nm):
             mesh = self.meshes[mesh_id]
             nt = mesh.num_triangles
-            nm = np.linalg.inv(tf[:3, :3]).T.astype(np.float32)
             tri = mesh.indices.reshape(-1, 3).astype(np.int64)
-            n_world = _oct_decode_np(mesh.oct_normals) @ nm.T
-            t_world = mesh.tangents[:, :3] @ nm.T
+            n_local = _oct_decode_np(mesh.oct_normals)
+            t_local = mesh.tangents[:, :3]
+            n_world = n_local @ nm.T
+            t_world = t_local @ nm.T
             blk = tri_table[row:row + nt]
+            blk_l = tri_table_local[row:row + nt]
             for k in range(3):
                 blk[:, k * 3:k * 3 + 3] = n_world[tri[:, k]]
+                blk_l[:, k * 3:k * 3 + 3] = n_local[tri[:, k]]
                 blk[:, 9 + k * 2:11 + k * 2] = mesh.uvs[tri[:, k]]
+                blk_l[:, 9 + k * 2:11 + k * 2] = mesh.uvs[tri[:, k]]
                 blk[:, 15 + k * 3:18 + k * 3] = t_world[tri[:, k]]
+                blk_l[:, 15 + k * 3:18 + k * 3] = t_local[tri[:, k]]
             blk[:, 24] = mesh.tangents[tri[:, 0], 3]   # sign from v0
             blk[:, 25] = mat_id
+            blk_l[:, 24:26] = blk[:, 24:26]
             row += nt
 
         # 3. BVH over the soup; reorder every per-triangle array into its
@@ -297,7 +315,10 @@ class SceneBuilder:
             inv[order] = np.arange(t_total, dtype=np.int64)
             world_v0, world_e1, world_e2 = (
                 world_v0[order], world_e1[order], world_e2[order])
+            tri_inst, tri_prim, tri_local = (
+                tri_inst[order], tri_prim[order], tri_local[order])
             tri_table = tri_table[order]
+            tri_table_local = tri_table_local[order]
             tree.tri_id[tree.skip < 0] = inv[order].astype(np.int32)
         bvh_ops.fill_triangles(tree, world_v0, world_e1, world_e2)
         tri_planes, chunk_aabb = pack_triangles(world_v0, world_e1, world_e2)
@@ -309,15 +330,33 @@ class SceneBuilder:
                                             np.float32))
         tri_table = np.concatenate([tri_table, geo], axis=1)
 
+        # stream row of each triangle's record, where the refit writes it
+        bvh_tri_rows = np.zeros((max(t_total, 1),), np.int32)
+        tri_rows = np.where(tree.skip < 0)[0]
+        if t_total > 0:
+            bvh_tri_rows[tree.tri_id[tri_rows]] = tri_rows
+
         f, i = np.float32, np.int32
         return self._compile(
-            device, instanced=False, mode=mode,
+            device, instanced=False, mode=mode, bvh_max_depth=tree.max_depth,
             tri_planes=tri_planes,
             chunk_aabb=chunk_aabb,
             tri_table=tri_table.astype(f),
             bvh_rec=tree.rec.astype(f),
             bvh_skip=tree.skip.astype(i),
             bvh_tri=tree.tri_id.astype(i),
+            bvh_left=tree.box_left.astype(i),
+            bvh_right=tree.box_right.astype(i),
+            bvh_depth=tree.depth.astype(i),
+            bvh_tri_rows=bvh_tri_rows,
+            tri_table_local=tri_table_local,
+            tri_inst=tri_inst,
+            tri_prim=tri_prim,
+            tri_local=tri_local,
+            local_v0=local_v0.astype(f),
+            local_e1=local_e1.astype(f),
+            local_e2=local_e2.astype(f),
+            **self._instance_fields(inst_nm),
             # the instanced fields' empty forms (builder.py:774-786)
             inst_table=np.zeros((0, INST_COLS), f),
             inst_aabb=np.zeros((0, 8), f),
@@ -325,6 +364,19 @@ class SceneBuilder:
             inst_group_span=np.zeros((2, 0), i),
             unit_inst=np.zeros((0,), i),
             unit_group=np.zeros((0,), i))
+
+    def _instance_fields(self, normal_mats) -> dict:
+        """Per instance: its mesh, its object->world affine [I, 3, 4] and
+        the normal matrices `normal_mats` ([3, 3] f32 each), stacked."""
+        f = np.float32
+        return dict(
+            inst_mesh_id=np.asarray([m for m, _, _ in self.instances],
+                                    np.int32),
+            inst_transform=(np.stack([tf[:3, :4] for _, _, tf in
+                                      self.instances]).astype(f)
+                            if self.instances else np.zeros((0, 3, 4), f)),
+            inst_normal_mat=(np.stack(normal_mats).astype(f) if normal_mats
+                             else np.zeros((0, 3, 3), f)))
 
     def _build_instanced(self, device, mode: dict) -> CompiledScene:
         """Two-level compile (builder.py:567-771 of the reference): one
@@ -356,6 +408,8 @@ class SceneBuilder:
         # 2. object-space shading rows [TpO, 35] at the padded offsets
         # (object tri id = column of obj_planes); col 25 stays unused
         tri_table = np.zeros((obj_planes.shape[2], 35), f)
+        tri_prim = np.zeros((obj_planes.shape[2],), i)
+        tri_local = np.zeros((obj_planes.shape[2],), i)
         for m in used:
             off = int(spans[0, slot[m]]) * GROUP
             lo = mesh_tri_off[m]
@@ -372,17 +426,20 @@ class SceneBuilder:
             blk[:, 26:29] = local_v0[lo:lo + nt]
             blk[:, 29:32] = local_e1[lo:lo + nt]
             blk[:, 32:35] = local_e2[lo:lo + nt]
+            tri_prim[off:off + nt] = np.arange(nt, dtype=i)
+            tri_local[off:off + nt] = np.arange(lo, lo + nt, dtype=i)
 
         # 3. per-instance rows, in f64 and stored as f32
         n_inst = len(self.instances)
         inst_table = np.zeros((max(n_inst, 1), INST_COLS), f)
         inst_aabb = np.zeros((max(n_inst, 1), 8), f)
         inst_span = np.zeros((2, max(n_inst, 1)), i)
-        unit_inst, unit_group = [], []
+        unit_inst, unit_group, normal_mats = [], [], []
         for inst_id, (mesh_id, mat_id, tf) in enumerate(self.instances):
             a = tf[:3, :3].astype(np.float64)
             t = tf[:3, 3].astype(np.float64)
             a_inv = np.linalg.inv(a)
+            normal_mats.append(a_inv.T)
             inst_table[inst_id, 0:9] = a_inv.reshape(-1)
             inst_table[inst_id, 9:12] = -(a_inv @ t)
             # world n = inv(A)^T @ object n
@@ -400,13 +457,25 @@ class SceneBuilder:
             unit_group.extend(range(base_g, base_g + ng))
 
         return self._compile(
-            device, instanced=True, mode=mode,
+            device, instanced=True, mode=mode, bvh_max_depth=0,
             tri_planes=obj_planes,
             chunk_aabb=np.zeros((1, 8), f),      # flattened only
             tri_table=tri_table,
             bvh_rec=np.zeros((1, 12), f),        # no world BVH: culling
             bvh_skip=np.full((1,), -1, i),       # is per instance and
             bvh_tri=np.zeros((1,), i),           # per object group
+            bvh_left=np.zeros((1,), i),
+            bvh_right=np.zeros((1,), i),
+            bvh_depth=np.zeros((1,), i),
+            bvh_tri_rows=np.zeros((1,), i),
+            tri_table_local=np.zeros((1, 26), f),
+            tri_inst=np.zeros((1,), i),
+            tri_prim=tri_prim,
+            tri_local=tri_local,
+            local_v0=local_v0.astype(f),
+            local_e1=local_e1.astype(f),
+            local_e2=local_e2.astype(f),
+            **self._instance_fields(normal_mats),
             inst_table=inst_table,
             inst_aabb=inst_aabb,
             obj_group_aabb=obj_gaabb,
@@ -415,7 +484,7 @@ class SceneBuilder:
             unit_group=np.asarray(unit_group, i))
 
     def _compile(self, device, instanced: bool, mode: dict,
-                 **arrays) -> CompiledScene:
+                 bvh_max_depth: int, **arrays) -> CompiledScene:
         """Move the geometry `arrays` and the material, light and texture
         tables onto `device`, with the trace-kernel `mode`."""
         materials, mat_table, tex_channels, lights, light_table = \
@@ -441,6 +510,7 @@ class SceneBuilder:
             data_tex=texels(self.data_textures),
             num_lights=len(self.lights),
             num_instances=len(self.instances),
+            bvh_max_depth=int(bvh_max_depth),
             tex_channels=tex_channels,
             instanced=instanced,
             **mode,

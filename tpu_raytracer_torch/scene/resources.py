@@ -42,6 +42,30 @@ class CompiledScene:
     bvh_rec: torch.Tensor
     bvh_skip: torch.Tensor
     bvh_tri: torch.Tensor
+    # --- refit (ops/refit.py); flattened unless noted ---
+    # box records' children and depth [S] i32 (-1 where none), and the
+    # stream row of each triangle's record [T] i32
+    bvh_left: torch.Tensor
+    bvh_right: torch.Tensor
+    bvh_depth: torch.Tensor
+    bvh_tri_rows: torch.Tensor
+    # tri_table's columns 0:26 in object space [T, 26]
+    tri_table_local: torch.Tensor
+    # per triangle [T] i32: instance, primitive within its mesh, row of
+    # local_*; instanced scenes keep tri_prim and tri_local per object
+    # slot [Tp] and tri_inst as [1] zeros
+    tri_inst: torch.Tensor
+    tri_prim: torch.Tensor
+    tri_local: torch.Tensor
+    # object-space triangles of every mesh, concatenated [TL, 3] f32
+    local_v0: torch.Tensor
+    local_e1: torch.Tensor
+    local_e2: torch.Tensor
+    # per instance: mesh [I] i32, object->world affine [I, 3, 4] and
+    # normal matrix inv(A)^T [I, 3, 3] (flattened and instanced)
+    inst_mesh_id: torch.Tensor
+    inst_transform: torch.Tensor
+    inst_normal_mat: torch.Tensor
     # --- two-level instanced intersector (empty when flattened) ---
     # inst_table [I, 23]: world->object A^-1 (9, row-major) | b (3) |
     # normal matrix (9) | det sign | mat_id
@@ -59,6 +83,8 @@ class CompiledScene:
     data_tex: torch.Tensor
     num_lights: int
     num_instances: int
+    # box levels `_refit_boxes` sweeps (0 when instanced)
+    bvh_max_depth: int
     # texture channels present anywhere in the scene; sampling for an
     # absent channel is skipped ("color", "normal", "occlusion",
     # "emissive", "metallic_roughness")

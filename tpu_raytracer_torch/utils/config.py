@@ -1,0 +1,73 @@
+"""Render configuration and command-line flags
+(`tpu_raytracer/utils/config.py`).
+
+The reference app's one flag, `--scale=WxH` (main.rs:107-122), parses as
+it does there; the rest is a dataclass and argparse. `--device` picks the
+torch device the app renders on: `cuda:0` unless the caller asks for the
+CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+
+@dataclasses.dataclass
+class RenderConfig:
+    scene: str = "cornell"          # models/scenes.py name or a .gltf path
+    width: int = 1280               # reference default 1280x720 (main.rs:122)
+    height: int = 720
+    target_spp: int = 0             # auto-screenshot at N accumulated frames
+                                    # (state.rs:206-215 TARGET_SPP; 0 = off)
+    denoise: bool = False           # screenshot denoiser (ai-denoise feature)
+    denoise_iterations: int = 4
+    debug_mode: int = 0             # 0 shaded | 1 pos | 2 normal | 3 albedo
+                                    # | 4 motion (renderer.rs:407-508)
+    tiles: int = 1                  # row bands over devices (1 = one device)
+    checkpoint: str = ""            # resume path ("" = fresh)
+    out_dir: str = "output"
+    max_frames: int = 0             # 0 = run until quit
+    preview: bool = True            # live ANSI frame display (blit analogue;
+                                    # off when stdout is not a tty)
+    preview_cols: int = 100
+    device: str = "cuda:0"          # torch device; "cpu" only when asked
+
+
+def parse_args(argv=None) -> RenderConfig:
+    cfg = RenderConfig()
+    ap = argparse.ArgumentParser(description="tpu_raytracer_torch")
+    ap.add_argument("--scale", type=str, default=None,
+                    help="WxH render resolution (reference flag)")
+    ap.add_argument("--scene", type=str, default=cfg.scene,
+                    help="cornell, cornell_diffuse, restir, bunny, knot, "
+                         "gallery or a .gltf/.glb path")
+    ap.add_argument("--target-spp", type=int, default=cfg.target_spp)
+    ap.add_argument("--denoise", action="store_true")
+    ap.add_argument("--denoise-iterations", type=int,
+                    default=cfg.denoise_iterations)
+    ap.add_argument("--debug-mode", type=int, default=cfg.debug_mode)
+    ap.add_argument("--tiles", type=int, default=cfg.tiles)
+    ap.add_argument("--checkpoint", type=str, default=cfg.checkpoint)
+    ap.add_argument("--out-dir", type=str, default=cfg.out_dir)
+    ap.add_argument("--max-frames", type=int, default=cfg.max_frames)
+    ap.add_argument("--no-preview", dest="preview", action="store_false")
+    ap.add_argument("--preview-cols", type=int, default=cfg.preview_cols)
+    ap.add_argument("--device", type=str, default=cfg.device,
+                    help="torch device (default cuda:0; cpu runs the "
+                         "kernels' plain versions)")
+    args = ap.parse_args(argv)
+
+    if args.scale:
+        # main.rs:107-122: "--scale=WxH", fall back to default on parse error
+        try:
+            w, h = args.scale.lower().split("x")
+            cfg.width, cfg.height = int(w), int(h)
+        except ValueError:
+            print(f"invalid --scale '{args.scale}', using "
+                  f"{cfg.width}x{cfg.height}")
+    for name in ("scene", "target_spp", "denoise", "denoise_iterations",
+                 "debug_mode", "tiles", "checkpoint", "out_dir",
+                 "max_frames", "preview", "preview_cols", "device"):
+        setattr(cfg, name, getattr(args, name))
+    return cfg
