@@ -158,14 +158,28 @@ is non-zero):
                 checkpoint's frame_count 12, K1, K2 and K7 launched; then
                 2 more frames resumed from the checkpoint, starting at
                 frame 12. Prints the app's FrameStats fps and Mrays/s.
-Every frame phase (5, 6, 8, 10, 11, 14, 15, 18, 19, 20) also checks that
+ 22. stand-ins - the procedural glTF stand-ins at their generators'
+                defaults (avocado, helmet, vrm, truffle), each built through
+                interactive.load_scene (the .glb generated if missing, its
+                textures Lanczos-resized, the tables built; host seconds
+                printed), its triangle count asserted (and the truffle's
+                three sphere lights), so a load that fell back to the floor
+                scene fails; K1/K2 on its 512^2 primary rays against plain
+                (as in phase 21); then 2 warm-up + 4 timed ReSTIR frames at
+                512^2: K1, K2 and K7 launched and none of K3-K6, every frame
+                finite and none black (max LDR > 0.01), fps and Mrays/s.
+                Then `python -m tpu_raytracer_torch --scene truffle
+                --scale=1280x720 --max-frames 4 --no-preview` as a
+                subprocess: exit code 0, K1, K2 and K7 in its launches.
+                Prints the phase's wall time.
+Every frame phase (5, 6, 8, 10, 11, 14, 15, 18, 19, 20, 22) also checks that
 K7 launched and prints its launches a frame. Then one JSON line of
 per-kernel results (K1-K6: time, plain time and bound at 524,288 random
 rays; K7: at 524,288 rows of Cornell's tri_table; launches on each
 kernel's frames; K1, K2 and K7 also their launches a frame on config 4's
-frames, `launches_per_frame`), and last the device line {"ok": true,
-"device": {...}}. Without a CUDA device it exits with 1 and prints no
-result.
+and each stand-in's frames, `launches_per_frame`), and last the device
+line {"ok": true, "device": {...}}. Without a CUDA device it exits with 1
+and prints no result.
 
 A kernel's bound is the least time the card could take for the work
 this run's rays need: the ray-triangle tests (MT_FLOPS each, counted from
@@ -239,6 +253,13 @@ REFIT_ATOL = 1e-6
 REFIT_REPS = 5      # refits under torch.profiler for their device time
 # the app (phase 21): the reference app's default size (src/main.rs:122)
 APP_W, APP_H, APP_FRAMES, APP_SPP, APP_RESUME = 1280, 720, 12, 8, 2
+# the procedural glTF stand-ins (phase 22): the app's scene name and the
+# scene's world triangles at the generators' defaults (the asset's, plus
+# the floor and light quads; the truffle: the floor and three sphere
+# lights of 5,120 triangles)
+STANDINS = (("avocado", 12268), ("helmet", 23364), ("vrm", 11908),
+            ("truffle", 23258))
+STANDIN_WARMUP, STANDIN_TIMED, STANDIN_APP_FRAMES = 2, 4, 4
 # K7's index counts: the random sets, the app's, config 4's and config 5's
 # frames
 GATHER_RAYS = (262144, 524288, APP_W * APP_H, FLY_W * FLY_H, 3840 * 2160)
@@ -1129,6 +1150,78 @@ def _app_phase(torch, root, dev, card):
     return launches
 
 
+def _standins_phase(torch, root, dev, card, kernels):
+    """Phase 22: each stand-in scene built through the app's load_scene,
+    checked (triangles, the truffle's lights, K1/K2 on its primary rays)
+    and rendered through _run_frames, launching `kernels` and none of the
+    other trace kernels; then the app on the truffle. Returns {name:
+    (launches, frames)}."""
+    from tpu_raytracer_torch.app import interactive
+    from tpu_raytracer_torch.render import camera, renderer
+
+    t_phase = time.time()
+    flat, others = kernels
+    out = {}
+    for name, want in STANDINS:
+        t0 = time.time()
+        scene = interactive.load_scene(name, dev)
+        torch.cuda.synchronize()
+        build_s = time.time() - t0
+        slots = scene.tri_planes.shape[2]
+        if scene.num_triangles != want or scene.instanced:
+            raise AssertionError(f"{name}: {scene.num_triangles} triangles "
+                                 f"(instanced {scene.instanced}), not the "
+                                 f"{want} of the flat stand-in scene")
+        if name == "truffle":
+            strengths = sorted(scene.light_table[:, 14].tolist())
+            if scene.num_lights != 3 or strengths != [10.0, 40.0, 80.0]:
+                raise AssertionError(f"truffle: {scene.num_lights} lights "
+                                     f"of strengths {strengths}, not the "
+                                     f"studio's 10, 40 and 80")
+        uniform = renderer.camera_to_device(camera.CameraController().uniform(
+            WIDTH / HEIGHT, 0, scene.num_lights), dev)
+        _check_primary(torch, scene, uniform, WIDTH, HEIGHT, name)
+        frames = STANDIN_WARMUP + STANDIN_TIMED
+        dt, rays, launches, ldrs = _run_frames(
+            torch, scene, dev, STANDIN_WARMUP, STANDIN_TIMED, name, flat,
+            others)
+        for i, ldr in enumerate(ldrs):
+            if not (torch.isfinite(ldr).all() and float(ldr.max()) > 0.01):
+                raise AssertionError(f"{name}: frame {i} is not finite or "
+                                     f"is black (max {float(ldr.max())})")
+        out[name] = (launches, frames)
+        print(f"stand-in {name}: {scene.num_triangles} triangles in {slots} "
+              f"slots, {scene.num_lights} lights, built in {build_s:.2f} s "
+              f"on the host; K1 equal to plain on {WIDTH * HEIGHT} primary "
+              f"rays, t bit-equal, K2 occlusion equal; "
+              + _frame_line(name, STANDIN_TIMED, dt, rays, launches, card,
+                            frames), flush=True)
+        del scene, ldrs
+
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_raytracer_torch", "--scene", "truffle",
+         f"--scale={APP_W}x{APP_H}", "--max-frames", str(STANDIN_APP_FRAMES),
+         "--no-preview"], cwd=root, stdin=subprocess.DEVNULL,
+        capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"the truffle app exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    tel = json.loads(proc.stdout.strip().splitlines()[-1])
+    launches = tel["launches"]
+    if not (tel["frames"] == STANDIN_APP_FRAMES
+            and min(launches[k] for k in (*flat, "table_gather")) > 0
+            and not any(launches[k] for k in others)):
+        raise AssertionError(f"the truffle app: telemetry {tel}")
+    print(f"stand-in app: python -m tpu_raytracer_torch --scene truffle "
+          f"--scale={APP_W}x{APP_H} --max-frames {STANDIN_APP_FRAMES}: exit "
+          f"0 in {time.time() - t0:.2f} s of wall time (process included), "
+          f"fps {tel['fps']:.4f} and {tel['mrays_per_s']:.4f} Mrays/s from "
+          f"its FrameStats; launches {launches}; phase 22 took "
+          f"{time.time() - t_phase:.2f} s [{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1830,6 +1923,11 @@ def main() -> int:
     # 21. the app, its screenshot, checkpoint and resume
     _app_phase(torch, root, dev, card)
 
+    # 22. the procedural glTF stand-ins and the truffle app
+    standins = _standins_phase(
+        torch, root, dev, card,
+        (flat_kernels, [k for k in every if k not in flat_kernels]))
+
     n = TIMED_RAYS[-1]
 
     def entry(name, src, line, launched, err, times, bound):
@@ -1854,16 +1952,19 @@ def main() -> int:
         "golden mxu3": (ml_launches, 8),
         "config 1": (p_launches, PROGRESSIVE_FRAMES),
         "config 5": (s_launches, SHOT_FRAMES),
-        "config 4": (f_launches, f_frames)}
-    config4 = {k: {"config 4": f_launches[k] / f_frames}
-               for k in ("closest_hit", "any_hit")}
+        "config 4": (f_launches, f_frames),
+        **{f"stand-in {k}": v for k, v in standins.items()}}
+    per_frame = {k: {"config 4": f_launches[k] / f_frames,
+                     **{f"stand-in {n}": v[k] / f
+                        for n, (v, f) in standins.items()}}
+                 for k in ("closest_hit", "any_hit")}
     print(json.dumps({"kernels": [
         {**entry("closest_hit", "trace.cu", 392, launches["closest_hit"],
                  k1_err, timings[n][:2], k1_bound),
-         "launches_per_frame": config4["closest_hit"]},
+         "launches_per_frame": per_frame["closest_hit"]},
         {**entry("any_hit", "trace.cu", 611, launches["any_hit"], k2_err,
                  timings[n][2:], k2_bound),
-         "launches_per_frame": config4["any_hit"]},
+         "launches_per_frame": per_frame["any_hit"]},
         entry("inst_closest_hit", "trace_inst.cu", 1916,
               g_launches["inst_closest_hit"], k4_err, k4_times[:2],
               k4_bound),

@@ -64,6 +64,21 @@ def test_letterbox_aspect():
     assert np.array_equal(out, ref_interactive.letterbox(img, 300, 300))
 
 
+@pytest.mark.parametrize("src,dst", [
+    ((100, 200), (300, 300)), ((64, 64), (128, 128)),
+    ((720, 1280), (1920, 1080)), ((48, 64), (64, 48))],
+    ids=["200x100-300x300", "64x64-128x128", "1280x720-1920x1080",
+         "no-resize"])
+def test_letterbox_matches_reference(src, dst):
+    """A non-constant frame (out of [0, 1] in places), byte-equal to the
+    reference's PIL blit, bicubic."""
+    img = np.random.default_rng(sum(src)).uniform(
+        -0.1, 1.1, (*src, 3)).astype(np.float32)
+    out = interactive.letterbox(img, *dst)
+    assert out.shape == (dst[1], dst[0], 3)
+    assert np.array_equal(out, ref_interactive.letterbox(img, *dst))
+
+
 @pytest.mark.parametrize("count", [1e6, torch.tensor(1e6)],
                          ids=["float", "tensor"])
 def test_frame_stats(count):
@@ -170,11 +185,22 @@ def test_debug_view_matches_reference(app_runs, mode):
     assert np.array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("name", interactive.UNPORTED_SCENES)
-def test_unported_scenes_raise(name):
-    with pytest.raises(ValueError, match="slice 15"):
-        interactive.load_scene(name, "cpu")
+@pytest.mark.parametrize("name,writer,kw", [
+    ("avocado", "write_avocado_glb", dict(nu=24, nv=16, tex_size=32)),
+    ("helmet", "write_helmet_glb", dict(nu=32, tex_size=32)),
+    ("vrm", "write_figure_glb", dict(nu=12, tex_size=32)),
+    ("truffle", "write_truffle_glb", dict(nu=24, tex_size=32))])
+def test_named_scene_loads(tmp_path, monkeypatch, name, writer, kw):
+    """The reference's four asset scenes load by name, from a small
+    stand-in (the default-size ones are built on the card)."""
+    from tpu_raytracer_torch.models import procedural_assets as pa
 
+    path = getattr(pa, writer)(str(tmp_path / f"{name}.glb"), **kw)
+    monkeypatch.setattr(pa, "ensure_asset", lambda _: path)
+    scene = interactive.load_scene(name, "cpu")
+    # more than the floor and light of the glTF fallback
+    assert scene.num_triangles > 500
+    assert scene.num_lights == (3 if name == "truffle" else 1)
 
 def test_tiles_raise():
     with pytest.raises(ValueError, match="--tiles 2"):

@@ -334,12 +334,6 @@ def test_loader_matches_reference_gltf(tmp_path):
 # builder
 # ---------------------------------------------------------------------------
 
-def test_prep_texture_refuses_other_sizes():
-    b = builder.SceneBuilder()
-    with pytest.raises(ValueError, match="512x256"):
-        b.add_color_texture(np.zeros((256, 512, 3), np.uint8))
-
-
 def _textured_builder(sb, geo, mat, m3, images):
     b = sb.SceneBuilder()
     plane = b.add_mesh(geo.create_plane())

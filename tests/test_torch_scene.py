@@ -121,9 +121,12 @@ def test_import_leaves_jax_out():
             "tpu_raytracer_torch.render.checkpoint, "
             "tpu_raytracer_torch.utils.config, "
             "tpu_raytracer_torch.utils.profiling, "
+            "tpu_raytracer_torch.utils.resample, "
+            "tpu_raytracer_torch.models.glb_writer, "
+            "tpu_raytracer_torch.models.procedural_assets, "
             "tpu_raytracer_torch.__main__;"
-            " bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith(('jax.', 'tpu_raytracer.'))"
+            " bad = [m for m in sys.modules if m in ('jax', 'PIL') or "
+            "m.startswith(('jax.', 'PIL.', 'tpu_raytracer.'))"
             " or m == 'tpu_raytracer'];"
             " assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

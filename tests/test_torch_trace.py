@@ -213,3 +213,42 @@ def test_kernel_wrapper_refuses_cpu_tensors(scenes):
     with pytest.raises(ValueError):
         trace_api.trace_kernel(port.tri_planes, port.chunk_aabb, o, o,
                                torch.zeros(8), torch.ones(8))
+
+
+def _midpoint_cases():
+    """(a, b, c) whose f64 sum a*b + c lands exactly on an f32 rounding
+    midpoint while the exact sum lies 2^-70 below it, so rounding the f64
+    sum to f32 (ties to even) goes the wrong way: c's neighbour above is
+    even. Signs mirrored, and scaled by powers of two."""
+    a, b, c = 1 + 2.0 ** -23, (1 - 2.0 ** -23) * 2.0 ** -24, 1 + 2.0 ** -23
+    rows = []
+    for k in (-20, 0, 7):
+        for sa, sc in ((1, 1), (-1, -1)):
+            rows.append((sa * a * 2.0 ** k, b, sc * c * 2.0 ** k))
+    return np.array(rows, np.float32)
+
+
+def test_fma_rounds_once_like_xla():
+    """`fma` against XLA:CPU's contraction of a*b + c (the reference's
+    arithmetic): the midpoint cases, where one f64 sum rounded to f32 is
+    an ulp off, and random triples, all equal bit for bit."""
+    rng = np.random.default_rng(11)
+    rand = (rng.standard_normal((4096, 3))
+            * 2.0 ** rng.integers(-12, 12, (4096, 3))).astype(np.float32)
+    abc = np.concatenate([_midpoint_cases(), rand])
+    want = np.asarray(jax.jit(lambda a, b, c: a * b + c)(
+        *(jnp.asarray(abc[:, i]) for i in range(3))))
+    got = trace_api.fma(*(torch.from_numpy(abc[:, i].copy())
+                          for i in range(3))).numpy()
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    # the card's form: every lane through _round_to_odd
+    a, b, c = (torch.from_numpy(abc[:, i].copy()).double() for i in range(3))
+    s = a * b + c
+    tie = (s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000
+    dense = trace_api._round_to_odd(s, a * b, c, tie).float().numpy()
+    assert np.array_equal(dense.view(np.int32), want.view(np.int32))
+    mid = _midpoint_cases()
+    assert np.array_equal(got[:len(mid)], mid[:, 2])     # c, not c's even
+    naive = (mid[:, 0].astype(np.float64) * mid[:, 1]
+             + mid[:, 2]).astype(np.float32)
+    assert not np.array_equal(naive, mid[:, 2])          # the trap is real

@@ -37,13 +37,9 @@ from ..ops.post import resolve_tonemap
 from ..render import camera as camera_mod
 from ..render import checkpoint, pipeline, renderer
 from ..utils.config import RenderConfig
-from ..utils.math3d import rotation_x, scale, translation
 from ..utils.profiling import FrameStats
+from ..utils.resample import resize_u8
 from .screenshot import ScreenshotSaver, denoised_screenshot
-
-# the reference's scenes whose assets the port does not generate yet
-# (ROADMAP slice 15: the procedural glTF stand-ins)
-UNPORTED_SCENES = ("avocado", "helmet", "vrm", "truffle")
 
 
 def load_scene(name: str, device):
@@ -52,21 +48,17 @@ def load_scene(name: str, device):
         "cornell_diffuse": scene_catalog.create_cornell_box_diffuse,
         "restir": scene_catalog.create_restir_scene,
         "bunny": scene_catalog.create_bunny_scene,
+        "avocado": scene_catalog.create_avocado_scene,
+        "helmet": scene_catalog.create_damaged_helmet_scene,
+        "vrm": scene_catalog.create_multi_material_model_scene,
+        "truffle": scene_catalog.create_chocolate_truffle_scene,
         "knot": scene_catalog.create_dense_knot_scene,
         "gallery": scene_catalog.create_instancing_gallery_scene,
     }
     if name in catalog:
         return catalog[name](device)
-    if name in UNPORTED_SCENES:
-        raise ValueError(f"scene '{name}' needs the procedural glTF "
-                         f"stand-ins, not ported yet (ROADMAP slice 15)")
     if name.endswith((".gltf", ".glb")):
-        # the reference's create_gltf_scene defaults (scenes.py:182-200)
-        return scene_catalog.create_gltf_scene(
-            device, name, model_transform=translation([0.0, -0.5, 0.0])
-            @ scale(1.0),
-            light_transform=(translation([0, 5.0, 0]) @ rotation_x(np.pi)
-                             @ scale(1.0)))
+        return scene_catalog.create_gltf_scene(device, name)
     raise ValueError(f"unknown scene '{name}'")
 
 
@@ -268,16 +260,16 @@ def run(cfg: RenderConfig) -> dict:
 def letterbox(img: np.ndarray, out_w: int, out_h: int,
               clear=(0.0, 0.0, 1.0)) -> np.ndarray:
     """Aspect-correct letterboxed blit (blit.wgsl + renderer.rs:381-397;
-    blue clear color from blit.rs:119), resized nearest-neighbour."""
+    blue clear color from blit.rs:119) of an RGB image, resized bicubic as
+    the reference's PIL `resize` with no filter does it."""
     h, w = img.shape[:2]
     s = min(out_w / w, out_h / h)
     nw, nh = int(w * s), int(h * s)
-    u8 = (np.clip(img, 0, 1) * 255).astype(np.uint8)
-    ys = np.minimum(((np.arange(nh) + 0.5) * h / nh).astype(np.int64), h - 1)
-    xs = np.minimum(((np.arange(nw) + 0.5) * w / nw).astype(np.int64), w - 1)
+    resized = resize_u8((np.clip(img, 0, 1) * 255).astype(np.uint8), nw, nh,
+                        "bicubic")
     out = np.empty((out_h, out_w, 3), np.uint8)
     out[:] = (np.asarray(clear) * 255).astype(np.uint8)
     y0 = (out_h - nh) // 2
     x0 = (out_w - nw) // 2
-    out[y0:y0 + nh, x0:x0 + nw] = u8[ys][:, xs, :3]
+    out[y0:y0 + nh, x0:x0 + nw] = resized[:, :, :3]
     return out

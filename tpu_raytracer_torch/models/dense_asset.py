@@ -10,13 +10,12 @@ on first use and cached under assets/models/ at a name of the port's own.
 
 from __future__ import annotations
 
-import json
 import os
-import struct
 
 import numpy as np
 
 from ..utils import png
+from .glb_writer import ensure_written, write_glb
 
 # anchored to the repo root (two levels above this package), so every
 # entry point finds the same cached asset whatever the working directory
@@ -127,88 +126,27 @@ def _texture_set(size: int = 1024):
     return tuple(png.encode_rgb(img) for img in _texture_pixels(size))
 
 
-def _align4(b: bytes, pad: bytes = b"\x00") -> bytes:
-    return b + pad * (-len(b) % 4)
-
-
 def write_knot_glb(path: str = DEFAULT_PATH, major: int = 420,
                    minor: int = 120, tex_size: int = 1024) -> str:
     """Write the dense knot .glb to `path` (through a private temporary
     file and a rename, so a concurrent reader never sees half a file);
     returns the path."""
     pos, nrm, uv, tan, idx = knot_mesh(major, minor)
-    base_png, normal_png, mr_png = _texture_set(tex_size)
-
-    blobs = [pos.tobytes(), nrm.tobytes(), uv.tobytes(), tan.tobytes(),
-             idx.tobytes(), base_png, normal_png, mr_png]
-    views, offset, bin_parts = [], 0, []
-    for blob in blobs:
-        aligned = _align4(blob)
-        views.append({"buffer": 0, "byteOffset": offset,
-                      "byteLength": len(blob)})
-        bin_parts.append(aligned)
-        offset += len(aligned)
-    bin_chunk = b"".join(bin_parts)
-
-    nv = pos.shape[0]
-    gltf = {
-        "asset": {"version": "2.0",
-                  "generator": "tpu_raytracer_torch dense_asset"},
-        "buffers": [{"byteLength": len(bin_chunk)}],
-        "bufferViews": views,
-        "accessors": [
-            {"bufferView": 0, "componentType": 5126, "count": nv,
-             "type": "VEC3",
-             "min": pos.min(0).tolist(), "max": pos.max(0).tolist()},
-            {"bufferView": 1, "componentType": 5126, "count": nv,
-             "type": "VEC3"},
-            {"bufferView": 2, "componentType": 5126, "count": nv,
-             "type": "VEC2"},
-            {"bufferView": 3, "componentType": 5126, "count": nv,
-             "type": "VEC4"},
-            {"bufferView": 4, "componentType": 5125,
-             "count": int(idx.shape[0]), "type": "SCALAR"},
-        ],
-        "images": [
-            {"bufferView": 5, "mimeType": "image/png"},
-            {"bufferView": 6, "mimeType": "image/png"},
-            {"bufferView": 7, "mimeType": "image/png"},
-        ],
-        "textures": [{"source": 0}, {"source": 1}, {"source": 2}],
-        "materials": [{
-            "name": "knot_lacquer",
-            "pbrMetallicRoughness": {
-                "baseColorFactor": [1.0, 1.0, 1.0, 1.0],
-                "baseColorTexture": {"index": 0},
-                "metallicRoughnessTexture": {"index": 2},
-                "metallicFactor": 1.0,
-                "roughnessFactor": 1.0,
-            },
-            "normalTexture": {"index": 1},
-        }],
-        "meshes": [{"primitives": [{
-            "attributes": {"POSITION": 0, "NORMAL": 1, "TEXCOORD_0": 2,
-                           "TANGENT": 3},
-            "indices": 4,
-            "material": 0,
-        }]}],
-        "nodes": [{"mesh": 0}],
-        "scenes": [{"nodes": [0]}],
-        "scene": 0,
+    knot = {"pos": pos, "nrm": nrm, "uv": uv, "tan": tan, "idx": idx,
+            "material": 0}
+    material = {
+        "name": "knot_lacquer",
+        "pbrMetallicRoughness": {
+            "baseColorFactor": [1.0, 1.0, 1.0, 1.0],
+            "baseColorTexture": {"index": 0},
+            "metallicRoughnessTexture": {"index": 2},
+            "metallicFactor": 1.0,
+            "roughnessFactor": 1.0,
+        },
+        "normalTexture": {"index": 1},
     }
-
-    json_chunk = _align4(json.dumps(gltf).encode("utf-8"), b" ")
-    total = 12 + 8 + len(json_chunk) + 8 + len(bin_chunk)
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    with open(tmp, "wb") as f:
-        f.write(struct.pack("<III", 0x46546C67, 2, total))
-        f.write(struct.pack("<II", len(json_chunk), 0x4E4F534A))
-        f.write(json_chunk)
-        f.write(struct.pack("<II", len(bin_chunk), 0x004E4942))
-        f.write(bin_chunk)
-    os.replace(tmp, path)
-    return path
+    return write_glb(path, [knot], _texture_set(tex_size), [material],
+                     generator="tpu_raytracer_torch dense_asset")
 
 
 # Raised when the generator's output changes: a cached .glb from an older
@@ -218,16 +156,4 @@ ASSET_VERSION = 1
 
 def ensure_dense_asset(path: str = DEFAULT_PATH) -> str:
     """Generate the asset if missing or stale; returns the path."""
-    vp = path + ".version"
-    try:
-        with open(vp) as f:
-            cached = int(f.read().strip())
-    except (OSError, ValueError):
-        cached = 0
-    if not os.path.exists(path) or cached != ASSET_VERSION:
-        write_knot_glb(path)
-        # a bare file name has no directory part: write beside the cwd
-        os.makedirs(os.path.dirname(vp) or ".", exist_ok=True)
-        with open(vp, "w") as f:
-            f.write(str(ASSET_VERSION))
-    return path
+    return ensure_written(path, write_knot_glb, ASSET_VERSION)

@@ -4,6 +4,8 @@ vectors)."""
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 from ..scene.builder import SceneBuilder
@@ -246,11 +248,23 @@ def add_gltf_to_builder(b: SceneBuilder, meshes, materials, images,
     return mesh_ids, mat_ids
 
 
-def create_gltf_scene(device, path: str, model_transform,
-                      light_transform):
+def create_gltf_scene(device, path: str, scale_factor: float = 1.0,
+                      translation_v=(0.0, -0.5, 0.0), model_transform=None,
+                      light_transform=None, material_rewrite=None):
     """scenes.rs:249-319: a glTF asset on a 10x floor under a quad light
-    ([1, 1, 1] x 15). A file that fails to load leaves the floor-and-light
-    scene, with a printed note, as the reference does (scenes.rs:313)."""
+    ([1, 1, 1] x 15). model_transform and light_transform, where given,
+    take the place of the scale_factor / translation_v form and of the
+    light 5 up, facing down. `material_rewrite` (mat -> None, mutating)
+    runs on the loaded materials before they are registered (the truffle
+    scene's, scenes.rs:393-411). A file that fails to load leaves the
+    floor-and-light scene, with a printed note, as the reference does
+    (scenes.rs:313)."""
+    if model_transform is None:
+        model_transform = translation(list(translation_v)) @ scale(
+            scale_factor)
+    if light_transform is None:
+        light_transform = (translation([0, 5.0, 0]) @ rotation_x(PI)
+                           @ scale(1.0))
     b = SceneBuilder()
     plane_id = b.add_mesh(create_plane())
     mat_floor = b.add_material(
@@ -259,10 +273,122 @@ def create_gltf_scene(device, path: str, model_transform,
     b.register_quad_light(plane_id, light_transform, [1.0, 1.0, 1.0], 15.0)
     try:
         meshes, materials, images, mat_indices = load_gltf(path)
+        if material_rewrite is not None:
+            for mat in materials:
+                material_rewrite(mat)
         add_gltf_to_builder(b, meshes, materials, images, mat_indices,
                             model_transform)
     except Exception as e:  # noqa: BLE001 - the reference's fallback
         print(f"glTF load failed ({e}); rendering empty scene")
+    return b.build(device)
+
+
+def _asset_path(canonical: str, procedural_name: str) -> str:
+    """The downloaded asset `canonical` if assets/models/ holds it, else
+    the generated stand-in (models/procedural_assets.py), with a printed
+    note, so a named scene never quietly becomes the floor-and-light
+    fallback (the reference's _asset_path, which also looks in the
+    working directory)."""
+    from .procedural_assets import MODELS_DIR, ensure_asset
+
+    cand = os.path.join(MODELS_DIR, os.path.basename(canonical))
+    if os.path.exists(cand):
+        return cand
+    path = ensure_asset(procedural_name)
+    print(f"{canonical} not found; using procedural stand-in {path}")
+    return path
+
+
+def create_avocado_scene(device, path: str = None):
+    """scenes.rs:321-332: the Avocado glb at 20x on the floor. This and
+    the next two wrappers take create_gltf_scene's default light, which is
+    the one the reference passes."""
+    if path is None:
+        path = _asset_path("assets/models/Avocado.glb", "avocado")
+    return create_gltf_scene(
+        device, path, model_transform=translation([0, 0, 0]) @ scale(20.0))
+
+
+def create_damaged_helmet_scene(device, path: str = None):
+    """scenes.rs:334-347: DamagedHelmet rotated upright (Rx(pi/2))."""
+    if path is None:
+        path = _asset_path("assets/models/DamagedHelmet.glb", "helmet")
+    return create_gltf_scene(
+        device, path,
+        model_transform=(translation([0, 0, 0]) @ rotation_x(PI / 2)
+                         @ scale(1.0)))
+
+
+def create_multi_material_model_scene(device, path: str = None):
+    """scenes.rs:349-365: VRM avatar at 0.5x facing the camera (Ry(pi))."""
+    if path is None:
+        path = _asset_path("assets/models/AliciaSolid.vrm", "figure")
+    return create_gltf_scene(
+        device, path,
+        model_transform=(translation([0, 0, 0]) @ scale(0.5)
+                         @ rotation_y(PI)))
+
+
+def truffle_material_rewrite(mat) -> None:
+    """scenes.rs:393-411: luminance-threshold material heuristic.
+
+    Dark base colors (BT.601 luma < 0.25) are "probably the chocolate":
+    ultra-gloss dielectric (roughness 0.02, metallic 0); bright ones are
+    "probably the ribbon": satin (roughness 0.25)."""
+    r, g, bl = mat.base_color[0], mat.base_color[1], mat.base_color[2]
+    brightness = r * 0.299 + g * 0.587 + bl * 0.114
+    if brightness < 0.25:
+        # raw field writes like the reference (not the fluent .metallic(),
+        # whose argument is a roughness and which forces metallic=1)
+        mat.roughness_ = 0.02
+        mat.metallic_ = 0.0
+    else:
+        mat.roughness_ = 0.25
+
+
+def create_chocolate_truffle_scene(device, path: str = None):
+    """scenes.rs:367-504: the reference's showcase scene. An
+    obsidian-table floor, the glTF materials through
+    `truffle_material_rewrite`, and a studio of 3 sphere lights (warm key
+    x80, red rim x40, blue fill x10). A file that fails to load falls
+    back to the avocado scene (scenes.rs:496-500), whose own fallback is
+    the floor-and-light scene. With no path, the generated gift-wrapped
+    chocolate stands in for the reference's downloaded asset."""
+    if path is None:
+        path = _asset_path(
+            "assets/models/gift_wrapped_chocolate_3d_model.glb", "truffle")
+    try:
+        meshes, materials, images, mat_indices = load_gltf(path)
+    except Exception as e:  # noqa: BLE001 - the reference's fallback
+        print(f"Failed to load gift chocolate: {e}")
+        return create_avocado_scene(device)
+
+    b = SceneBuilder()
+    plane_id = b.add_mesh(create_plane())
+    sphere_id = b.add_mesh(create_sphere(4))
+
+    # obsidian table (scenes.rs:433-437)
+    mat_dark_floor = b.add_material(
+        Material((0.02, 0.02, 0.02, 1.0)).roughness(0.1).metallic(0.8))
+    b.add_instance(plane_id, mat_dark_floor,
+                   translation([0, -0.01, 0]) @ scale(50.0))
+
+    for mat in materials:
+        truffle_material_rewrite(mat)
+    add_gltf_to_builder(
+        b, meshes, materials, images, mat_indices,
+        translation([0, 0.7, 0]) @ rotation_y(0.5) @ scale(4.0))
+
+    # studio lighting (scenes.rs:462-493)
+    b.register_sphere_light(
+        sphere_id, translation([8.0, 4.0, 2.0]) @ scale(2.0),
+        [1.0, 0.95, 0.8], 80.0)
+    b.register_sphere_light(
+        sphere_id, translation([-3.0, 2.0, -4.0]) @ scale(2.0),
+        [1.0, 0.05, 0.01], 40.0)
+    b.register_sphere_light(
+        sphere_id, translation([-3.0, 1.0, 3.0]) @ scale(1.0),
+        [0.01, 0.05, 0.2], 10.0)
     return b.build(device)
 
 

@@ -155,11 +155,37 @@ def pack_triangles(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray):
 # Plain PyTorch version (CPU tensors; also the on-card comparison baseline)
 # ---------------------------------------------------------------------------
 
+def _round_to_odd(s, p, c, tie):
+    """s = p + c rounded to f64, moved one f64 ulp toward the exact sum
+    (the two-sum gives its error) where `tie` and s is inexact."""
+    pc = s - p
+    err = (p - (s - pc)) + (c - pc)             # s + err == p + c exactly
+    away = torch.copysign(torch.full_like(s, INF), err)
+    return torch.where(tie & (err != 0.0), torch.nextafter(s, away), s)
+
+
 def fma(a, b, c):
-    """a * b + c rounded once to f32. The product is exact in f64, so the
-    f64 sum rounds to the fused result except when it lands exactly on an
-    f32 rounding midpoint (about 1 in 2^29)."""
-    return (a.double() * b.double() + c.double()).to(torch.float32)
+    """a * b + c rounded once to f32, as XLA:CPU's contractions and the
+    kernels' `__fmaf_rn` round it. The product is exact in f64, so the f64
+    sum s rounds to the fused result, except where s lands exactly on an
+    f32 rounding midpoint (its low 29 bits 1 and 28 zeros) while the exact
+    sum does not: there s is rounded to odd before it is rounded to f32.
+    Results in f32's subnormal range keep the f64 rounding (XLA:CPU
+    flushes them to zero). On the card every lane takes the rounding to
+    odd, since finding the few ties would read the device from the host
+    (the refit runs this in the frame loop); on the CPU only the ties."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    tie = (s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000
+    if s.is_cuda:
+        return _round_to_odd(s, p, cd, tie).to(torch.float32)
+    at = torch.nonzero(tie.reshape(-1)).squeeze(1)
+    if at.numel():
+        flat = s.reshape(-1)        # s is a fresh tensor: fixed in place
+        flat[at] = _round_to_odd(flat[at], p.reshape(-1)[at],
+                                 cd.reshape(-1)[at], True)
+    return s.to(torch.float32)
 
 
 def _cross(ax, ay, az, bx, by, bz):

@@ -21,6 +21,7 @@ from ..ops.trace_api import MXUF_MAX_TP, check_mode, pack_triangles
 from ..ops.trace_inst import GROUP, INST_COLS, pack_triangles_instanced
 from ..ops.trace_mxu import mode_table
 from ..utils import math3d
+from ..utils.resample import resize_u8
 from . import light as light_mod
 from .geometry import Mesh
 from .material import NO_TEXTURE, Material, pack_materials
@@ -55,19 +56,22 @@ def _srgb_to_linear(x: np.ndarray) -> np.ndarray:
 def _prep_texture(img: np.ndarray, srgb: bool) -> np.ndarray:
     """An image [H, W], [H, W, C] -> [TEXTURE_SIZE, TEXTURE_SIZE, 3] f32,
     linear. uint8 colour is sRGB-decoded, uint8 data is scaled to [0, 1],
-    anything else is taken as it is. The reference Lanczos-resizes other
-    sizes through PIL; the port takes TEXTURE_SIZE^2 images only."""
+    anything else is taken as it is. Another size is clipped to [0, 1],
+    truncated to uint8, Lanczos-resized and scaled back, as the
+    reference's PIL resize does it (utils/resample.py)."""
     img = np.asarray(img)
     if img.ndim == 2:
         img = img[:, :, None].repeat(3, axis=2)
     img = img[:, :, :3]
-    if img.shape[0] != TEXTURE_SIZE or img.shape[1] != TEXTURE_SIZE:
-        raise ValueError(
-            f"texture is {img.shape[1]}x{img.shape[0]}: only "
-            f"{TEXTURE_SIZE}x{TEXTURE_SIZE} images are taken (no resize)")
     if img.dtype == np.uint8:
-        return _srgb_to_linear(img) if srgb else img.astype(np.float32) / 255.0
-    return img.astype(np.float32)
+        img = _srgb_to_linear(img) if srgb else img.astype(np.float32) / 255.0
+    else:
+        img = img.astype(np.float32)
+    if img.shape[0] != TEXTURE_SIZE or img.shape[1] != TEXTURE_SIZE:
+        u8 = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+        img = resize_u8(u8, TEXTURE_SIZE, TEXTURE_SIZE,
+                        "lanczos").astype(np.float32) / 255.0
+    return img
 
 
 def _default_color_textures() -> list:

@@ -40,8 +40,9 @@ def parse_args(argv=None) -> RenderConfig:
     ap.add_argument("--scale", type=str, default=None,
                     help="WxH render resolution (reference flag)")
     ap.add_argument("--scene", type=str, default=cfg.scene,
-                    help="cornell, cornell_diffuse, restir, bunny, knot, "
-                         "gallery or a .gltf/.glb path")
+                    help="cornell, cornell_diffuse, restir, bunny, "
+                         "avocado, helmet, vrm, truffle, knot, gallery or "
+                         "a .gltf/.glb path")
     ap.add_argument("--target-spp", type=int, default=cfg.target_spp)
     ap.add_argument("--denoise", action="store_true")
     ap.add_argument("--denoise-iterations", type=int,
