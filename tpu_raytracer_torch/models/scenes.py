@@ -248,20 +248,16 @@ def add_gltf_to_builder(b: SceneBuilder, meshes, materials, images,
     return mesh_ids, mat_ids
 
 
-def create_gltf_scene(device, path: str, scale_factor: float = 1.0,
-                      translation_v=(0.0, -0.5, 0.0), model_transform=None,
-                      light_transform=None, material_rewrite=None):
+def create_gltf_scene(device, path: str, model_transform=None,
+                      light_transform=None):
     """scenes.rs:249-319: a glTF asset on a 10x floor under a quad light
-    ([1, 1, 1] x 15). model_transform and light_transform, where given,
-    take the place of the scale_factor / translation_v form and of the
-    light 5 up, facing down. `material_rewrite` (mat -> None, mutating)
-    runs on the loaded materials before they are registered (the truffle
-    scene's, scenes.rs:393-411). A file that fails to load leaves the
+    ([1, 1, 1] x 15). model_transform defaults to the reference's
+    translation([0, -0.5, 0]) @ scale(1.0), light_transform to the light
+    5 up, facing down. A file that fails to load leaves the
     floor-and-light scene, with a printed note, as the reference does
     (scenes.rs:313)."""
     if model_transform is None:
-        model_transform = translation(list(translation_v)) @ scale(
-            scale_factor)
+        model_transform = translation([0, -0.5, 0]) @ scale(1.0)
     if light_transform is None:
         light_transform = (translation([0, 5.0, 0]) @ rotation_x(PI)
                            @ scale(1.0))
@@ -273,9 +269,6 @@ def create_gltf_scene(device, path: str, scale_factor: float = 1.0,
     b.register_quad_light(plane_id, light_transform, [1.0, 1.0, 1.0], 15.0)
     try:
         meshes, materials, images, mat_indices = load_gltf(path)
-        if material_rewrite is not None:
-            for mat in materials:
-                material_rewrite(mat)
         add_gltf_to_builder(b, meshes, materials, images, mat_indices,
                             model_transform)
     except Exception as e:  # noqa: BLE001 - the reference's fallback

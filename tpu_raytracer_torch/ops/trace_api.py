@@ -171,21 +171,12 @@ def fma(a, b, c):
     f32 rounding midpoint (its low 29 bits 1 and 28 zeros) while the exact
     sum does not: there s is rounded to odd before it is rounded to f32.
     Results in f32's subnormal range keep the f64 rounding (XLA:CPU
-    flushes them to zero). On the card every lane takes the rounding to
-    odd, since finding the few ties would read the device from the host
-    (the refit runs this in the frame loop); on the CPU only the ties."""
+    flushes them to zero)."""
     p = a.double() * b.double()
     cd = c.double()
     s = p + cd
     tie = (s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000
-    if s.is_cuda:
-        return _round_to_odd(s, p, cd, tie).to(torch.float32)
-    at = torch.nonzero(tie.reshape(-1)).squeeze(1)
-    if at.numel():
-        flat = s.reshape(-1)        # s is a fresh tensor: fixed in place
-        flat[at] = _round_to_odd(flat[at], p.reshape(-1)[at],
-                                 cd.reshape(-1)[at], True)
-    return s.to(torch.float32)
+    return _round_to_odd(s, p, cd, tie).to(torch.float32)
 
 
 def _cross(ax, ay, az, bx, by, bz):
