@@ -10,10 +10,11 @@ is non-zero):
   2. build    - builds kernels K1 (closest-hit), K2 (any-hit), K3
                 (streamed closest- and any-hit), K4 (instanced closest-
                 and any-hit), K5 (the vpu sweep), K6 (the tensor-core
-                test) and K7 (the table gather of the row fetches) from
+                test), K7 (the table gather of the row fetches) and K8
+                (the BVH walk, closest- and any-hit) from
                 tpu_raytracer_torch/csrc/{trace,trace_stream,trace_inst,
-                trace_vpu,trace_mxu,gather}.cu for sm_90a with one nvcc
-                call.
+                trace_vpu,trace_mxu,gather,trace_bvh}.cu for sm_90a with
+                one nvcc call.
   3. K1       - against its plain PyTorch version on the card: Cornell
                 512^2 primary rays and 524,288 random rays (random t_max,
                 30% dead lanes). tri equal on every lane, t bit-equal.
@@ -172,14 +173,39 @@ is non-zero):
                 --scale=1280x720 --max-frames 4 --no-preview` as a
                 subprocess: exit code 0, K1, K2 and K7 in its launches.
                 Prints the phase's wall time.
-Every frame phase (5, 6, 8, 10, 11, 14, 15, 18, 19, 20, 22) also checks that
-K7 launched and prints its launches a frame. Then one JSON line of
-per-kernel results (K1-K6: time, plain time and bound at 524,288 random
-rays; K7: at 524,288 rows of Cornell's tri_table; launches on each
-kernel's frames; K1, K2 and K7 also their launches a frame on config 4's
-and each stand-in's frames, `launches_per_frame`), and last the device
-line {"ok": true, "device": {...}}. Without a CUDA device it exits with 1
-and prints no result.
+ 23. walk     - the BVH walk K8 (the route past a scene's brute_max
+                triangle slots). The big scene, built here as
+                scripts/ucb_bigscene.py builds its own: the floor, the
+                quad light and two create_sphere(8) bodies at x = +-0.3,
+                2,621,444 triangles, past the 2M cap; its host build time,
+                bvh_rec's records and bytes. K8 closest- and any-hit
+                against the plain walk (traversal.trace_plain, with its
+                step counts) on ucb_bigscene.py's 262,144 incoherent and
+                262,144 coherent rays: tri equal on every lane, t
+                bit-equal. Timed by CUDA events beside the plain walk
+                (timed once, counting its steps), K3 on the same scene and
+                rays, and the bound from the plain walk's steps and
+                touched records; then K8 and K3 on ucb_bigscene.py's own
+                983,044-triangle scene (three create_sphere(7)) forced
+                through the walk with brute_max=1. The big scene's ReSTIR
+                frame at 512^2: 2 warm-up + 4 timed frames, K8 and K7
+                launched and no other trace kernel, fps, Mrays/s and the
+                peak device memory of the phase. Then the Cornell box
+                built with brute_max=1: K8 against the plain walk on its
+                512^2 primary rays and 262,144 random rays (30% dead),
+                timed beside K1/K2 on the same random rays, and its first
+                2 frames (K8, no K1/K2) against phase
+                5's, PSNR >= VPU_DB (the same hits but exact-t ties).
+                Prints the phase's wall time.
+Every frame phase (5, 6, 8, 10, 11, 14, 15, 18, 19, 20, 22, 23) also
+checks that K7 launched and prints its launches a frame. Then one JSON
+line of per-kernel results (K1-K6: time, plain time and bound at 524,288
+random rays; K7: at 524,288 rows of Cornell's tri_table; K8: at the big
+scene's 262,144 incoherent rays; launches on each kernel's frames; K1,
+K2 and K7 also their launches a frame on config 4's and each stand-in's
+frames, K8 on the big scene's and the walked Cornell frames,
+`launches_per_frame`), and last the device line {"ok": true, "device":
+{...}}. Without a CUDA device it exits with 1 and prints no result.
 
 A kernel's bound is the least time the card could take for the work
 this run's rays need: the ray-triangle tests (MT_FLOPS each, counted from
@@ -196,7 +222,11 @@ BF16_PEAK (the H100 SXM's dense bf16 tensor rate, 989 TFLOP/s, NVIDIA
 data sheet); its window tests, WINDOW_FLOPS for each such ray and valid
 triangle, at FP32_PEAK; and its bytes (rays, coefficient table, chunk
 boxes, outputs) at HBM_PEAK. Any-hit counts one test
-and one chunk for an occluded ray, as K2's bound does. K7's bound is its
+and one chunk for an occluded ray, as K2's bound does. K8's bound counts
+the plain walk's steps on the same rays: SLAB_FLOPS a box record and
+MT_FLOPS a triangle record at FP32_PEAK, or each record any lane touched
+(48 bytes and its skip and id) read once, the rays read and the results
+written once at HBM_PEAK. K7's bound is its
 bytes alone: each index read once, each output word written once and
 the table read once, at HBM_PEAK.
 """
@@ -260,6 +290,12 @@ APP_W, APP_H, APP_FRAMES, APP_SPP, APP_RESUME = 1280, 720, 12, 8, 2
 STANDINS = (("avocado", 12268), ("helmet", 23364), ("vrm", 11908),
             ("truffle", 23258))
 STANDIN_WARMUP, STANDIN_TIMED, STANDIN_APP_FRAMES = 2, 4, 4
+# the BVH walk (phase 23): two create_sphere(8) bodies past the cap, and
+# scripts/ucb_bigscene.py's three create_sphere(7) bodies; its ray sets
+BIG_SUBDIV, BIG_TRIANGLES, UCB_TRIANGLES = 8, 2 * 1310720 + 4, 3 * 327680 + 4
+WALK_RAYS, WALK_REPS = 262144, 5
+WALK_WARMUP, WALK_TIMED = 2, 4
+SLAB_FLOPS = 25     # one box record: csrc/trace_bvh.cu:box_hit
 # K7's index counts: the random sets, the app's, config 4's and config 5's
 # frames
 GATHER_RAYS = (262144, 524288, APP_W * APP_H, FLY_W * FLY_H, 3840 * 2160)
@@ -345,7 +381,7 @@ def _flat_tests(trace_api, scene, o, d, t_min, t_hi):
     from tpu_raytracer_torch.utils.vec3 import V3
 
     ov, dv = V3(*o), V3(*d)
-    inv = trace_api.safe_inv(dv)
+    inv = trace_api.safe_inv_dir(dv)
     per_chunk = scene.tri_planes[3, 0].reshape(-1, trace_api.CT).sum(1)
     n = pairs = 0
     for c, box in enumerate(scene.chunk_aabb.cpu().tolist()):
@@ -375,7 +411,7 @@ def _inst_tests(torch, trace_api, trace_inst, scene, o, d, t_min, t_hi):
     from tpu_raytracer_torch.utils.vec3 import V3
 
     ov, dv = V3(*o), V3(*d)
-    inv = trace_api.safe_inv(dv)
+    inv = trace_api.safe_inv_dir(dv)
     per_group = scene.tri_planes[3, 0].reshape(-1, trace_inst.GROUP).sum(1)
     per_group = per_group.cpu().tolist()
     inst_boxes = scene.inst_aabb.cpu().tolist()
@@ -393,7 +429,7 @@ def _inst_tests(torch, trace_api, trace_inst, scene, o, d, t_min, t_hi):
         oo, od = trace_inst.to_object(scene.inst_table[i],
                                       V3(*(x[lanes] for x in ov)),
                                       V3(*(x[lanes] for x in dv)))
-        o_inv = trace_api.safe_inv(od)
+        o_inv = trace_api.safe_inv_dir(od)
         for _, g in run:
             hit = trace_api.slab_pass(group_boxes[g], oo, o_inv,
                                       t_min[lanes], t_hi[lanes])
@@ -1222,6 +1258,240 @@ def _standins_phase(torch, root, dev, card, kernels):
     return out
 
 
+def _big_scene(dev, subdiv, xs, brute_max=None):
+    """scripts/ucb_bigscene.py:30-48's scene: the floor, the quad light and
+    an icosphere of subdivision `subdiv` (20 x 4^subdiv triangles) at each
+    x of `xs`, flattened (instancing off), with the cap `brute_max`."""
+    from tpu_raytracer_torch.models.scenes import PI
+    from tpu_raytracer_torch.scene.builder import SceneBuilder
+    from tpu_raytracer_torch.scene.geometry import create_plane, create_sphere
+    from tpu_raytracer_torch.scene.material import Material
+    from tpu_raytracer_torch.utils.math3d import rotation_x, scale, translation
+
+    b = SceneBuilder()
+    plane_id = b.add_mesh(create_plane())
+    mat = b.add_material(Material((0.73, 0.73, 0.73, 1.0)))
+    body = b.add_material(Material((0.8, 0.7, 0.5, 1.0)).roughness(0.4))
+    b.add_instance(plane_id, mat, translation([0, -1, 0]) @ scale(2.0))
+    b.register_quad_light(
+        plane_id, translation([0, 0.99, 0]) @ rotation_x(PI) @ scale(0.5),
+        [1.0, 1.0, 1.0], 10.0)
+    sphere = b.add_mesh(create_sphere(subdiv))
+    for tx in xs:
+        b.add_instance(sphere, body,
+                       translation([tx, -0.5, 0.0]) @ scale(0.42))
+    return b.build(dev, instancing="off", brute_max=brute_max)
+
+
+def _walk_rays(torch, dev, n):
+    """scripts/ucb_bigscene.py:64-75's ray sets of n rays (seed 0):
+    incoherent, from uniform points in [-0.9, 0.9]^3 in normal
+    directions, and coherent, from (0, 0.2, 2.5) through a jittered grid
+    toward -z; each ([3, n] o, [3, n] d, t_min 1e-3, t_max 100)."""
+    rng = np.random.default_rng(0)
+    ro_i = rng.uniform(-0.9, 0.9, (n, 3)).astype(np.float32)
+    rd_i = rng.standard_normal((n, 3)).astype(np.float32)
+    px = rng.uniform(-0.5, 0.5, (n, 2)).astype(np.float32)
+    rd_c = np.stack([px[:, 0], px[:, 1] - 0.3, np.full(n, -1.0, np.float32)],
+                    axis=1)
+    ro_c = np.broadcast_to(np.float32([0.0, 0.2, 2.5]), (n, 3))
+    t_min = torch.full((n,), 1e-3, device=dev)
+    t_max = torch.full((n,), 100.0, device=dev)
+    out = {}
+    for name, o, d in (("incoherent", ro_i, rd_i), ("coherent", ro_c, rd_c)):
+        d = d / np.linalg.norm(d, axis=1, keepdims=True)
+        o, d = (torch.from_numpy(np.ascontiguousarray(x.T, np.float32))
+                .to(dev) for x in (o, d))
+        out[name] = (o, d, t_min, t_max)
+    return out
+
+
+def _walk_check(torch, scene, what, o, d, t_min, t_max):
+    """K8 closest- and any-hit against the plain walk (with its step
+    counts) on these rays: tri equal on every lane and t bit-equal, or
+    raise. Returns {any_hit: (plain result, plain ms)}."""
+    from tpu_raytracer_torch.ops import traversal
+    from tpu_raytracer_torch.utils.vec3 import V3
+
+    bvh = (scene.bvh_rec, scene.bvh_skip, scene.bvh_tri)
+    out = {}
+    for any_hit in (False, True):
+        got = traversal.trace_bvh_kernel(*bvh, o, d, t_min, t_max, any_hit)
+        want, plain_ms = _time_once(torch, lambda: traversal.trace_plain(
+            *bvh, V3(*o), V3(*d), t_min, t_max, any_hit=any_hit, count=True))
+        query = "any" if any_hit else "closest"
+        bad = int((got["tri"] != want["tri"]).sum())
+        if bad:
+            raise AssertionError(f"K8 {query} {what}: tri differs from the "
+                                 f"plain walk on {bad} lanes")
+        bad = int((got["t"].view(torch.int32)
+                   != want["t"].view(torch.int32)).sum())
+        if bad:
+            raise AssertionError(f"K8 {query} {what}: t differs from the "
+                                 f"plain walk on {bad} lanes")
+        out[any_hit] = (want, plain_ms)
+    hit = float((out[False][0]["tri"] >= 0).float().mean())
+    print(f"K8: {what}: closest- and any-hit equal the plain walk on "
+          f"{o.shape[1]} rays ({hit:.3f} hit): tri on every lane, t "
+          f"bit-equal", flush=True)
+    return out
+
+
+def _walk_bound(want, n):
+    """((bound ms, by), box steps, triangle steps, records touched) of a
+    walk of n rays whose plain run counted its steps: SLAB_FLOPS a box
+    record and MT_FLOPS a triangle record read; each touched record (48
+    bytes, its skip and id) read once, the rays read and the results
+    written once."""
+    box = int(want["box_steps"].sum())
+    tri = int(want["tri_steps"].sum())
+    touched = int(want["touched"].sum())
+    nbytes = touched * (12 * 4 + 8) + n * (6 * 4 + 8) + n * 8
+    return _bound(box * SLAB_FLOPS + tri * MT_FLOPS, nbytes), box, tri, \
+        touched
+
+
+def _walk_phase(torch, dev, card, every, c_first, ptxas):
+    """Phase 23: the BVH walk (K8) on the 2,621,444-triangle scene past the
+    cap, on ucb_bigscene.py's own 983,044-triangle scene forced through
+    it, and on the Cornell box built with brute_max=1 (its frames against
+    `c_first`, phase 5's). Returns (K8's {(ray set, any_hit): (ms, plain
+    ms, bound)}, the big scene's launches and frames, the walked Cornell
+    frames' launches and frames)."""
+    from tpu_raytracer_torch.models import scenes
+    from tpu_raytracer_torch.ops import gbuffer, trace_api, traversal
+    from tpu_raytracer_torch.ops.trace_stream import trace_stream_kernel
+    from tpu_raytracer_torch.render import camera, renderer
+
+    t_phase = time.time()
+    walk = ["bvh_closest_hit", "bvh_any_hit"]
+    others = [k for k in every if k not in walk]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    big = _big_scene(dev, BIG_SUBDIV, (-0.3, 0.3))
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    tp = big.tri_planes.shape[2]
+    s = big.bvh_rec.shape[0]
+    route = trace_api.trace_route(big.kernel, big.incull, tp, False,
+                                  big.brute_max)
+    if big.num_triangles != BIG_TRIANGLES or route[0] != "bvh":
+        raise AssertionError(f"big scene: {big.num_triangles} triangles, "
+                             f"route {route}")
+    print(f"walk: big scene {big.num_triangles} triangles in {tp} slots "
+          f"(cap {big.brute_max}: route {route[0]}), built in {build_s:.2f} s "
+          f"on the host; bvh_rec {s} records, "
+          f"{_nbytes(big.bvh_rec, big.bvh_skip, big.bvh_tri)} bytes with "
+          f"skip and tri; ptxas K8 "
+          f"{' | '.join(_ptxas_of(ptxas, 'bvh_kernel')) or 'cached'} "
+          f"[{card}]", flush=True)
+
+    def k8(scene, rays, any_hit):
+        return traversal.trace_bvh_kernel(scene.bvh_rec, scene.bvh_skip,
+                                          scene.bvh_tri, *rays, any_hit)
+
+    def k3(scene, rays, any_hit):
+        return trace_stream_kernel(scene.tri_planes, scene.chunk_aabb, *rays,
+                                   any_hit=any_hit)
+
+    # K8 against the plain walk, and timed beside K3, on both ray sets
+    rays = _walk_rays(torch, dev, WALK_RAYS)
+    out = {}
+    for name, r in rays.items():
+        checked = _walk_check(torch, big, f"big scene {name}", *r)
+        for any_hit in (False, True):
+            want, plain_ms = checked[any_hit]
+            ms = _time_ms(torch, lambda: k8(big, r, any_hit), WALK_REPS)
+            k3_ms = _time_ms(torch, lambda: k3(big, r, any_hit), 1)
+            bound, box, tri, touched = _walk_bound(want, WALK_RAYS)
+            out[(name, any_hit)] = (ms, plain_ms, bound)
+            query = "any" if any_hit else "closest"
+            print(f"timing big scene {name} {WALK_RAYS} rays, {query}: K8 "
+                  f"{ms:.4f} ms, plain walk {plain_ms:.2f} ms, K3 "
+                  f"{k3_ms:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}) "
+                  f"from {box} box and {tri} triangle steps "
+                  f"({(box + tri) / WALK_RAYS:.1f} a ray) over {touched} of "
+                  f"{s} records [{card}]", flush=True)
+        k3_res, want = k3(big, r, False), checked[False][0]
+        same_tri = float((k3_res["tri"] == want["tri"]).float().mean())
+        same_t = float((k3_res["t"] == want["t"]).float().mean())
+        print(f"K3 against K8, big scene {name}: tri equal on {same_tri:.6f} "
+              f"of lanes, t bit-equal on {same_t:.6f}", flush=True)
+        del checked
+
+    # ucb_bigscene.py's own scene, forced through the walk
+    t0 = time.time()
+    ucb = _big_scene(dev, 7, (-0.6, 0.0, 0.6), brute_max=1)
+    torch.cuda.synchronize()
+    print(f"walk: ucb_bigscene.py's scene {ucb.num_triangles} triangles, "
+          f"{ucb.bvh_rec.shape[0]} records, built in {time.time() - t0:.2f} "
+          f"s", flush=True)
+    if ucb.num_triangles != UCB_TRIANGLES:
+        raise AssertionError(f"ucb scene: {ucb.num_triangles} triangles")
+    for name, r in rays.items():
+        times = []
+        for any_hit in (False, True):
+            times += [_time_ms(torch, lambda: k8(ucb, r, any_hit), WALK_REPS),
+                      _time_ms(torch, lambda: k3(ucb, r, any_hit), 1)]
+        print(f"timing ucb scene {name} {WALK_RAYS} rays: closest K8 "
+              f"{times[0]:.4f} ms, K3 {times[1]:.4f} ms; any K8 "
+              f"{times[2]:.4f} ms, K3 {times[3]:.4f} ms [{card}]",
+              flush=True)
+    del ucb
+
+    # the big scene's frames: K8 and K7 only
+    dt, frame_rays, launches, ldrs = _run_frames(
+        torch, big, dev, WALK_WARMUP, WALK_TIMED, "big scene", walk, others)
+    for i, ldr in enumerate(ldrs):
+        if not float(ldr.max()) > 0.01:
+            raise AssertionError(f"big scene frame {i} is black")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print("walk frame: " + _frame_line(
+        "big scene ReSTIR", WALK_TIMED, dt, frame_rays, launches, card,
+        WALK_WARMUP + WALK_TIMED) + f"; peak {peak:.2f} GiB", flush=True)
+    del big, ldrs
+
+    # the Cornell box forced through the walk
+    cornell = scenes.create_cornell_box(dev, brute_max=1)
+    uniform = renderer.camera_to_device(camera.CameraController().uniform(
+        WIDTH / HEIGHT, 0, cornell.num_lights), dev)
+    po, pd = gbuffer.generate_primary_rays(uniform, WIDTH, HEIGHT)
+    n_p = po.x.shape[0]
+    primary = (torch.stack(list(po)).contiguous(),
+               torch.stack(list(pd)).contiguous(),
+               torch.full((n_p,), gbuffer.T_MIN, device=dev),
+               torch.full((n_p,), gbuffer.T_MAX, device=dev))
+    ro, rd, rt_max = _random_rays(torch, WALK_RAYS, dev, seed=3)
+    rnd = (ro, rd, torch.full((WALK_RAYS,), 1e-3, device=dev), rt_max)
+    _walk_check(torch, cornell, f"Cornell primary {WIDTH}^2", *primary)
+    c_checked = _walk_check(torch, cornell, "Cornell random", *rnd)
+    for any_hit in (False, True):
+        ms = _time_ms(torch, lambda: k8(cornell, rnd, any_hit), 20)
+        k1_ms = _time_ms(torch, lambda: trace_api.trace_kernel(
+            cornell.tri_planes, cornell.chunk_aabb, *rnd, any_hit), 20)
+        bound = _walk_bound(c_checked[any_hit][0], WALK_RAYS)[0]
+        out[("cornell", any_hit)] = (ms, c_checked[any_hit][1], bound)
+        print(f"timing Cornell {WALK_RAYS} random rays, "
+              f"{'any' if any_hit else 'closest'}: K8 {ms:.4f} ms, "
+              f"{'K2' if any_hit else 'K1'} {k1_ms:.4f} ms on the same rays, "
+              f"plain walk {c_checked[any_hit][1]:.2f} ms, bound "
+              f"{bound[0]:.4f} ms ({bound[1]}) [{card}]", flush=True)
+    ldrs, c_launches = _first_frames(cornell, dev, len(c_first))
+    if (min(c_launches[k] for k in walk) <= 0
+            or any(c_launches[k] for k in others)):
+        raise AssertionError(f"the walked Cornell frames must launch K8 and "
+                             f"no other trace kernel: {c_launches}")
+    psnr = min(_psnr(a.numpy(), b.numpy()) for a, b in zip(ldrs, c_first))
+    if not psnr >= VPU_DB:
+        raise AssertionError(f"walked Cornell frames: PSNR {psnr:.2f} dB "
+                             f"against K1's < {VPU_DB}")
+    print(f"walk Cornell: the first {len(ldrs)} {WIDTH}x{HEIGHT} frames "
+          f"built with brute_max=1 (K8, no K1/K2) against phase 5's: PSNR "
+          f"{psnr:.2f} dB (floor {VPU_DB}); launches {c_launches}; phase 23 "
+          f"took {time.time() - t_phase:.2f} s [{card}]", flush=True)
+    return out, launches, WALK_WARMUP + WALK_TIMED, c_launches, len(c_first)
+
+
 def main() -> int:
     import torch
 
@@ -1249,18 +1519,19 @@ def main() -> int:
     inst_kernels = ["inst_closest_hit", "inst_any_hit"]
     vpu_kernels = ["vpu_closest_hit"]
     mxu_kernels = ["mxu_closest_hit", "mxu_any_hit"]
+    bvh_kernels = ["bvh_closest_hit", "bvh_any_hit"]
     every = (flat_kernels + stream_kernels + inst_kernels + vpu_kernels
-             + mxu_kernels)
+             + mxu_kernels + bvh_kernels)
 
     # 2. build
     t0 = time.time()
     trace_api.load_kernels()
     ptxas = [ln.strip() for ln in BUILD_LOGS.get("trace_kernels", "")
              .splitlines() if "registers" in ln or "Compiling entry" in ln]
-    print(f"build: K1-K7 from csrc/{{trace,trace_stream,trace_inst,"
-          f"trace_vpu,trace_mxu,gather}}.cu in {time.time() - t0:.2f} s (one "
-          f"nvcc call, sm_90a); ptxas: {' | '.join(ptxas) or 'cached'}",
-          flush=True)
+    print(f"build: K1-K8 from csrc/{{trace,trace_stream,trace_inst,"
+          f"trace_vpu,trace_mxu,gather,trace_bvh}}.cu in "
+          f"{time.time() - t0:.2f} s (one nvcc call, sm_90a); ptxas: "
+          f"{' | '.join(ptxas) or 'cached'}", flush=True)
 
     scene = scenes.create_cornell_box(dev)
     cam = camera.CameraController()
@@ -1928,6 +2199,10 @@ def main() -> int:
         torch, root, dev, card,
         (flat_kernels, [k for k in every if k not in flat_kernels]))
 
+    # 23. the BVH walk: K8 past the cap and on the Cornell box forced to it
+    k8, w_launches, w_frames, cw_launches, cw_frames = _walk_phase(
+        torch, dev, card, every, c_first, ptxas)
+
     n = TIMED_RAYS[-1]
 
     def entry(name, src, line, launched, err, times, bound):
@@ -1984,6 +2259,21 @@ def main() -> int:
                 k6[(v, a)][0], k6[(v, a)][1:3], k6[(v, a)][3])
           for v, _, _, _, incull, line in MXU_VARIANTS
           for a in ((False, True) if incull else (False,))),
+        *({"name": f"bvh_{q}_hit", "route": "cuda",
+           "source": "tpu_raytracer_torch/csrc/trace_bvh.cu",
+           "replaces": "tpu_raytracer/ops/traversal.py:28",
+           "note": "the reference's walk is an XLA while_loop, not a "
+                   "pallas_call",
+           "launches": w_launches[f"bvh_{q}_hit"], "max_abs_err": 0.0,
+           "ms": k8[("incoherent", a)][0],
+           "plain_ms": k8[("incoherent", a)][1],
+           "bound_ms": k8[("incoherent", a)][2][0],
+           "bound_by": k8[("incoherent", a)][2][1], "library_ms": None,
+           "launches_per_frame": {
+               "big scene": w_launches[f"bvh_{q}_hit"] / w_frames,
+               "Cornell brute_max=1": cw_launches[f"bvh_{q}_hit"]
+               / cw_frames}}
+          for q, a in (("closest", False), ("any", True))),
         {"name": "table_gather", "route": "cuda",
          "source": "tpu_raytracer_torch/csrc/gather.cu",
          "replaces": "tpu_raytracer/ops/pallas_gather.py:51",

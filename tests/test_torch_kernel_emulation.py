@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K7, built with g++ under the host emulation
+"""The CUDA kernels K1-K8, built with g++ under the host emulation
 `csrc/host/emulation/cuda_runtime.h`, against their plain versions.
 
 A CUDA kernel cannot run here; this holds the kernels' own source (its
@@ -13,6 +13,9 @@ emulation's fmaf and -ffp-contract=off round as the kernels' __fmaf_rn
 and -fmad=false; its tensor-core product sums the exact bf16 products
 in f64 and rounds once, as K6's plain version does). K7, the table
 gather, copies words: its output equals the plain version bit for bit.
+K8, the BVH walk, equals the plain walk (`traversal.trace_plain`) in
+every word of t and tri, closest- and any-hit, on the Cornell box's
+stream and on a random-triangle tree.
 """
 
 import ctypes
@@ -30,7 +33,8 @@ from test_torch_dense import TIE_IDS, layered_scene
 from tpu_raytracer_torch.models import scenes
 from tpu_raytracer_torch.ops import (table_gather, trace_api, trace_inst,
                                      trace_mxu, trace_stream, trace_vpu,
-                                     worklist)
+                                     traversal, worklist)
+from tpu_raytracer_torch.ops.bvh import build_bvh, fill_triangles
 from tpu_raytracer_torch.runtime.build import CSRC_DIR
 from tpu_raytracer_torch.scene.builder import SceneBuilder
 from tpu_raytracer_torch.scene.geometry import create_plane, create_sphere
@@ -80,6 +84,8 @@ def _build(out, names, defines=()):
         "tpurt_mxu_closest_hit": [ptr] * 6 + [i32] * 5 + [ptr] * 3,
         "tpurt_mxu_any_hit": [ptr] * 6 + [i32] * 3 + [ptr] * 3,
         "tpurt_table_gather": [ptr] * 2 + [i32] * 3 + [ptr] * 2,
+        "tpurt_bvh_closest_hit": [ptr] * 7 + [i32] * 2 + [ptr] * 3,
+        "tpurt_bvh_any_hit": [ptr] * 7 + [i32] * 2 + [ptr] * 3,
     }
     for name, argtypes in signatures.items():
         if hasattr(lib, name):
@@ -93,7 +99,7 @@ def _build(out, names, defines=()):
 def lib(tmp_path_factory):
     return _build(tmp_path_factory.mktemp("emulated"),
                   ("trace", "trace_stream", "trace_inst", "trace_vpu",
-                   "trace_mxu", "gather"))
+                   "trace_mxu", "gather", "trace_bvh"))
 
 
 def _rays(seed, lo, hi, t_far):
@@ -350,7 +356,7 @@ def test_swept_kernel_edge_cases(lib, layered, case, any_hit):
         boxes = trace_stream.unit_boxes(aabb, grp)
         live = t_max > 0
         e0, e1 = (float(trace_stream._unit_entry(
-            boxes[i // trace_api.CT // grp], V3(*o), trace_api.safe_inv(
+            boxes[i // trace_api.CT // grp], V3(*o), trace_api.safe_inv_dir(
                 V3(*d)), t_min, t_max)[live].min()) for i in TIE_IDS)
         assert grp == 8 and e1 < e0
     if case == "tie_at_entry":
@@ -724,3 +730,60 @@ def test_table_gather_kernel_matches_plain(lib, c, r):
     assert err == 0
     assert np.array_equal(got.numpy().view(np.uint32),
                           want.numpy().view(np.uint32))
+
+
+def _bvh_stream(table):
+    """(bvh_rec, bvh_skip, bvh_tri, rays) of the Cornell box built to walk
+    (brute_max=1), or of a tree over 300 random triangles."""
+    if table == "cornell":
+        scene = scenes.create_cornell_box("cpu", brute_max=1)
+        return (scene.bvh_rec, scene.bvh_skip, scene.bvh_tri,
+                _rays(4, -0.95, 0.95, 3.0))
+    g = np.random.default_rng(2)
+    v0 = ((g.random((300, 3), np.float32) - 0.5) * 4.0).astype(np.float32)
+    e1, e2 = ((g.random((300, 3), np.float32) - 0.5).astype(np.float32)
+              for _ in range(2))
+    v1, v2 = v0 + e1, v0 + e2
+    tree = build_bvh(np.minimum(np.minimum(v0, v1), v2),
+                     np.maximum(np.maximum(v0, v1), v2))
+    fill_triangles(tree, v0, e1, e2)
+    return (torch.from_numpy(tree.rec), torch.from_numpy(tree.skip),
+            torch.from_numpy(tree.tri_id), _rays(5, -2.0, 2.0, 12.0))
+
+
+def _run_bvh(fn, rec, skip, tri, o, d, t_min, t_max):
+    n = o.shape[1]
+    t = torch.full((n,), 7.0)
+    out = torch.full((n,), 7, dtype=torch.int32)
+    err = fn(o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
+             rec.data_ptr(), skip.data_ptr(), tri.data_ptr(), n,
+             rec.shape[0], t.data_ptr(), out.data_ptr(), None)
+    assert err == 0
+    return {"t": t, "tri": out}
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("case", ["all", "r300", "one-live", "r0"])
+@pytest.mark.parametrize("table", ["cornell", "random"])
+def test_bvh_kernel_matches_plain(lib, table, case, any_hit):
+    """K8 against the plain walk: every word of t and tri equal, on all
+    the rays (30% dead), on 300 (a ragged last block), with one live
+    lane, and with none (R = 0, nothing written)."""
+    rec, skip, tri, (o, d, t_min, t_max) = _bvh_stream(table)
+    if case == "r300":
+        o, d, t_min, t_max = (x[..., :300].contiguous()
+                              for x in (o, d, t_min, t_max))
+    elif case == "one-live":
+        t_max = torch.where(torch.arange(t_max.numel()) == 77, 3.0, 0.0)
+    elif case == "r0":
+        o, d, t_min, t_max = (x[..., :0].contiguous()
+                              for x in (o, d, t_min, t_max))
+    want = traversal.trace_plain(rec, skip, tri, V3(*o), V3(*d), t_min,
+                                 t_max, any_hit=any_hit)
+    fn = lib.tpurt_bvh_any_hit if any_hit else lib.tpurt_bvh_closest_hit
+    got = _run_bvh(fn, rec, skip, tri, o, d, t_min, t_max)
+    assert np.array_equal(got["t"].numpy().view(np.int32),
+                          want["t"].numpy().view(np.int32))
+    assert torch.equal(got["tri"], want["tri"])
+    if case in ("all", "r300"):
+        assert 0.05 < float((want["tri"] >= 0).float().mean()) < 0.95

@@ -239,7 +239,8 @@ def test_mode_matches_reference(trace_env, soup, mode, any_hit):
     scene = types.SimpleNamespace(
         instanced=False, kernel=kernel, incull=incull, tri_planes=p,
         chunk_aabb=torch.from_numpy(aabb),
-        coef48_t=trace_mxu.mode_table(p, kernel, incull))
+        coef48_t=trace_mxu.mode_table(p, kernel, incull),
+        brute_max=trace_api.BRUTE_FORCE_MAX_TRIS)
     o, d, t_min, t_max_t = _port_rays(ro, rd, t_max, active)
     got = trace_api.scene_trace(scene, o, d, t_min, t_max_t, any_hit=any_hit)
     gt, got_t = got["tri"].numpy(), got["t"].numpy()

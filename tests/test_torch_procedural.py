@@ -306,10 +306,9 @@ def test_truffle_frames_match_reference(named_scenes):
     assert p >= FRAME_DB, f"PSNR vs reference = {p:.2f} dB"
 
 
-def test_jpeg_texture_is_an_open_fault(tmp_path, capsys):
-    """ROADMAP Queue 3: the port's loader decodes PNG only, the
-    reference's any PIL format, so a .glb with a JPEG texture loads in
-    the reference and falls back to the floor scene in the port."""
+def test_jpeg_texture_loads_like_the_reference(tmp_path, capsys):
+    """A .glb with a JPEG texture: the port decodes it (utils/jpeg.py)
+    and builds the reference's scene, tables and textures equal."""
     from io import BytesIO
 
     from PIL import Image
@@ -317,15 +316,38 @@ def test_jpeg_texture_is_an_open_fault(tmp_path, capsys):
     from tpu_raytracer_torch.models.glb_writer import write_glb
 
     jpeg = BytesIO()
-    Image.fromarray(np.full((32, 32, 3), 128, np.uint8)).save(
-        jpeg, format="JPEG")
+    texels = np.random.default_rng(7).integers(0, 256, (32, 32, 3), np.uint8)
+    Image.fromarray(texels).save(jpeg, format="JPEG")
     part = pa.lathe(pa.sphere_profile(0.5, 8), nu=12)
     part["material"] = 0
     path = write_glb(str(tmp_path / "jpeg.glb"), [part], [jpeg.getvalue()],
                      [{"pbrMetallicRoughness": {
                          "baseColorTexture": {"index": 0}}}])
     port = scenes.create_gltf_scene("cpu", path)
-    assert "not a PNG stream" in capsys.readouterr().out
-    ref = ref_scenes.create_gltf_scene(path)
-    assert port.num_triangles == 4                  # floor and light
-    assert ref.num_triangles == 4 + 7 * 12 * 2
+    assert "glTF load failed" not in capsys.readouterr().out
+    ref = _numpy(ref_scenes.create_gltf_scene(path))
+    assert port.num_triangles == ref.num_triangles == 4 + 7 * 12 * 2
+    for name in TABLES:
+        assert np.array_equal(getattr(port, name).numpy(),
+                              np.asarray(getattr(ref, name))), name
+    assert np.array_equal(port.color_tex.float().numpy(),
+                          np.asarray(ref.color_tex)[..., :3].astype(
+                              np.float32))
+
+
+def test_asset_path_finds_the_canonical_file_in_the_working_dir(
+        tmp_path, monkeypatch, capsys):
+    """A downloaded asset at its canonical path relative to the working
+    directory loads as it is, as the reference's _asset_path finds it."""
+    models = tmp_path / "assets" / "models"
+    models.mkdir(parents=True)
+    pa.write_avocado_glb(str(models / "Avocado.glb"), nu=12, nv=8,
+                         tex_size=32)
+    monkeypatch.chdir(tmp_path)
+    assert scenes._asset_path("assets/models/Avocado.glb", "avocado") \
+        == "assets/models/Avocado.glb"
+    port = scenes.create_avocado_scene("cpu")
+    assert "stand-in" not in capsys.readouterr().out
+    ref = _numpy(ref_scenes.create_avocado_scene())
+    assert port.num_triangles == ref.num_triangles
+    assert np.array_equal(port.tri_table.numpy(), np.asarray(ref.tri_table))

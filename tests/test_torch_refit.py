@@ -23,8 +23,11 @@ Tolerances, each with its measured value:
     and against the port's frame on the reference's refit tables carried
     by convert.py, PSNR >= REFIT_FRAME_DB (measured inf, 176.4 and 156.6
     dB: the refit's own share of the gap).
-The reference's checks through `traversal.trace` (the BVH walk) wait for
-its port (ROADMAP slice 16).
+  - the port's BVH walk (`traversal.trace_plain`) over a refit scene's
+    `bvh_rec`, and over the one after a repack, against the swept trace
+    of the same scene: tri equal on every lane and t bit-equal (measured:
+    equal), and the reference's checks (tests/test_refit.py:57-60,
+    117-123) against the fresh build and the unpacked scene.
 """
 
 import gc
@@ -44,7 +47,7 @@ from tpu_raytracer.render import renderer as ref_renderer
 from tpu_raytracer.utils.image import psnr
 from tpu_raytracer_torch import convert
 from tpu_raytracer_torch.models import scenes
-from tpu_raytracer_torch.ops import refit, trace_api, trace_mxu
+from tpu_raytracer_torch.ops import refit, trace_api, trace_mxu, traversal
 from tpu_raytracer_torch.render import pipeline, renderer
 from tpu_raytracer_torch.scene.builder import SceneBuilder
 from tpu_raytracer_torch.scene.geometry import create_cube, create_plane
@@ -237,6 +240,21 @@ def _moved(scene, pos, angle):
     return torch.from_numpy(tf)
 
 
+def _walk(scene, o, d):
+    return traversal.trace_plain(
+        scene.bvh_rec, scene.bvh_skip, scene.bvh_tri,
+        V3(*torch.from_numpy(o.T.copy())), V3(*torch.from_numpy(d.T.copy())),
+        1e-3, 100.0)
+
+
+def _walk_equals_sweep(scene, o, d):
+    """The walk over the scene's BVH records gives its swept answer."""
+    walk, swept = _walk(scene, o, d), _trace(scene, o, d)
+    assert torch.equal(walk["tri"], swept["tri"])
+    assert torch.equal(walk["t"], swept["t"])
+    return walk
+
+
 def _same_hits(got, want):
     hit = want["tri"].numpy() >= 0
     assert np.array_equal(got["tri"].numpy() >= 0, hit)
@@ -251,7 +269,10 @@ def test_update_instances_matches_fresh_build():
     moved = refit.update_instances(scene, _moved(scene, [0.6, -0.2, 0.3], 0.3))
     o, d = _rays()
     got = _trace(moved, o, d)
-    hit = _same_hits(got, _trace(fresh, o, d))
+    want = _trace(fresh, o, d)
+    hit = _same_hits(got, want)
+    # the refit BVH stream stays valid for the walk too
+    _same_hits(_walk_equals_sweep(moved, o, d), want)
     # shading rows: world normals follow the instance rotation
     row = moved.tri_table[int(got["tri"][int(np.argmax(hit))])].numpy()
     assert np.isfinite(row[0:3] / np.linalg.norm(row[0:3])).all()
@@ -283,6 +304,12 @@ def test_refit_repack_preserves_trace():
     rows_w = plain.tri_table[want["tri"][hit].long()]
     rows_g = packed.tri_table[got["tri"][hit].long()]
     np.testing.assert_allclose(rows_g.numpy(), rows_w.numpy(), rtol=0,
+                               atol=1e-5)
+    # the walk follows the permutation: packed ids, the same rows
+    walk = _walk_equals_sweep(packed, o, d)
+    _same_hits(walk, want)
+    rows_b = packed.tri_table[walk["tri"][hit].long()]
+    np.testing.assert_allclose(rows_b.numpy(), rows_w.numpy(), rtol=0,
                                atol=1e-5)
     again = refit.update_instances(packed, tf)
     _same_hits(_trace(again, o, d), want)

@@ -125,6 +125,10 @@ def test_import_leaves_jax_out():
             "tpu_raytracer_torch.models.glb_writer, "
             "tpu_raytracer_torch.models.procedural_assets, "
             "tpu_raytracer_torch.profile_refit, "
+            "tpu_raytracer_torch.ops.intersect, "
+            "tpu_raytracer_torch.ops.traversal, "
+            "tpu_raytracer_torch.utils.jpeg, "
+            "tpu_raytracer_torch.scene.loader, "
             "tpu_raytracer_torch.__main__;"
             " bad = [m for m in sys.modules if m in ('jax', 'PIL') or "
             "m.startswith(('jax.', 'PIL.', 'tpu_raytracer.'))"

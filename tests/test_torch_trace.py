@@ -21,7 +21,7 @@ from tpu_raytracer.ops import trace_api as ref_trace
 from tpu_raytracer.render import camera as camera_mod
 from tpu_raytracer.render import renderer as ref_renderer
 from tpu_raytracer_torch import convert
-from tpu_raytracer_torch.ops import trace_api
+from tpu_raytracer_torch.ops import intersect, trace_api
 from tpu_raytracer_torch.utils.vec3 import V3
 
 T_ULPS = 2
@@ -238,7 +238,7 @@ def test_fma_rounds_once_like_xla():
     abc = np.concatenate([_midpoint_cases(), rand])
     want = np.asarray(jax.jit(lambda a, b, c: a * b + c)(
         *(jnp.asarray(abc[:, i]) for i in range(3))))
-    got = trace_api.fma(*(torch.from_numpy(abc[:, i].copy())
+    got = intersect.fma(*(torch.from_numpy(abc[:, i].copy())
                           for i in range(3))).numpy()
     assert np.array_equal(got.view(np.int32), want.view(np.int32))
     mid = _midpoint_cases()

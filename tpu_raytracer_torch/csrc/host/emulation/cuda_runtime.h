@@ -72,6 +72,7 @@ inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
 struct alignas(16) float4 {
     float x, y, z, w;
 };
+inline float4 __ldg(const float4* p) { return *p; }
 inline float4 make_float4(float x, float y, float z, float w) {
     return {x, y, z, w};
 }

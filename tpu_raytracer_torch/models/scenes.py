@@ -19,11 +19,13 @@ from ..utils.math3d import hsv_to_rgb, rotation_x, rotation_y, rotation_z, \
 PI = np.pi
 
 
-def create_cornell_box(device, kernel: str = "mxuf2", incull: bool = False):
+def create_cornell_box(device, kernel: str = "mxuf2", incull: bool = False,
+                       brute_max: int | None = None):
     """scenes.rs:9-130: checker floor, colored walls, quad ceiling light,
     glass crystal with an internal blue sphere light, rough-metal tall
     box. 1,320 triangles in 11 chunks of 128. kernel, incull: the
-    trace-kernel mode (`SceneBuilder.build`)."""
+    trace-kernel mode; brute_max: the cap past which queries walk the BVH
+    (`SceneBuilder.build`)."""
     b = SceneBuilder()
 
     plane_id = b.add_mesh(create_plane())
@@ -70,7 +72,7 @@ def create_cornell_box(device, kernel: str = "mxuf2", incull: bool = False):
         translation([-0.35, -0.4 + 0.002, -0.3]) @ rotation_y(0.4)
         @ scale([0.6, 1.2, 0.6]))
 
-    return b.build(device, kernel=kernel, incull=incull)
+    return b.build(device, kernel=kernel, incull=incull, brute_max=brute_max)
 
 
 def create_cornell_box_diffuse(device):
@@ -277,16 +279,17 @@ def create_gltf_scene(device, path: str, model_transform=None,
 
 
 def _asset_path(canonical: str, procedural_name: str) -> str:
-    """The downloaded asset `canonical` if assets/models/ holds it, else
-    the generated stand-in (models/procedural_assets.py), with a printed
-    note, so a named scene never quietly becomes the floor-and-light
-    fallback (the reference's _asset_path, which also looks in the
-    working directory)."""
+    """The downloaded asset `canonical` if it is there relative to the
+    working directory or in assets/models/, else the generated stand-in
+    (models/procedural_assets.py), with a printed note, so a named scene
+    never quietly becomes the floor-and-light fallback (the reference's
+    _asset_path)."""
     from .procedural_assets import MODELS_DIR, ensure_asset
 
-    cand = os.path.join(MODELS_DIR, os.path.basename(canonical))
-    if os.path.exists(cand):
-        return cand
+    for cand in (canonical,
+                 os.path.join(MODELS_DIR, os.path.basename(canonical))):
+        if os.path.exists(cand):
+            return cand
     path = ensure_asset(procedural_name)
     print(f"{canonical} not found; using procedural stand-in {path}")
     return path

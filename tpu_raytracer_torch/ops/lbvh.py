@@ -20,7 +20,8 @@ import dataclasses
 
 import torch
 
-from .trace_api import CT, INF
+from .intersect import INF
+from .trace_api import CT
 from .trace_mxu import mode_table
 
 
@@ -196,7 +197,7 @@ def morton_reorder(scene):
         chunk_aabb=chunk_boxes(scene.chunk_aabb, mn[order], mx[order],
                                 planes.shape[2]),
         coef48_t=(None if scene.coef48_t is None else mode_table(
-            planes, scene.kernel, scene.incull)),
+            planes, scene.kernel, scene.incull, brute_max=scene.brute_max)),
         tri_table=scene.tri_table[order],
         tri_table_local=scene.tri_table_local[order],
         tri_inst=scene.tri_inst[order],

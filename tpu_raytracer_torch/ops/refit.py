@@ -28,7 +28,7 @@ import torch
 
 from .bvh import LEAF_SIZE
 from .lbvh import chunk_boxes, morton_reorder
-from .trace_api import INF, fma
+from .intersect import INF, fma
 from .trace_mxu import mode_table
 
 
@@ -154,7 +154,8 @@ def _coef(scene, planes):
     """K6's table of the new planes, where the scene carries one."""
     if scene.coef48_t is None:
         return None
-    return mode_table(planes, scene.kernel, scene.incull)
+    return mode_table(planes, scene.kernel, scene.incull,
+                      brute_max=scene.brute_max)
 
 
 def _update_instanced(scene, transforms):

@@ -2,9 +2,14 @@
 (`scene_occluded`).
 
 Port of `tpu_raytracer/ops/trace_api.py`. Dispatch is by the scene's
-kind, its trace-kernel mode (`kernel`, `incull`: `trace_route`) and the
-rays' device and nothing else. A flattened scene under the default mode
-(`mxuf*`, `mxuv*`):
+kind, its size against its cap `brute_max` and its trace-kernel mode
+(`kernel`, `incull`: `trace_route`) and the rays' device and nothing
+else. A flattened scene of more than `brute_max` triangle slots (by
+default BRUTE_FORCE_MAX_TRIS) takes the stackless BVH walk over its
+`bvh_rec` stream under every mode, both queries (`ops/traversal.py`):
+the plain walk `traversal.trace_plain` on a CPU tensor, kernel K8
+(`csrc/trace_bvh.cu`) on a CUDA tensor. Under the cap, a flattened scene
+under the default mode (`mxuf*`, `mxuv*`):
   - CPU tensor: the plain PyTorch version, `trace_plain` (a chunked
     exact-f32 Moller-Trumbore scan with a running arg-min, the twin of
     the reference's `_trace_brute_xla`);
@@ -24,9 +29,10 @@ a plain version: the kernel launches or the call raises.
 
 Every path returns the reference's layout, {"t": [R] f32, "tri": [R]
 i32}, plus "inst": [R] i32 for an instanced scene: closest-hit gives
-(INF, -1) on a miss or a dead lane (t_max <= 0). The any-hit kernels
-return tri = 1 / -1 and t = t_max, the TPU any-hit kernels' contract;
-`scene_occluded` reads `tri >= 0` either way.
+(INF, -1) on a miss or a dead lane (t_max <= 0). The sweeps' any-hit
+kernels return tri = 1 / -1 and t = t_max, the TPU any-hit kernels'
+contract; the walk's any-hit returns its first hit's (t, tri), as the
+reference's walk does; `scene_occluded` reads `tri >= 0` either way.
 """
 
 from __future__ import annotations
@@ -42,11 +48,15 @@ import torch
 
 from ..runtime.build import CSRC_DIR, load_library
 from ..utils.vec3 import V3
+from .intersect import INF, moller_trumbore, safe_inv_dir
 
-INF = 3.0e38
 CT = 128          # triangles per chunk: the kernels' cull granularity
-MT_EPS = 1e-9
-DIR_EPS = 1e-12   # |d| below this is clamped before the slab test's 1/d
+# Past this many triangle slots a flattened scene's queries take the BVH
+# walk (K8) instead of a sweep: the reference's cap
+# (tpu_raytracer/ops/trace_api.py:45), set from a TPU v5e measurement
+# (scripts/ucb_bigscene.py), not from this card. A scene may set its own
+# (`SceneBuilder.build(brute_max=)`, the reference's TPU_RT_BRUTE_MAX).
+BRUTE_FORCE_MAX_TRIS = 2 * 1024 * 1024
 # The reference's caps on its mode chain (tpu_raytracer/ops/pallas_trace.py
 # :201-204, 1485-1565), in triangle slots, set by the TPU's VMEM and not
 # yet by a measurement on the H100. Past MXUF_MAX_TP a flattened scene's
@@ -71,7 +81,7 @@ _MODE = re.compile(r"(mxuf|mxuv|mxuw)([1-9][0-9]*)?|mxu[13]|vpu")
 LAUNCHES = {"closest_hit": 0, "any_hit": 0, "inst_closest_hit": 0,
             "inst_any_hit": 0, "stream_closest_hit": 0, "stream_any_hit": 0,
             "vpu_closest_hit": 0, "mxu_closest_hit": 0, "mxu_any_hit": 0,
-            "table_gather": 0}
+            "table_gather": 0, "bvh_closest_hit": 0, "bvh_any_hit": 0}
 
 
 def reset_launch_counts() -> None:
@@ -87,20 +97,28 @@ def check_mode(kernel: str) -> str:
     return kernel
 
 
-def trace_route(kernel: str, incull: bool, tp: int, any_hit: bool):
+def trace_route(kernel: str, incull: bool, tp: int, any_hit: bool,
+                brute_max: int = BRUTE_FORCE_MAX_TRIS):
     """(route, grp, passes) of a flattened scene's query under mode
     `kernel` (with the in-kernel cull if `incull`) at `tp` triangle
-    slots: the reference's mode chain (pallas_trace.py:1485-1565) in its
-    order, less its TPU mechanics. Routes:
+    slots. Past `brute_max` slots every mode and query takes "bvh", the
+    walk (ops/traversal.py, K8), as the reference reaches its mode chain
+    only under its cap (trace_api.py:141-150). Under it, the reference's
+    mode chain (pallas_trace.py:1485-1565) in its order, less its TPU
+    mechanics. Routes:
       "incull" - K6 with the in-kernel group cull, closest- and any-hit,
                  grp 2 (<= 48 chunks) or 4 (#5; mxuf* only);
       "vpu"    - K5 for both queries (any-hit reads `tri >= 0`) (#8);
       "mxu"    - K6 over units of grp chunks, closest-hit only,
                  passes 3 or 1 (#7: mxu3, mxu1; #6: mxuw[N], grp N);
       "swept"  - K1 / K2, the default (#1-#3);
-      "stream" - K3 past MXUF_MAX_TP slots (#4).
+      "stream" - K3 past MXUF_MAX_TP slots (#4);
+      "bvh"    - K8, the BVH walk, past `brute_max` slots (traversal.py
+                 :trace, an XLA while_loop in the reference).
     An any-hit query of every mode but vpu takes swept or stream, as the
     reference remaps it to its any-hit kernel (:1547-1551)."""
+    if tp > brute_max:
+        return "bvh", 1, 0
     nc = tp // CT
     if (incull and kernel.startswith("mxuf") and nc <= INCULL_MAX_CHUNKS
             and tp <= MXUF_MAX_TP):
@@ -155,42 +173,6 @@ def pack_triangles(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray):
 # Plain PyTorch version (CPU tensors; also the on-card comparison baseline)
 # ---------------------------------------------------------------------------
 
-def _round_to_odd(s, p, c, tie):
-    """s = p + c rounded to f64, moved one f64 ulp toward the exact sum
-    (the two-sum gives its error) where `tie` and s is inexact."""
-    pc = s - p
-    err = (p - (s - pc)) + (c - pc)             # s + err == p + c exactly
-    away = torch.copysign(torch.full_like(s, INF), err)
-    return torch.where(tie & (err != 0.0), torch.nextafter(s, away), s)
-
-
-def fma(a, b, c):
-    """a * b + c rounded once to f32, as XLA:CPU's contractions and the
-    kernels' `__fmaf_rn` round it. The product is exact in f64, so the f64
-    sum s rounds to the fused result, except where s lands exactly on an
-    f32 rounding midpoint (its low 29 bits 1 and 28 zeros) while the exact
-    sum does not: there s is rounded to odd before it is rounded to f32.
-    Results in f32's subnormal range keep the f64 rounding (XLA:CPU
-    flushes them to zero)."""
-    p = a.double() * b.double()
-    cd = c.double()
-    s = p + cd
-    tie = (s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000
-    return _round_to_odd(s, p, cd, tie).to(torch.float32)
-
-
-def _cross(ax, ay, az, bx, by, bz):
-    """a x b with each component's first product fused, as XLA:CPU
-    contracts `a1*b2 - a2*b1` into fma(a1, b2, -(a2*b1))."""
-    return (fma(ay, bz, -(az * by)), fma(az, bx, -(ax * bz)),
-            fma(ax, by, -(ay * bx)))
-
-
-def _dot(ax, ay, az, bx, by, bz):
-    """sum(a * b) as XLA:CPU reduces it: fma(az, bz, fma(ay, by, ax*bx))."""
-    return fma(az, bz, fma(ay, by, ax * bx))
-
-
 def _slab_window(box, o: V3, inv: V3, t_lo, t_hi):
     """The window (t_lo, t_hi) clipped to the padded slabs of a box [8]
     (min xyz, max xyz) that is not empty, in f32 as the kernels clip it."""
@@ -218,13 +200,6 @@ def slab_pass(box, o: V3, inv: V3, t_lo, t_hi):
     return t_lo <= t_hi
 
 
-def safe_inv(d: V3) -> V3:
-    """1/d per component, |d| clamped to DIR_EPS first (slab tests)."""
-    return V3(*(1.0 / torch.where(torch.abs(x) < DIR_EPS,
-                                  torch.where(x < 0.0, -DIR_EPS, DIR_EPS), x)
-                for x in d))
-
-
 def mt_argmin(tris, o: V3, d: V3, t_lo, t_hi, best):
     """One Moller-Trumbore step: L rays against the N triangles of `tris`
     ([4, 3, N] planes), each ray's hit kept only inside (t_lo, t_hi) and
@@ -235,31 +210,17 @@ def mt_argmin(tris, o: V3, d: V3, t_lo, t_hi, best):
     dimensions broadcast: rays [B, L] against tris [4, 3, B, 1, N] give
     [B, L] results.
 
-    The terms are those of the reference's `_trace_brute_xla`
-    (trace_api.py:74-85) with the multiply-adds that XLA:CPU fuses
-    written as explicit FMAs (`_cross`, `_dot`), so t matches the
-    reference's bit for bit, and with it every exact-t tie between
-    triangles that meet at an edge. The kernels compute the same
+    The test is `intersect.moller_trumbore`, the terms of the
+    reference's `_trace_brute_xla` (trace_api.py:74-85) with the
+    multiply-adds that XLA:CPU fuses written as explicit FMAs, so t
+    matches the reference's bit for bit, and with it every exact-t tie
+    between triangles that meet at an edge. The kernels compute the same
     operations in the same order."""
-    ox, oy, oz = (x[..., None] for x in o)
-    dx, dy, dz = (x[..., None] for x in d)
-    t_lo, t_hi = t_lo[..., None], t_hi[..., None]
-    v0x, v0y, v0z = tris[0]
-    e1x, e1y, e1z = tris[1]
-    e2x, e2y, e2z = tris[2]
-    valid = tris[3, 0] > 0.5
-    px, py, pz = _cross(dx, dy, dz, e2x, e2y, e2z)
-    det = _dot(e1x, e1y, e1z, px, py, pz)
-    ok = torch.abs(det) > MT_EPS
-    inv_det = torch.where(ok, 1.0 / torch.where(ok, det, 1.0), 0.0)
-    tx, ty, tz = ox - v0x, oy - v0y, oz - v0z
-    u = _dot(tx, ty, tz, px, py, pz) * inv_det
-    qx, qy, qz = _cross(tx, ty, tz, e1x, e1y, e1z)
-    v = _dot(dx, dy, dz, qx, qy, qz) * inv_det
-    t = _dot(e2x, e2y, e2z, qx, qy, qz) * inv_det
-    hit = (ok & valid & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-           & (t > t_lo) & (t < t_hi) & (t < best[..., None]))
-    t_cand = torch.where(hit, t, INF)
+    hit, t, _, _, _ = moller_trumbore(
+        [x[..., None] for x in o], [x[..., None] for x in d], tris[0],
+        tris[1], tris[2], t_lo[..., None],
+        torch.minimum(t_hi, best)[..., None])
+    t_cand = torch.where(hit & (tris[3, 0] > 0.5), t, INF)
     k = torch.argmin(t_cand, dim=-1)
     return t_cand.gather(-1, k[..., None]).squeeze(-1), k
 
@@ -279,7 +240,7 @@ def trace_plain(tri_planes, chunk_aabb, o: V3, d: V3, t_min, t_max):
     boxes = chunk_aabb.cpu().tolist()
     t_best = torch.full((r,), INF, dtype=torch.float32, device=device)
     idx_best = torch.full((r,), -1, dtype=torch.int32, device=device)
-    inv = safe_inv(d)
+    inv = safe_inv_dir(d)
     live = t_max > 0.0
     for c in range(nc):
         sel = live & slab_pass(boxes[c], o, inv, t_min,
@@ -306,7 +267,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-fmad=false", "-Xptxas", "-v"]
 KERNEL_SOURCES = ("trace.cu", "trace_stream.cu", "trace_inst.cu",
-                  "trace_vpu.cu", "trace_mxu.cu", "gather.cu")
+                  "trace_vpu.cu", "trace_mxu.cu", "gather.cu",
+                  "trace_bvh.cu")
 
 
 def _nvcc() -> str:
@@ -321,7 +283,8 @@ def _nvcc() -> str:
 def load_kernels() -> ctypes.CDLL:
     """Build the traversal kernels K1, K2 (`csrc/trace.cu`), K3
     (`csrc/trace_stream.cu`), K4 (`csrc/trace_inst.cu`), K5
-    (`csrc/trace_vpu.cu`) and K6 (`csrc/trace_mxu.cu`) and the table
+    (`csrc/trace_vpu.cu`), K6 (`csrc/trace_mxu.cu`) and K8 (the BVH walk,
+    `csrc/trace_bvh.cu`, wrapped by `ops/traversal.py`) and the table
     gather K7 (`csrc/gather.cu`, wrapped by `ops/table_gather.py`) into
     one library with one nvcc call for sm_90a (at first use, cached by
     source hash) and bind them. Once per process: every wrapper calls
@@ -348,6 +311,9 @@ def load_kernels() -> ctypes.CDLL:
     lib.tpurt_mxu_any_hit.argtypes = [ptr] * 6 + [i32] * 3 + [ptr] * 3
     lib.tpurt_table_gather.restype = i32
     lib.tpurt_table_gather.argtypes = [ptr] * 2 + [i32] * 3 + [ptr] * 2
+    for fn in (lib.tpurt_bvh_closest_hit, lib.tpurt_bvh_any_hit):
+        fn.restype = i32
+        fn.argtypes = [ptr] * 7 + [i32] * 2 + [ptr] * 3
     return lib
 
 
@@ -437,10 +403,19 @@ def scene_trace(scene, ray_o: V3, ray_d: V3, t_min, t_max, any_hit=False,
     if active is not None:
         t_max = torch.where(active, t_max, 0.0)
     # imported here: these modules build on this one
-    from . import trace_inst, trace_mxu, trace_vpu
+    from . import trace_inst, trace_mxu, trace_vpu, traversal
     name, grp, passes = ("instanced", 1, 0) if scene.instanced else \
         trace_route(scene.kernel, scene.incull, scene.tri_planes.shape[2],
-                    any_hit)
+                    any_hit, scene.brute_max)
+    if name == "bvh":
+        bvh = (scene.bvh_rec, scene.bvh_skip, scene.bvh_tri)
+        if device.type == "cpu":
+            res = traversal.trace_plain(*bvh, ray_o, ray_d, t_min, t_max,
+                                        any_hit=any_hit)
+            return {"t": res["t"], "tri": res["tri"]}
+        return traversal.trace_bvh_kernel(
+            *bvh, torch.stack(list(ray_o)), torch.stack(list(ray_d)),
+            t_min.contiguous(), t_max.contiguous(), any_hit=any_hit)
     if name == "vpu":
         return trace_vpu.trace_vpu(scene.tri_planes, scene.chunk_aabb, ray_o,
                                    ray_d, t_min, t_max)

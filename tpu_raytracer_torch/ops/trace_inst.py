@@ -24,8 +24,9 @@ import numpy as np
 import torch
 
 from ..utils.vec3 import V3
-from .trace_api import (CT, INF, LAUNCHES, _check, fma, load_kernels,
-                        mt_argmin, safe_inv, slab_pass)
+from .intersect import INF, fma, safe_inv_dir
+from .trace_api import (CT, LAUNCHES, _check, load_kernels, mt_argmin,
+                        slab_pass)
 
 # triangles per object group, the instanced cull unit: two 128-triangle
 # chunks (the reference's INST_GRP = 2)
@@ -117,7 +118,7 @@ def trace_instanced_plain(obj_planes, obj_gaabb, inst_table, inst_aabb,
     t_best = torch.full((r,), INF, dtype=torch.float32, device=device)
     idx_best = torch.full((r,), -1, dtype=torch.int32, device=device)
     inst_best = torch.full((r,), -1, dtype=torch.int32, device=device)
-    inv = safe_inv(d)
+    inv = safe_inv_dir(d)
     live = t_max > 0.0
     inst_boxes = inst_aabb.cpu().tolist()
     group_boxes = obj_gaabb.T.cpu().tolist()
@@ -130,7 +131,7 @@ def trace_instanced_plain(obj_planes, obj_gaabb, inst_table, inst_aabb,
             continue
         oo, od = to_object(inst_table[i], V3(*(x[lanes_i] for x in o)),
                            V3(*(x[lanes_i] for x in d)))
-        o_inv = safe_inv(od)
+        o_inv = safe_inv_dir(od)
         lo_i, hi_i = t_min[lanes_i], t_max[lanes_i]
         for _, g in run:
             sel = slab_pass(group_boxes[g], oo, o_inv, lo_i,

@@ -28,9 +28,10 @@ import torch
 
 from ..utils.vec3 import V3
 from . import worklist
-from .trace_api import (CT, INCULL_MAX_CHUNKS, INF, LAUNCHES, MT_EPS,
-                        MXU_MAX_TP, MXUW_GROUP, _check, _cross, _dot,
-                        load_kernels, safe_inv, slab_pass, trace_route)
+from .intersect import INF, MT_EPS, cross, dot, safe_inv_dir
+from .trace_api import (BRUTE_FORCE_MAX_TRIS, CT, INCULL_MAX_CHUNKS,
+                        LAUNCHES, MXU_MAX_TP, MXUW_GROUP, _check,
+                        load_kernels, slab_pass, trace_route)
 
 # K6's capacities (csrc/trace_mxu.cu): the routes' largest tables in
 # chunks, and the in-kernel cull's in groups of 2
@@ -54,24 +55,24 @@ def mt_coef(tri_planes: torch.Tensor, wide: bool = False,
     [det | u | v | t] blocks of CT. Wide: [16, NG*4*group*CT], group g
     a [det | u | v | t]-major block of 4*group*CT columns, each quantity
     chunk-major. The crosses and the dot fuse their first products as
-    XLA:CPU does (`trace_api._cross`, `_dot`). Padding triangles are all
+    XLA:CPU does (`intersect.cross`, `dot`). Padding triangles are all
     zero, so det = 0 and they never hit. K6 reads only the narrow layout
     (through `kernel_table`); the wide one is kept as the reference's twin
     for its tests."""
     tp = tri_planes.shape[2]
     nc = tp // CT
     v0, e1, e2 = tri_planes[0], tri_planes[1], tri_planes[2]
-    n = _cross(*e1, *e2)
+    n = cross(*e1, *e2)
     z = torch.zeros_like(v0[0])
 
     def skew(e):
         # entry 3*i + j: o_i d_j S = det3(o, d, e)
         return [z, e[2], -e[1], -e[2], z, e[0], e[1], -e[0], z]
 
-    c_det = [z] * 9 + list(_cross(*e2, *e1)) + [z] * 4
-    c_u = skew(e2) + list(_cross(*v0, *e2)) + [z] * 4
-    c_v = [-s for s in skew(e1)] + [-x for x in _cross(*v0, *e1)] + [z] * 4
-    c_t = [z] * 12 + list(n) + [-_dot(*v0, *n)]
+    c_det = [z] * 9 + list(cross(*e2, *e1)) + [z] * 4
+    c_u = skew(e2) + list(cross(*v0, *e2)) + [z] * 4
+    c_v = [-s for s in skew(e1)] + [-x for x in cross(*v0, *e1)] + [z] * 4
+    c_t = [z] * 12 + list(n) + [-dot(*v0, *n)]
     coef = torch.stack([torch.stack(cols) for cols in (c_det, c_u, c_v, c_t)])
     if not wide:                                       # [4, 16, Tp]
         return (coef.reshape(4, 16, nc, CT).permute(1, 2, 0, 3)
@@ -135,11 +136,14 @@ def table_columns(table: torch.Tensor) -> torch.Tensor:
 
 
 def mode_table(tri_planes: torch.Tensor, kernel: str, incull: bool,
-               instanced: bool = False):
+               instanced: bool = False,
+               brute_max: int = BRUTE_FORCE_MAX_TRIS):
     """`kernel_table` of a flattened scene whose mode routes its
     closest-hit queries to K6 (its any-hit queries go there only with
-    them), else None."""
-    route = trace_route(kernel, incull, tri_planes.shape[2], False)[0]
+    them), else None: past `brute_max` slots every query walks the BVH,
+    so no mode builds it."""
+    route = trace_route(kernel, incull, tri_planes.shape[2], False,
+                        brute_max)[0]
     if instanced or route not in ("mxu", "incull"):
         return None
     return kernel_table(tri_planes)
@@ -230,7 +234,7 @@ def lane_chunks(chunk_aabb, grp: int, incull: bool, o: V3, d: V3, t_min,
     box tests), or with `incull` the padded union box of c's group of grp
     chunks (the in-kernel guard of #5, `slab_any`, :727-743, made
     conservative as K1's cull is)."""
-    inv = safe_inv(d)
+    inv = safe_inv_dir(d)
     nc = chunk_aabb.shape[0]
     if incull:
         boxes = worklist.group_boxes(chunk_aabb, grp).cpu().tolist()

@@ -21,7 +21,8 @@ import numpy as np
 import torch
 
 from ..utils.vec3 import V3
-from .trace_api import CT, INF, launch_sweep, mt_argmin, safe_inv
+from .intersect import INF, safe_inv_dir
+from .trace_api import CT, launch_sweep, mt_argmin
 
 BLOCK = CT                # rays per block
 MAX_UNITS = 64            # the kernel's unit capacity (TPURT_MAX_UNITS)
@@ -120,7 +121,7 @@ def trace_stream_plain(tri_planes, chunk_aabb, o: V3, d: V3, t_min, t_max,
     nc = tri_planes.shape[2] // CT
     grp, n_units = stream_units(nc)
     nb = max(-(-r // BLOCK), 1)
-    inv = safe_inv(d)
+    inv = safe_inv_dir(d)
     live = t_max > 0.0
 
     # 1. each lane's entry into each unit box: its bit, the block's entry

@@ -21,7 +21,8 @@ import torch
 
 from ..utils.vec3 import V3
 from . import trace_stream, worklist
-from .trace_api import (CT, INF, MXUF_MAX_TP, SWEPT_MAX_UNITS, launch_sweep,
+from .intersect import INF
+from .trace_api import (CT, MXUF_MAX_TP, SWEPT_MAX_UNITS, launch_sweep,
                         mt_argmin)
 
 BLOCK = 128       # rays per block of the plain version's worklists

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from .trace_api import DIR_EPS, INF
+from .intersect import DIR_EPS, INF
 
 
 def pad_boxes(aabb: torch.Tensor) -> torch.Tensor:

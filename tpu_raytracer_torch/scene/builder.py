@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 from ..ops import bvh as bvh_ops
-from ..ops.trace_api import MXUF_MAX_TP, check_mode, pack_triangles
+from ..ops.trace_api import (BRUTE_FORCE_MAX_TRIS, MXUF_MAX_TP, check_mode,
+                              pack_triangles)
 from ..ops.trace_inst import GROUP, INST_COLS, pack_triangles_instanced
 from ..ops.trace_mxu import mode_table
 from ..utils import math3d
@@ -28,13 +29,6 @@ from .material import NO_TEXTURE, Material, pack_materials
 from .resources import CompiledScene
 
 TEXTURE_SIZE = 1024  # reference: scene/mod.rs TEXTURE_WIDTH/HEIGHT = 1024
-
-# The reference's routing caps, which its instancing="auto" rule reads
-# (tpu_raytracer/ops/trace_api.py:45, ops/pallas_trace.py:203): world
-# triangles beyond the swept path's cap, and object triangle slots within
-# its instanced kernel's VMEM-resident cap (MXUF_MAX_TP).
-BRUTE_FORCE_MAX_TRIS = 2 * 1024 * 1024
-
 
 def _oct_decode_np(e: np.ndarray) -> np.ndarray:
     """Octahedral decode (host, matches gbuffer.wgsl:38-44)."""
@@ -219,7 +213,8 @@ class SceneBuilder:
                 mesh_tri_off)
 
     def build(self, device, instancing: str = "auto", kernel: str = "mxuf2",
-              incull: bool = False) -> CompiledScene:
+              incull: bool = False,
+              brute_max: int | None = None) -> CompiledScene:
         """Compile the scene onto `device` (builder.py:255-565 of the
         reference).
 
@@ -233,10 +228,20 @@ class SceneBuilder:
         and TPU_RT_INCULL), stored on the scene with the coefficient table
         K6 reads when a route of the mode takes it (built once here, as
         the reference's builder builds `coef48` for its mode). Instanced
-        scenes keep the mode and ignore it."""
+        scenes keep the mode and ignore it.
+        brute_max: the triangle slots past which a flattened scene's
+        queries take the BVH walk instead of a sweep under every mode
+        (the reference's TPU_RT_BRUTE_MAX; None: BRUTE_FORCE_MAX_TRIS);
+        such a scene builds no coefficient table. The instancing="auto"
+        rule reads BRUTE_FORCE_MAX_TRIS, as the reference's does."""
         if instancing not in ("auto", "on", "off"):
             raise ValueError(f"instancing={instancing!r}")
-        mode = {"kernel": check_mode(kernel), "incull": bool(incull)}
+        brute_max = (BRUTE_FORCE_MAX_TRIS if brute_max is None
+                     else int(brute_max))
+        if brute_max < 1:
+            raise ValueError(f"brute_max={brute_max}: want a positive int")
+        mode = {"kernel": check_mode(kernel), "incull": bool(incull),
+                "brute_max": brute_max}
         t_world = sum(self.meshes[m].num_triangles
                       for m, _, _ in self.instances)
         used = sorted({m for m, _, _ in self.instances})

@@ -7,7 +7,8 @@ integer components, indices widened to u32 (a primitive without indices
 takes 0..N-1), and PBR metallic-roughness materials with base-color,
 normal, occlusion, emissive and MR texture indices plus the
 KHR_materials_transmission and KHR_materials_ior extensions. Images
-decode through `utils/png.py` to RGBA uint8.
+decode to RGBA uint8 through `utils/png.py` or `utils/jpeg.py`, the two
+formats core glTF 2.0 allows, chosen by the stream's magic bytes.
 
 Returns (meshes, materials, images, material_indices) as the reference
 does; texture ids in the materials index `images` and are remapped to
@@ -23,7 +24,7 @@ import struct
 
 import numpy as np
 
-from ..utils import png
+from ..utils import jpeg, png
 from .geometry import Mesh, oct_encode_np
 from .material import Material
 
@@ -94,14 +95,26 @@ def _read_accessor(gltf: dict, buffers: list, accessor_idx: int) -> np.ndarray:
     return np.array(arr)
 
 
+def decode_image(data: bytes) -> np.ndarray:
+    """PNG or JPEG bytes -> RGBA uint8 [H, W, 4], the decoder chosen by
+    the magic bytes; ValueError naming anything else."""
+    if data[:4] == b"\x89PNG":
+        return png.decode(data)
+    if data[:2] == b"\xff\xd8":
+        return jpeg.decode(data)
+    raise ValueError(f"image stream starting {bytes(data[:8])!r} is neither "
+                     f"PNG nor JPEG")
+
+
 def _decode_image(gltf: dict, buffers: list, base_dir: str,
                   image_idx: int) -> np.ndarray:
     img = gltf["images"][image_idx]
     if "uri" in img:
-        return png.decode(_uri_bytes(img["uri"], base_dir))
+        return decode_image(_uri_bytes(img["uri"], base_dir))
     view = gltf["bufferViews"][img["bufferView"]]
     off = view.get("byteOffset", 0)
-    return png.decode(buffers[view["buffer"]][off:off + view["byteLength"]])
+    return decode_image(
+        buffers[view["buffer"]][off:off + view["byteLength"]])
 
 
 def _tex_image(gltf: dict, tex_idx: int) -> int:

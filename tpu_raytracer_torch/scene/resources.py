@@ -17,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from ..ops.trace_api import BRUTE_FORCE_MAX_TRIS
 from ..ops.trace_inst import GROUP
 
 
@@ -94,10 +95,12 @@ class CompiledScene:
     # the trace-kernel mode of a flattened scene's queries
     # (`ops/trace_api.py:trace_route`), and K6's coefficient table
     # [Tp/128, 8, 4, 32, 16] bf16 (`ops/trace_mxu.py:kernel_table`) when a
-    # route of the mode reads it
+    # route of the mode reads it; past `brute_max` triangle slots every
+    # query takes the BVH walk (the reference's TPU_RT_BRUTE_MAX)
     kernel: str = "mxuf2"
     incull: bool = False
     coef48_t: Optional[torch.Tensor] = None
+    brute_max: int = BRUTE_FORCE_MAX_TRIS
 
     @property
     def num_triangles(self) -> int:
