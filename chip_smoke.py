@@ -197,13 +197,27 @@ is non-zero):
                 2 frames (K8, no K1/K2) against phase
                 5's, PSNR >= VPU_DB (the same hits but exact-t ties).
                 Prints the phase's wall time.
-Every frame phase (5, 6, 8, 10, 11, 14, 15, 18, 19, 20, 22, 23) also
+ 24. tiles    - the frame over row bands (parallel/tiles.py):
+                bench.py:headline_tiled's sequence (the Cornell box at
+                512^2, 2 warm-up + 8 timed frames, cam.uniform(1.0, i,
+                2), static_ok from the second frame) over 4 bands of 128
+                rows on this card (make_mesh(["cuda:0"] * 4)), and over 4
+                cards where the host has them. The last LDR against the
+                one-device frame of the same sequence, max abs <= 1e-5
+                (the reference's bound, tests/test_tiles.py:49), rays
+                within 1e-3 a frame; then 4 frames with the camera moved
+                at frame 2, held the same way. K1, K2 and K7 launched in
+                every band and no other trace kernel; launches a frame
+                beside 4x phase 5's, fps and Mrays/s beside the one-device
+                sequence's. Prints the measured gaps.
+Every frame phase (5, 6, 8, 10, 11, 14, 15, 18, 19, 20, 22, 23, 24) also
 checks that K7 launched and prints its launches a frame. Then one JSON
 line of per-kernel results (K1-K6: time, plain time and bound at 524,288
 random rays; K7: at 524,288 rows of Cornell's tri_table; K8: at the big
 scene's 262,144 incoherent rays; launches on each kernel's frames; K1,
-K2 and K7 also their launches a frame on config 4's and each stand-in's
-frames, K8 on the big scene's and the walked Cornell frames,
+K2 and K7 also their launches a frame on config 4's, each stand-in's
+and the 4-band Cornell frames, K8 on the big scene's and the walked
+Cornell frames,
 `launches_per_frame`), and last the device line {"ok": true, "device":
 {...}}. Without a CUDA device it exits with 1 and prints no result.
 
@@ -296,6 +310,12 @@ BIG_SUBDIV, BIG_TRIANGLES, UCB_TRIANGLES = 8, 2 * 1310720 + 4, 3 * 327680 + 4
 WALK_RAYS, WALK_REPS = 262144, 5
 WALK_WARMUP, WALK_TIMED = 2, 4
 SLAB_FLOPS = 25     # one box record: csrc/trace_bvh.cu:box_hit
+# row bands (phase 24): bench.py:headline_tiled's sequence (Cornell 512^2,
+# 2 + 8 frames, cam.uniform(1.0, i, 2)) over 4 bands of 128 rows, the
+# reference's bound against the one-device frame (tests/test_tiles.py:49),
+# and test_tiled_matches_single_chip_with_motion's 4 frames (moved at 2)
+TILE_BANDS, TILE_LDR_ATOL, TILE_RAYS_ATOL = 4, 1e-5, 1e-3
+TILE_MOTION_FRAMES, TILE_MOVE_AT = 4, 2
 # K7's index counts: the random sets, the app's, config 4's and config 5's
 # frames
 GATHER_RAYS = (262144, 524288, APP_W * APP_H, FLY_W * FLY_H, 3840 * 2160)
@@ -1492,6 +1512,135 @@ def _walk_phase(torch, dev, card, every, c_first, ptxas):
     return out, launches, WALK_WARMUP + WALK_TIMED, c_launches, len(c_first)
 
 
+def _tiled_sequence(torch, render, state, dev, frames, warmup,
+                    move_at=None):
+    """`frames` Cornell frames of bench.py:headline_tiled's camera
+    sequence through `render(uniform, frame_count, state, static_ok)`,
+    the camera moved (and the count reset) at frame `move_at`. Returns
+    (the last ldr, seconds of the frames after `warmup`, their rays, the
+    per-band launches summed over every frame or None)."""
+    from tpu_raytracer_torch.render import camera, renderer
+
+    cam = camera.CameraController()
+    fc, rays, bands, t0 = 0, [], None, None
+    for i in range(frames):
+        if i == move_at:          # move: resets accumulation (state.rs:151)
+            cam.press("w")
+            cam.update(0.05)
+            cam.release("w")
+            fc = 0
+        uniform = renderer.camera_to_device(cam.uniform(1.0, fc, 2), dev)
+        ldr, hdr, state, aux = render(uniform, fc, state, fc > 0)
+        fc += 1
+        if "band_launches" in aux:
+            bands = [{k: (bands[b][k] if bands else 0) + v
+                      for k, v in launched.items()}
+                     for b, launched in enumerate(aux["band_launches"])]
+        if i == warmup - 1:
+            torch.cuda.synchronize()
+            t0 = time.time()
+        elif i >= warmup:
+            rays.append(float(aux["rays"]))    # a host read, as the bench's
+    torch.cuda.synchronize()
+    dt = time.time() - t0 if t0 is not None else None
+    if not (torch.isfinite(ldr).all() and ldr.min() >= 0 and ldr.max() <= 1
+            and torch.isfinite(hdr).all()):
+        raise AssertionError("tiled phase: ldr or hdr is not finite")
+    return ldr, dt, rays, bands
+
+
+def _tiles_phase(torch, dev, card, every, c_fps, c_launches):
+    """24. the frame over row bands (parallel/tiles.py): 4 bands of the
+    512^2 Cornell frame on this card (and on 4 cards where there are),
+    held to the one-device frames of the same sequences. Returns the
+    launches of the 4 bands on this card over their WARMUP + TIMED
+    frames."""
+    from tpu_raytracer_torch.models import scenes
+    from tpu_raytracer_torch.ops import trace_api
+    from tpu_raytracer_torch.parallel import tiles
+    from tpu_raytracer_torch.render import pipeline
+
+    t_phase = time.time()
+    scene = scenes.create_cornell_box(dev)
+    on = ["closest_hit", "any_hit", "table_gather"]
+    off = [k for k in every if k not in on]
+    frames = WARMUP + TIMED
+
+    def one_device(uniform, fc, state, static_ok):
+        return pipeline.render_frame(scene, uniform, fc, state, WIDTH,
+                                     HEIGHT, static_ok=static_ok)
+
+    def fresh():
+        return pipeline.init_state(WIDTH, HEIGHT, dev)
+
+    ldr1, dt1, rays1, _ = _tiled_sequence(torch, one_device, fresh(), dev,
+                                          frames, WARMUP)
+    moved1, _, _, _ = _tiled_sequence(torch, one_device, fresh(), dev,
+                                      TILE_MOTION_FRAMES, TILE_MOTION_FRAMES,
+                                      TILE_MOVE_AT)
+    fps1 = TIMED / dt1
+    print(f"tiles: one-device Cornell {WIDTH}x{HEIGHT} (bench.py:"
+          f"headline_tiled's sequence), {TIMED} timed frames: {fps1:.4f} fps, "
+          f"{sum(rays1) / dt1 / 1e6:.4f} Mrays/s (phase 5: {c_fps:.4f} fps) "
+          f"[{card}]", flush=True)
+
+    meshes = [("1 card", [dev] * TILE_BANDS)]
+    if torch.cuda.device_count() >= TILE_BANDS:
+        meshes.append((f"{TILE_BANDS} cards",
+                       [torch.device("cuda", i) for i in range(TILE_BANDS)]))
+    one_card = None
+    for what, devices in meshes:
+        mesh = tiles.make_mesh(devices)
+        tiled = tiles.make_render_frame_tiled(mesh, WIDTH, HEIGHT)
+        scene_r = tiles.replicate(scene, mesh)
+
+        def render(uniform, fc, state, static_ok):
+            return tiled(scene_r, uniform, fc, state, static_ok)
+
+        def fresh_bands():
+            return tiles.shard_state(fresh(), mesh)
+
+        trace_api.reset_launch_counts()
+        ldr, dt, rays, bands = _tiled_sequence(torch, render, fresh_bands(),
+                                               dev, frames, WARMUP)
+        launches = dict(trace_api.LAUNCHES)
+        moved, _, _, _ = _tiled_sequence(torch, render, fresh_bands(), dev,
+                                         TILE_MOTION_FRAMES,
+                                         TILE_MOTION_FRAMES, TILE_MOVE_AT)
+        gap = float((ldr - ldr1).abs().max())
+        gap_moved = float((moved - moved1).abs().max())
+        ray_gap = max(abs(a - b) for a, b in zip(rays, rays1))
+        if gap > TILE_LDR_ATOL or gap_moved > TILE_LDR_ATOL \
+                or ray_gap > TILE_RAYS_ATOL:
+            raise AssertionError(
+                f"{TILE_BANDS} bands on {what}: ldr max abs {gap:.3g} (moved "
+                f"{gap_moved:.3g}), rays {ray_gap:.3g} off the one-device "
+                f"frames (bounds {TILE_LDR_ATOL}, {TILE_RAYS_ATOL})")
+        for b, band in enumerate(bands):
+            if min(band[k] for k in on) <= 0 or any(band[k] for k in off):
+                raise AssertionError(f"band {b} on {what} must launch {on} "
+                                     f"and none of {off}: {band}")
+        if launches != {k: sum(b[k] for b in bands) for k in launches}:
+            raise AssertionError(f"the bands' launches {bands} do not sum "
+                                 f"to the run's {launches}")
+        per_frame = {k: launches[k] / frames for k in on}
+        print(f"tiles: {TILE_BANDS} bands of {HEIGHT // TILE_BANDS} rows on "
+              f"{what}, Cornell {WIDTH}x{HEIGHT}, {TIMED} timed frames: "
+              f"{TIMED / dt:.4f} fps, {sum(rays) / dt / 1e6:.4f} Mrays/s "
+              f"(one device {fps1:.4f} fps); last ldr max abs {gap:.3g} "
+              f"against the one-device frame, moved camera {gap_moved:.3g} "
+              f"(bound {TILE_LDR_ATOL}), rays max gap {ray_gap:.3g} a frame; "
+              f"launches a frame {per_frame} (4x phase 5's: "
+              f"{ {k: TILE_BANDS * c_launches[k] / frames for k in on} }); "
+              f"per band {[{k: b[k] for k in on} for b in bands]} [{card}]",
+              flush=True)
+        if one_card is None:
+            one_card = launches
+    print(f"tiles: phase 24 took {time.time() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return one_card
+
+
 def main() -> int:
     import torch
 
@@ -1598,6 +1747,7 @@ def main() -> int:
     dt, rays, launches, c_ldrs = _run_frames(
         torch, scene, dev, WARMUP, TIMED, "Cornell", on=flat_kernels,
         off=[k for k in every if k not in flat_kernels])
+    c_fps = TIMED / dt                            # for phase 24
     print("frame: " + _frame_line("Cornell ReSTIR", TIMED, dt, rays,
                                   launches, card, WARMUP + TIMED),
           flush=True)
@@ -2203,6 +2353,9 @@ def main() -> int:
     k8, w_launches, w_frames, cw_launches, cw_frames = _walk_phase(
         torch, dev, card, every, c_first, ptxas)
 
+    # 24. the frame over 4 row bands, against the one-device frame
+    t_launches = _tiles_phase(torch, dev, card, every, c_fps, launches)
+
     n = TIMED_RAYS[-1]
 
     def entry(name, src, line, launched, err, times, bound):
@@ -2228,10 +2381,13 @@ def main() -> int:
         "config 1": (p_launches, PROGRESSIVE_FRAMES),
         "config 5": (s_launches, SHOT_FRAMES),
         "config 4": (f_launches, f_frames),
-        **{f"stand-in {k}": v for k, v in standins.items()}}
+        **{f"stand-in {k}": v for k, v in standins.items()},
+        "tiled Cornell (4 bands)": (t_launches, WARMUP + TIMED)}
     per_frame = {k: {"config 4": f_launches[k] / f_frames,
                      **{f"stand-in {n}": v[k] / f
-                        for n, (v, f) in standins.items()}}
+                        for n, (v, f) in standins.items()},
+                     "tiled Cornell (4 bands)": t_launches[k]
+                     / (WARMUP + TIMED)}
                  for k in ("closest_hit", "any_hit")}
     print(json.dumps({"kernels": [
         {**entry("closest_hit", "trace.cu", 392, launches["closest_hit"],

@@ -1,6 +1,7 @@
 """The port's app layer against the reference's: config and CLI parsing,
 letterbox, FrameStats, checkpoints (each package loads the other's), the
-debug views, the interactive loop, and `python -m tpu_raytracer_torch`.
+debug views, the interactive loop, its row bands (--tiles, --halo), and
+`python -m tpu_raytracer_torch`.
 
 Tolerances, each with its measured value:
   - checkpoints: arrays, frame count and camera EXACTLY equal, across
@@ -202,9 +203,63 @@ def test_named_scene_loads(tmp_path, monkeypatch, name, writer, kw):
     assert scene.num_triangles > 500
     assert scene.num_lights == (3 if name == "truffle" else 1)
 
-def test_tiles_raise():
-    with pytest.raises(ValueError, match="--tiles 2"):
-        interactive.run(parse_args(["--tiles", "2", "--device", "cpu"]))
+def _tiled_app(tmp_path, tiles: int, frames: int, tag: str):
+    """interactive.run on the CPU over `tiles` row bands; returns the
+    telemetry, the PNG it wrote and its checkpoint."""
+    from tpu_raytracer_torch.utils import png
+
+    out = tmp_path / f"out_{tag}"
+    ck = str(tmp_path / f"ck_tiles{tiles}.npz")
+    tel = interactive.run(parse_args([
+        "--scene", "cornell_diffuse", "--scale=32x32", "--device", "cpu",
+        "--tiles", str(tiles), "--halo", "16", "--max-frames", str(frames),
+        "--target-spp", "2", "--no-preview", "--checkpoint", ck,
+        "--out-dir", str(out)]))
+    shots = sorted(out.glob("*.png"))
+    img = png.decode(shots[-1].read_bytes()) if shots else None
+    return tel, img, checkpoint.load(ck)
+
+
+def test_tiles_app_matches_one_device(tmp_path):
+    """--device cpu --tiles 2 renders over two row bands: its screenshot
+    and checkpoint equal --tiles 1's, and its checkpoint resumes onto the
+    bands (tolerance: none; the bands' frames equal the one-device
+    frames bit for bit here)."""
+    runs = {}
+    for tiles in (2, 1):
+        first = _tiled_app(tmp_path, tiles, 2, f"{tiles}a")
+        resumed = _tiled_app(tmp_path, tiles, 1, f"{tiles}b")
+        runs[tiles] = (first, resumed)
+    for (tel, img, (state, frames, _)), (r_tel, r_img, (r_state, r_frames,
+                                                        _)) \
+            in zip(runs[2], runs[1]):
+        assert tel["frames"] == r_tel["frames"] and frames == r_frames
+        for k in state:     # bit patterns: seeds ride as f32 words
+            assert np.array_equal(state[k].view(np.uint32),
+                                  r_state[k].view(np.uint32)), k
+    (_, img, _), (_, r_img, _) = runs[2][0], runs[1][0]
+    assert img is not None and img.shape[:2] == (32, 32)
+    assert np.array_equal(img, r_img)
+    assert runs[2][0][0]["mrays_per_s"] > 0   # FrameStats, frame 2
+    assert runs[2][1][2][1] == 3            # resumed at 2, one more frame
+
+
+def test_tiles_fall_back_to_one_card(monkeypatch, capsys):
+    """--tiles N on CUDA with fewer than N cards prints the reference's
+    message and renders on one device."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert interactive._tile_mesh(2, torch.device("cuda:0")) is None
+    assert "--tiles 2 requested but only 1 device(s); falling back to " \
+        "single-chip" in capsys.readouterr().out
+    assert interactive._tile_mesh(1, torch.device("cuda:0")) is None
+    mesh = interactive._tile_mesh(3, torch.device("cpu"))
+    assert mesh.devices == [torch.device("cpu")] * 3
+
+
+def test_halo_flag_parses_like_reference():
+    for argv in ([], ["--halo", "4", "--tiles", "8"]):
+        got, want = parse_args(argv), ref_parse_args(argv)
+        assert (got.halo, got.tiles) == (want.halo, want.tiles)
 
 
 def test_module_runs_on_cpu(tmp_path):

@@ -5,7 +5,8 @@ Tolerances: none. `jpeg.decode` equals Pillow 12.1.0's
 `np.asarray(Image.open(...).convert("RGBA"))` (libjpeg-turbo 3.1.3)
 byte for byte in every case: the inputs are encoded here by Pillow from
 seeded numpy images, over sizes, chroma subsampling, quality, optimized
-Huffman tables, restart intervals and grayscale.
+Huffman tables, restart intervals, grayscale, progressive streams and
+CMYK.
 """
 
 from io import BytesIO
@@ -89,20 +90,96 @@ def _patched(marker: int, precision: int = 8) -> bytes:
     return bytes(data)
 
 
-def _cmyk() -> bytes:
+PROGRESSIVE_SIZES = [(1, 1), (37, 23), (100, 37)]                # (w, h)
+
+
+@pytest.mark.parametrize("restart", [0, 1, 3])
+@pytest.mark.parametrize("quality", [50, 95])
+@pytest.mark.parametrize("subsampling", [0, 1, 2])
+@pytest.mark.parametrize("size", PROGRESSIVE_SIZES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_progressive_equals_pillow(size, subsampling, quality, restart):
+    """SOF2 streams in Pillow's scan script: DC first and refine, AC
+    first with end-of-band runs, AC refine with correction bits, at odd
+    sizes, with and without restart markers."""
+    kw = dict(progressive=True, subsampling=subsampling, quality=quality)
+    if restart:
+        kw["restart_marker_blocks"] = restart
+    data = _encode(_image(*size, seed=4), **kw)
+    assert data[data.index(b"\xff\xc2") + 1] == 0xC2
+    _assert_decodes_like_pillow(data)
+
+
+@pytest.mark.parametrize("restart", [0, 2])
+@pytest.mark.parametrize("size", PROGRESSIVE_SIZES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_progressive_grayscale_equals_pillow(size, restart):
+    kw = dict(progressive=True, quality=75)
+    if restart:
+        kw["restart_marker_blocks"] = restart
+    data = _encode(_image(*size, channels=1, seed=6), **kw)
+    assert Image.open(BytesIO(data)).mode == "L"
+    _assert_decodes_like_pillow(data)
+
+
+def _cmyk(w=8, h=8, **kw) -> bytes:
     out = BytesIO()
-    Image.fromarray(_image(8, 8, seed=3)).convert("CMYK").save(
-        out, format="JPEG")
+    Image.fromarray(_image(w, h, seed=3)).convert("CMYK").save(
+        out, format="JPEG", **kw)
     return out.getvalue()
 
 
+@pytest.mark.parametrize("case", [
+    dict(), dict(quality=95, restart_marker_blocks=2),
+    dict(progressive=True)], ids=["baseline", "restart", "progressive"])
+@pytest.mark.parametrize("size", [(1, 1), (37, 23), (64, 64)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_cmyk_equals_pillow(size, case):
+    """Four components under Adobe transform 0: Pillow reads them
+    inverted (CMYK;I) and `convert("RGBA")` applies its integer CMYK to
+    RGB formula; the decoder repeats both."""
+    data = _cmyk(*size, **case)
+    assert Image.open(BytesIO(data)).mode == "CMYK"
+    _assert_decodes_like_pillow(data)
+
+
+def test_cmyk_conversion_equals_pillow_on_every_ink():
+    """The CMYK to RGB step alone against Pillow's Convert.c on random
+    samples covering every value of each ink."""
+    g = np.random.default_rng(8)
+    raw = g.integers(0, 256, (256, 64, 4)).astype(np.uint8)
+    raw[:, 0] = np.arange(256)[:, None]
+    want = np.asarray(Image.frombytes("CMYK", (64, 256), (255 - raw)
+                                      .tobytes()).convert("RGB"))
+    got = np.stack(jpeg._cmyk_to_rgb(list(raw.astype(np.int64)
+                                         .transpose(2, 0, 1))), axis=-1)
+    assert np.array_equal(got, want)
+
+
+def _ycck() -> bytes:
+    """A CMYK stream whose Adobe marker says transform 2 (YCCK)."""
+    data = bytearray(_cmyk())
+    adobe = data.index(b"Adobe")
+    data[adobe + 11] = 2
+    return bytes(data)
+
+
+def _truncated_progressive() -> bytes:
+    """A progressive stream cut after its first scan: its AC terms never
+    get their last bit, so libjpeg would smooth the blocks."""
+    data = _encode(_image(32, 32), progressive=True)
+    second = data.index(b"\xff\xda", data.index(b"\xff\xda") + 2)
+    return data[:second] + b"\xff\xd9"
+
+
 @pytest.mark.parametrize("data,words", [
-    (lambda: _encode(_image(32, 32), progressive=True), "progressive"),
-    (_cmyk, "CMYK"),
+    (_ycck, "YCCK"),
+    (_truncated_progressive, "incomplete progressive"),
     (lambda: _patched(0xC9), "arithmetic"),
     (lambda: _patched(0xC3), "lossless"),
     (lambda: _patched(0xC1, precision=12), "12-bit"),
-], ids=["progressive", "cmyk", "arithmetic", "lossless", "12-bit"])
+], ids=["ycck", "incomplete-progressive", "arithmetic", "lossless",
+        "12-bit"])
 def test_unsupported_modes_raise_naming_them(data, words):
     with pytest.raises(ValueError, match=words):
         jpeg.decode(data())

@@ -306,9 +306,7 @@ def test_truffle_frames_match_reference(named_scenes):
     assert p >= FRAME_DB, f"PSNR vs reference = {p:.2f} dB"
 
 
-def test_jpeg_texture_loads_like_the_reference(tmp_path, capsys):
-    """A .glb with a JPEG texture: the port decodes it (utils/jpeg.py)
-    and builds the reference's scene, tables and textures equal."""
+def _jpeg_texture_loads_like_the_reference(tmp_path, capsys, **save):
     from io import BytesIO
 
     from PIL import Image
@@ -317,7 +315,7 @@ def test_jpeg_texture_loads_like_the_reference(tmp_path, capsys):
 
     jpeg = BytesIO()
     texels = np.random.default_rng(7).integers(0, 256, (32, 32, 3), np.uint8)
-    Image.fromarray(texels).save(jpeg, format="JPEG")
+    Image.fromarray(texels).save(jpeg, format="JPEG", **save)
     part = pa.lathe(pa.sphere_profile(0.5, 8), nu=12)
     part["material"] = 0
     path = write_glb(str(tmp_path / "jpeg.glb"), [part], [jpeg.getvalue()],
@@ -333,6 +331,19 @@ def test_jpeg_texture_loads_like_the_reference(tmp_path, capsys):
     assert np.array_equal(port.color_tex.float().numpy(),
                           np.asarray(ref.color_tex)[..., :3].astype(
                               np.float32))
+
+
+def test_jpeg_texture_loads_like_the_reference(tmp_path, capsys):
+    """A .glb with a JPEG texture: the port decodes it (utils/jpeg.py)
+    and builds the reference's scene, tables and textures equal."""
+    _jpeg_texture_loads_like_the_reference(tmp_path, capsys)
+
+
+def test_progressive_jpeg_texture_loads_like_the_reference(tmp_path, capsys):
+    """The same with a progressive JPEG texture, the form a downloaded
+    glTF most often carries."""
+    _jpeg_texture_loads_like_the_reference(tmp_path, capsys,
+                                           progressive=True)
 
 
 def test_asset_path_finds_the_canonical_file_in_the_working_dir(

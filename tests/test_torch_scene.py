@@ -128,6 +128,8 @@ def test_import_leaves_jax_out():
             "tpu_raytracer_torch.ops.intersect, "
             "tpu_raytracer_torch.ops.traversal, "
             "tpu_raytracer_torch.utils.jpeg, "
+            "tpu_raytracer_torch.parallel.tiles, "
+            "tpu_raytracer_torch.parallel.views, "
             "tpu_raytracer_torch.scene.loader, "
             "tpu_raytracer_torch.__main__;"
             " bad = [m for m in sys.modules if m in ('jax', 'PIL') or "

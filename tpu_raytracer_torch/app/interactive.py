@@ -16,8 +16,9 @@ of winit):
     (state.rs:206-215), via the async saver thread,
   - checkpoint save on exit and resume on start (--checkpoint).
 
-Every frame renders as one frame on one device, 3840x2160 included;
-row bands over several devices (--tiles) are not ported yet.
+Every frame renders as one frame on one device, 3840x2160 included, or,
+under --tiles N, as N row bands over N devices (parallel/tiles.py): the
+first N CUDA devices, or N bands on the CPU with --device cpu.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from ..models import scenes as scene_catalog
 from ..ops import gbuffer as gbuffer_ops
 from ..ops import trace_api
 from ..ops.post import resolve_tonemap
+from ..parallel import tiles
 from ..render import camera as camera_mod
 from ..render import checkpoint, pipeline, renderer
 from ..utils.config import RenderConfig
@@ -129,19 +131,50 @@ def _device(name: str) -> torch.device:
     return dev
 
 
+def _tile_mesh(n: int, dev: torch.device):
+    """The mesh of `--tiles n`, or None for one device: n bands on the
+    CPU, or the first n CUDA devices; with fewer, the app says so and
+    renders on one device, as the reference does."""
+    if n <= 1:
+        return None
+    if dev.type == "cpu":
+        return tiles.make_mesh([dev] * n)
+    count = torch.cuda.device_count()
+    if count < n:
+        print(f"--tiles {n} requested but only {count} device(s); falling "
+              f"back to single-chip")
+        return None
+    return tiles.make_mesh([torch.device("cuda", i) for i in range(n)])
+
+
 def run(cfg: RenderConfig) -> dict:
     """Run the interactive loop; returns the telemetry (FrameStats over
     the last 60 frames), the frames rendered and the kernel launches of
     the run."""
-    if cfg.tiles > 1:
-        raise ValueError(f"--tiles {cfg.tiles}: row bands over several "
-                         f"devices are not ported yet (ROADMAP slice 17)")
     dev = _device(cfg.device)
     w, h = cfg.width, cfg.height
     scene = load_scene(cfg.scene, dev)
     cam = camera_mod.CameraController()
     state = pipeline.init_state(w, h, dev)
     frame_count = 0
+
+    # --tiles N: row bands over N devices (parallel/tiles.py), with the
+    # call shape of pipeline.render_frame; the state lives on the bands
+    mesh = _tile_mesh(cfg.tiles, dev)
+    if mesh is not None:
+        tiled = tiles.make_render_frame_tiled(mesh, w, h, cfg.halo)
+        scene_r = tiles.replicate(scene, mesh)
+
+        def render_fn(camera, fc, state, static_ok):
+            return tiled(scene_r, camera, fc, state, static_ok)
+    else:
+        def render_fn(camera, fc, state, static_ok):
+            return pipeline.render_frame(scene, camera, fc, state, w, h,
+                                         static_ok=static_ok)
+
+    def whole(state):
+        """The frame state as one dict on `dev`."""
+        return state if mesh is None else tiles.gather_state(state)
 
     if cfg.checkpoint and os.path.exists(cfg.checkpoint):
         st, frame_count, cam_state = checkpoint.load(cfg.checkpoint)
@@ -150,6 +183,8 @@ def run(cfg: RenderConfig) -> dict:
         cam.yaw, cam.pitch = cam_state["yaw"], cam_state["pitch"]
         cam.prev_view_proj = cam_state["prev_view_proj"]
         print(f"resumed from {cfg.checkpoint} at frame {frame_count}")
+    if mesh is not None:
+        state = tiles.shard_state(state, mesh)
 
     saver = ScreenshotSaver(cfg.out_dir)
     presenter = None
@@ -204,12 +239,11 @@ def run(cfg: RenderConfig) -> dict:
             uniform = renderer.camera_to_device(
                 cam.uniform(w / h, frame_count, scene.num_lights), dev)
             # dedup eligibility: same camera as last frame, scene untouched
-            ldr, hdr, state, aux = pipeline.render_frame(
-                scene, uniform, frame_count, state, w, h,
-                static_ok=frame_count > 0)
+            ldr, hdr, state, aux = render_fn(uniform, frame_count, state,
+                                             frame_count > 0)
 
             if debug_mode != 0:
-                gb = gbuffer_ops.unpack_gb(state["gb"])
+                gb = gbuffer_ops.unpack_gb(whole(state)["gb"])
                 ldr = debug_view(gb, hdr, debug_mode, w, h)
 
             frame_count += 1
@@ -227,7 +261,7 @@ def run(cfg: RenderConfig) -> dict:
                           and not auto_shot_done)
             if screenshot_requested or hit_target:
                 if cfg.denoise:
-                    img = denoised_screenshot(state["gb"], hdr, w, h,
+                    img = denoised_screenshot(whole(state)["gb"], hdr, w, h,
                                               cfg.denoise_iterations)
                 else:
                     img = torch.clamp(ldr.reshape(h, w, 3), 0.0, 1.0) ** 2.2
@@ -246,7 +280,7 @@ def run(cfg: RenderConfig) -> dict:
                     print(line, flush=True)
 
     if cfg.checkpoint:
-        checkpoint.save(cfg.checkpoint, state, frame_count,
+        checkpoint.save(cfg.checkpoint, whole(state), frame_count,
                         {"position": cam.position, "yaw": cam.yaw,
                          "pitch": cam.pitch,
                          "prev_view_proj": cam.prev_view_proj})

@@ -29,13 +29,18 @@ def _mat4_rows(m, x, y, z):
             for i in range(4)]
 
 
-def generate_primary_rays(camera, width: int, height: int):
-    """gbuffer.wgsl:96-105. Returns (origin V3, direction V3) per pixel."""
+def generate_primary_rays(camera, width: int, height: int, y0: int = 0,
+                          band_h: int | None = None):
+    """gbuffer.wgsl:96-105. Returns (origin V3, direction V3) per pixel
+    of the image rows [y0, y0 + band_h) (the whole image by default); a
+    band's rays are bit-equal to the same rows of the full frame's."""
     device = camera["ray_matrix"].device
+    if band_h is None:
+        band_h = height
     xs = (torch.arange(width, dtype=torch.float32, device=device) + 0.5) \
         / width
-    ys = (torch.arange(height, dtype=torch.float32, device=device) + 0.5) \
-        / height
+    ys = (float(y0) + torch.arange(band_h, dtype=torch.float32,
+                                   device=device) + 0.5) / height
     v, u = torch.meshgrid(ys, xs, indexing="ij")   # [H, W]
     ndc_x = (u * 2.0 - 1.0).reshape(-1)
     ndc_y = (1.0 - v * 2.0).reshape(-1)
@@ -50,9 +55,11 @@ def generate_primary_rays(camera, width: int, height: int):
     return origins, direction
 
 
-def render_gbuffer(scene, camera, width: int, height: int) -> dict:
-    """Returns the flat G-buffer dict consumed by trace_path / ReSTIR."""
-    ray_o, ray_d = generate_primary_rays(camera, width, height)
+def render_gbuffer(scene, camera, width: int, height: int, y0: int = 0,
+                   band_h: int | None = None) -> dict:
+    """Returns the flat G-buffer dict consumed by trace_path / ReSTIR,
+    for the image rows [y0, y0 + band_h)."""
+    ray_o, ray_d = generate_primary_rays(camera, width, height, y0, band_h)
     res = scene_trace(scene, ray_o, ray_d, T_MIN, T_MAX)
     valid = res["tri"] >= 0
 

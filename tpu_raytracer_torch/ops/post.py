@@ -14,8 +14,9 @@ accumulation, reversible tonemap, gamma encode (post.wgsl:61-282;
     feedback 0.98 -> 0.85 (:246-266);
   - inverse tonemap into the accumulation buffer, gamma 2.2 for display.
 
-The pass works on per-channel [H, W] planes; stencil taps are rolls
-masked by the image bounds. Camera jitter is disabled upstream as in the
+The pass works on per-channel [band_h, W] planes of one row band; stencil
+taps are rolls of the band's planes with their halo rows, masked by the
+image bounds. Camera jitter is disabled upstream as in the
 reference (camera.rs:202-203), so there is no unjitter resample.
 """
 
@@ -67,40 +68,49 @@ def resolve_tonemap(c):
 
 
 class _PlaneStencil:
-    """Shifted-window reads of per-channel [H, W] planes at static
-    (dy, dx) offsets; wrapped rolls are masked by the image bounds."""
+    """Shifted-window reads of per-channel planes at static (dy, dx)
+    offsets. The planes cover the view's band_h + 2 * halo rows; a tap
+    rolls them and crops the band's rows, so a roll's wrap lands in the
+    halo (which holds |dy| <= halo rows) or is masked by the global image
+    bounds."""
 
-    def __init__(self, view, channels):
-        self.planes = view.planes(channels)
-        self.height, self.width = view.height, view.width
+    def __init__(self, view, ctx, channels):
+        img = view.as_2d()
+        self.planes = [img[:, :, k] for k in channels]
+        self.halo, self.band_h = view.halo, ctx["band_h"]
+        self.height, self.width = ctx["height"], ctx["width"]
         device = view.data.device
-        self.ys = torch.arange(self.height, device=device)[:, None]
+        self.ys = ctx["y0"] + torch.arange(self.band_h, device=device)[:, None]
         self.xs = torch.arange(self.width, device=device)[None, :]
 
     def tap(self, dy: int, dx: int):
-        out = [torch.roll(p, (-dy, -dx), dims=(0, 1)) for p in self.planes]
+        out = [torch.roll(p, (-dy, -dx), dims=(0, 1))
+               [self.halo:self.halo + self.band_h] for p in self.planes]
         gy = self.ys + dy
         gx = self.xs + dx
         valid = (gy >= 0) & (gy < self.height) & (gx >= 0) & (gx < self.width)
         return out, valid
 
 
-def post_process(hdr_view, gb, gb_view, history_view, frame_count: int):
-    """Full post pass over the image.
+def post_process(hdr_view, gb, gb_view, history_view, frame_count: int,
+                 ctx):
+    """Full post pass over one band.
 
-    hdr_view: view of the spatial pass's HDR output [n, 3]; gb: the flat
-    G-buffer (motion); gb_view: view of the packed G-buffer; history_view:
-    view of the accumulation buffer; frame_count: the SPP counter.
+    hdr_view: view of the spatial pass's HDR output [n, 3] (halo >= 2 on
+    row bands); gb: the band's flat G-buffer (motion); gb_view: view of
+    the packed G-buffer; history_view: view of the accumulation buffer,
+    read at global rows; frame_count: the SPP counter; ctx: the band
+    context (restir.make_ctx).
 
     Returns (ldr [n, 3] gamma-encoded, new_accum [n, 3] linear HDR)."""
-    height, width = hdr_view.height, hdr_view.width
+    band_h, width, height = ctx["band_h"], ctx["width"], ctx["height"]
     frame = float(frame_count)
 
     gb_ch = (list(range(GB_ALBEDO.start, GB_ALBEDO.stop))
              + list(range(GB_OCT.start, GB_OCT.stop))
              + list(range(GB_POS.start, GB_POS.stop)))
-    s_hdr = _PlaneStencil(hdr_view, [0, 1, 2])
-    s_gb = _PlaneStencil(gb_view, gb_ch)
+    s_hdr = _PlaneStencil(hdr_view, ctx, [0, 1, 2])
+    s_gb = _PlaneStencil(gb_view, ctx, gb_ch)
 
     def gb_split(planes):
         return (V3(planes[0], planes[1], planes[2]),
@@ -149,12 +159,13 @@ def post_process(hdr_view, gb, gb_view, history_view, frame_count: int):
     tm_filtered = _tonemap(filtered)
 
     # history reprojection (post.wgsl:180-228)
-    motion = gb["motion"].reshape(height, width, 2)
+    motion = gb["motion"].reshape(band_h, width, 2)
     motion_x = motion[..., 0]
     motion_y = motion[..., 1]
     device = motion.device
     ys, xs = torch.meshgrid(
-        torch.arange(height, dtype=torch.float32, device=device),
+        float(ctx["y0"]) + torch.arange(band_h, dtype=torch.float32,
+                                        device=device),
         torch.arange(width, dtype=torch.float32, device=device),
         indexing="ij")
     uv_x = (xs + 0.5) / width + motion_x
@@ -171,7 +182,7 @@ def post_process(hdr_view, gb, gb_view, history_view, frame_count: int):
     def hist_tap(yy, xx):
         cols, ok = history_view.read_cols(yy.reshape(-1), xx.reshape(-1))
         t = vec3.where(ok, _tonemap(V3(*cols)), 0.0)
-        return V3(*(c.reshape(height, width) for c in t))
+        return V3(*(c.reshape(band_h, width) for c in t))
 
     c00, c10 = hist_tap(y0, x0), hist_tap(y0, x0 + 1)
     c01, c11 = hist_tap(y0 + 1, x0), hist_tap(y0 + 1, x0 + 1)

@@ -44,16 +44,22 @@ def _gb_head(c):
     )
 
 
-def make_ctx(width: int, height: int, device) -> dict:
-    return {"width": width, "height": height, "device": device}
+def make_ctx(width: int, height: int, device, y0: int = 0,
+             band_h: int | None = None) -> dict:
+    """The band context: the full image's size, and the band of rows
+    [y0, y0 + band_h) this device renders (the whole image by default)."""
+    return {"width": width, "height": height, "device": device, "y0": y0,
+            "band_h": height if band_h is None else band_h}
 
 
 def _global_coords(ctx):
-    n = ctx["width"] * ctx["height"]
+    """Per-lane global pixel coords and flat index of the band, so every
+    RNG stream stays keyed by the global pixel."""
+    n = ctx["band_h"] * ctx["width"]
     local = torch.arange(n, dtype=torch.int64, device=ctx["device"])
     gx = local % ctx["width"]
-    gy = local // ctx["width"]
-    return gx, gy, local
+    gy = ctx["y0"] + local // ctx["width"]
+    return gx, gy, gy * ctx["width"] + gx
 
 
 def empty_reservoirs(n: int, device) -> dict:

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from .trace_api import LAUNCHES, _check, load_kernels
+from .trace_api import _check, count_launch, load_kernels
 
 
 def _check_args(table, idx) -> None:
@@ -70,7 +70,7 @@ def table_gather_kernel(table, idx):
     if err != 0:
         raise RuntimeError(f"table gather kernel launch failed: CUDA error "
                            f"{err}")
-    LAUNCHES["table_gather"] += 1
+    count_launch("table_gather")
     return out
 
 

@@ -37,11 +37,13 @@ reference's walk does; `scene_occluded` reads `tri >= 0` either way.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import os
 import re
 import shutil
+import threading
 
 import numpy as np
 import torch
@@ -84,9 +86,36 @@ LAUNCHES = {"closest_hit": 0, "any_hit": 0, "inst_closest_hit": 0,
             "table_gather": 0, "bvh_closest_hit": 0, "bvh_any_hit": 0}
 
 
+# row bands (parallel/tiles.py) launch from one thread each
+_LAUNCH_LOCK = threading.Lock()
+_THREAD = threading.local()
+
+
+def count_launch(name: str) -> None:
+    """Count one launch of kernel `name` in LAUNCHES, and in the calling
+    thread's own counts inside `thread_launches`."""
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
+    own = getattr(_THREAD, "launches", None)
+    if own is not None:
+        own[name] += 1
+
+
+@contextlib.contextmanager
+def thread_launches():
+    """Count the calling thread's launches apart as well: yields a dict
+    with LAUNCHES' keys that counts them until the block ends."""
+    _THREAD.launches = dict.fromkeys(LAUNCHES, 0)
+    try:
+        yield _THREAD.launches
+    finally:
+        _THREAD.launches = None
+
+
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCH_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def check_mode(kernel: str) -> str:
@@ -375,7 +404,7 @@ def launch_sweep(kind: str, tri_planes, chunk_aabb, o, d, t_min, t_max,
                  t_out.data_ptr(), tri_out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    count_launch(name)
     return {"t": t_out, "tri": tri_out}
 
 

@@ -25,7 +25,7 @@ import torch
 
 from ..utils.vec3 import V3
 from .intersect import INF, fma, safe_inv_dir
-from .trace_api import (CT, LAUNCHES, _check, load_kernels, mt_argmin,
+from .trace_api import (CT, _check, count_launch, load_kernels, mt_argmin,
                         slab_pass)
 
 # triangles per object group, the instanced cull unit: two 128-triangle
@@ -204,6 +204,6 @@ def trace_instanced_kernel(obj_planes, obj_gaabb, inst_table, inst_aabb,
     if err != 0:
         raise RuntimeError(f"instanced {'any' if any_hit else 'closest'}-hit "
                            f"kernel launch failed: CUDA error {err}")
-    LAUNCHES["inst_any_hit" if any_hit else "inst_closest_hit"] += 1
+    count_launch("inst_any_hit" if any_hit else "inst_closest_hit")
     return {"t": t_out, "tri": tri_out, "inst": inst_out}
 

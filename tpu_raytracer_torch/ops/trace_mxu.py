@@ -30,7 +30,7 @@ from ..utils.vec3 import V3
 from . import worklist
 from .intersect import INF, MT_EPS, cross, dot, safe_inv_dir
 from .trace_api import (BRUTE_FORCE_MAX_TRIS, CT, INCULL_MAX_CHUNKS,
-                        LAUNCHES, MXU_MAX_TP, MXUW_GROUP, _check,
+                        MXU_MAX_TP, MXUW_GROUP, _check, count_launch,
                         load_kernels, slab_pass, trace_route)
 
 # K6's capacities (csrc/trace_mxu.cu): the routes' largest tables in
@@ -300,7 +300,7 @@ def mxu_kernel(table, chunk_aabb, o, d, t_min, t_max, grp, passes,
     if err != 0:
         raise RuntimeError(f"K6 {'any' if any_hit else 'closest'}-hit "
                            f"launch failed: CUDA error {err}")
-    LAUNCHES["mxu_any_hit" if any_hit else "mxu_closest_hit"] += 1
+    count_launch("mxu_any_hit" if any_hit else "mxu_closest_hit")
     return {"t": t_out, "tri": tri_out}
 
 

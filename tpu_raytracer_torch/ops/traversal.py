@@ -31,7 +31,7 @@ import torch
 
 from ..utils.vec3 import V3
 from .intersect import INF, aabb_slab, moller_trumbore, safe_inv_dir
-from .trace_api import LAUNCHES, _check, _lanes, load_kernels
+from .trace_api import _check, _lanes, count_launch, load_kernels
 
 
 def trace_plain(bvh_rec, bvh_skip, bvh_tri, o: V3, d: V3, t_min, t_max,
@@ -163,5 +163,5 @@ def trace_bvh_kernel(bvh_rec, bvh_skip, bvh_tri, o, d, t_min, t_max,
                  tri_out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    count_launch(name)
     return {"t": t_out, "tri": tri_out}

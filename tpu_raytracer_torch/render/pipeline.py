@@ -5,7 +5,9 @@
 
 State between frames is a plain dict of tensors (`init_state`): the
 packed G-buffer, the packed spatial reservoirs and the accumulation
-buffer, in the reference's layouts.
+buffer, in the reference's layouts. `render_band` is one frame over one
+row band; `render_frame` is the one-device case, and
+`parallel/tiles.py` runs it over row bands on several devices.
 """
 
 from __future__ import annotations
@@ -34,22 +36,28 @@ def init_state(width: int, height: int, device) -> dict:
     }
 
 
-def render_band(scene, camera, frame_count: int, state, ctx,
-                static_ok: bool = False):
-    """One frame over the whole image (the reference's single-band case).
-    Returns (ldr, hdr, new_state, aux)."""
-    width, height = ctx["width"], ctx["height"]
-    n = width * height
+def render_band(scene, camera, frame_count: int, state, ctx, make_view,
+                static_ok: bool = False, make_view2=None):
+    """One frame over one row band (the whole image on one device).
 
-    def view(flat):
-        return views_mod.trivial_view(flat, width, height)
+    make_view lifts a band-local flat array to a neighbour-readable
+    BandView: trivial on one device, halo-exchanged over row bands
+    (`parallel/tiles.py`), where every band reaches it in the same order.
+    make_view2: optional (a, b) -> a view of their concatenation that
+    never builds it, used for bands above PAIR_VIEW_PIXELS.
+    Returns (ldr, hdr, new_state, aux) for the band's rows."""
+    width = ctx["width"]
+    n_primary = ctx["band_h"] * width
 
     def comb(a, b):
-        if n > PAIR_VIEW_PIXELS:
-            return views_mod.trivial_pair_view(a, b, width, height)
-        return view(torch.cat([a, b], dim=-1))
+        if make_view2 is not None and n_primary > PAIR_VIEW_PIXELS:
+            return make_view2(a, b)
+        return make_view(torch.cat([a, b], dim=-1))
 
-    gb = gbuffer_ops.render_gbuffer(scene, camera, width, height)
+    gb = gbuffer_ops.render_gbuffer(scene, camera, width, ctx["height"],
+                                    y0=ctx["y0"], band_h=ctx["band_h"])
+    # G-buffer and reservoir rows ride one view, so every neighbour tap
+    # is a single row gather
     reservoirs_t, rays_t = restir_ops.restir_temporal(
         scene, gb, comb(state["gb"], state["res"]), camera, frame_count,
         ctx, static_ok=static_ok)
@@ -60,20 +68,21 @@ def render_band(scene, camera, frame_count: int, state, ctx,
         scene, gb, comb(gb_packed, res_t_packed), reservoirs_t, camera,
         frame_count, ctx)
 
-    ldr, accum = post_ops.post_process(view(hdr), gb, view(gb_packed),
-                                       view(state["accum"]), frame_count)
+    ldr, accum = post_ops.post_process(
+        make_view(hdr), gb, make_view(gb_packed), make_view(state["accum"]),
+        frame_count, ctx)
     new_state = {"gb": gb_packed,
                  "res": restir_ops.pack_reservoirs(reservoirs_s),
                  "accum": accum}
     # the exact traversal-query count: primary rays + both path traces +
     # every shadow and visibility ray
-    aux = {"rays": float(n) + rays_t + rays_s, **diag}
+    aux = {"rays": float(n_primary) + rays_t + rays_s, **diag}
     return ldr, hdr, new_state, aux
 
 
 def render_frame(scene, camera, frame_count: int, state, width: int,
                  height: int, static_ok: bool = False):
-    """One complete ReSTIR frame.
+    """One complete ReSTIR frame on one device.
 
     scene: CompiledScene; camera: device camera uniform
     (renderer.camera_to_device); frame_count: the accumulation counter
@@ -86,5 +95,12 @@ def render_frame(scene, camera, frame_count: int, state, width: int,
     aux["rays"] is the exact number of traversal queries (0-dim tensor).
     """
     ctx = restir_ops.make_ctx(width, height, state["accum"].device)
-    return render_band(scene, camera, frame_count, state, ctx,
-                       static_ok=static_ok)
+
+    def make_view(flat):
+        return views_mod.trivial_view(flat, width, height)
+
+    def make_view2(a, b):
+        return views_mod.trivial_pair_view(a, b, width, height)
+
+    return render_band(scene, camera, frame_count, state, ctx, make_view,
+                       static_ok=static_ok, make_view2=make_view2)

@@ -25,6 +25,7 @@ class RenderConfig:
     debug_mode: int = 0             # 0 shaded | 1 pos | 2 normal | 3 albedo
                                     # | 4 motion (renderer.rs:407-508)
     tiles: int = 1                  # row bands over devices (1 = one device)
+    halo: int = 16                  # rows each band reads of its neighbours
     checkpoint: str = ""            # resume path ("" = fresh)
     out_dir: str = "output"
     max_frames: int = 0             # 0 = run until quit
@@ -48,7 +49,10 @@ def parse_args(argv=None) -> RenderConfig:
     ap.add_argument("--denoise-iterations", type=int,
                     default=cfg.denoise_iterations)
     ap.add_argument("--debug-mode", type=int, default=cfg.debug_mode)
-    ap.add_argument("--tiles", type=int, default=cfg.tiles)
+    ap.add_argument("--tiles", type=int, default=cfg.tiles,
+                    help="row bands: the first N CUDA devices, or N bands "
+                         "on the CPU with --device cpu")
+    ap.add_argument("--halo", type=int, default=cfg.halo)
     ap.add_argument("--checkpoint", type=str, default=cfg.checkpoint)
     ap.add_argument("--out-dir", type=str, default=cfg.out_dir)
     ap.add_argument("--max-frames", type=int, default=cfg.max_frames)
@@ -68,7 +72,7 @@ def parse_args(argv=None) -> RenderConfig:
             print(f"invalid --scale '{args.scale}', using "
                   f"{cfg.width}x{cfg.height}")
     for name in ("scene", "target_spp", "denoise", "denoise_iterations",
-                 "debug_mode", "tiles", "checkpoint", "out_dir",
+                 "debug_mode", "tiles", "halo", "checkpoint", "out_dir",
                  "max_frames", "preview", "preview_cols", "device"):
         setattr(cfg, name, getattr(args, name))
     return cfg

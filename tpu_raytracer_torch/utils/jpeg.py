@@ -6,8 +6,11 @@ The port's stand-in for the PIL call of the reference's glTF loader
 libjpeg-turbo 3.1.3 (the library Pillow 12.1.0 ships) does under its
 defaults, stage by stage, so its RGBA bytes equal Pillow's:
   - the markers SOI, APPn (JFIF and Adobe read, the rest skipped), DQT,
-    SOF0 and SOF1, DHT, DRI, SOS, RSTn and EOI;
-  - Huffman decoding with byte stuffing and restart intervals;
+    SOF0, SOF1 and SOF2, DHT, DRI, SOS, RSTn and EOI;
+  - Huffman decoding with byte stuffing and restart intervals, of
+    sequential scans and of the four progressive scan kinds (DC first
+    and refine, AC first with end-of-band runs, AC refine with
+    correction bits) into coefficients kept across the scans;
   - dequantization and the integer IDCT `jidctint.c:jpeg_idct_islow`
     (JDCT_ISLOW: CONST_BITS 13, PASS1_BITS 2, its range-limit table);
   - `jdsample.c`'s fancy upsampling of 4:2:2 (`h2v1_fancy_upsample`) and
@@ -17,13 +20,16 @@ defaults, stage by stage, so its RGBA bytes equal Pillow's:
   - the blocks' padding cropped to the image size.
 One component is grey (L, replicated into RGB); three are YCbCr, or RGB
 where an Adobe marker says transform 0 or the component ids are 'R', 'G',
-'B', as libjpeg reads them. Alpha is 255.
+'B', as libjpeg reads them; four are CMYK (Adobe transform 0 or no Adobe
+marker), inverted and converted as Pillow does it. Alpha is 255.
 
-Progressive, arithmetic-coded, lossless, hierarchical and 12-bit streams,
-2- and 4-component (CMYK, YCCK) images and sampling factors other than
-1x1, 2x1 and 2x2 relative to the largest raise ValueError naming what
-they are. The entropy decoder is plain Python (a 16-bit lookup per code);
-the rest is numpy over all blocks at once.
+Arithmetic-coded, lossless, hierarchical and 12-bit streams, YCCK and 2-
+component images, progressive streams that end before every
+coefficient's last bit (libjpeg smooths their blocks) and sampling
+factors other than 1x1, 2x1 and 2x2 relative to the largest (4:4:0,
+4:1:1) raise ValueError naming what they are. The entropy decoder is
+plain Python (a 16-bit lookup per code); the rest is numpy over all
+blocks at once.
 """
 
 from __future__ import annotations
@@ -53,7 +59,7 @@ SCALEBITS = 16
 ONE_HALF = 1 << (SCALEBITS - 1)
 
 _UNSUPPORTED = {
-    0xC2: "progressive (SOF2)", 0xC3: "lossless (SOF3)",
+    0xC3: "lossless (SOF3)",
     0xC5: "differential sequential (SOF5)",
     0xC6: "differential progressive (SOF6)",
     0xC7: "differential lossless (SOF7)",
@@ -131,18 +137,16 @@ def _windows(segment: bytes) -> list:
 
 
 class _Frame:
-    def __init__(self, precision, height, width, comps):
+    def __init__(self, precision, height, width, comps, progressive):
         if precision != 8:
             raise ValueError(f"{precision}-bit JPEG is not supported (8-bit "
                              f"samples only)")
         if height == 0:
             raise ValueError("JPEG height set by a DNL marker is not "
                              "supported")
-        if len(comps) == 4:
-            raise ValueError("4-component JPEG (CMYK or YCCK) is not "
-                             "supported")
-        if len(comps) not in (1, 3):
+        if len(comps) not in (1, 3, 4):
             raise ValueError(f"{len(comps)}-component JPEG is not supported")
+        self.progressive = progressive
         self.height, self.width = height, width
         self.ids = [c[0] for c in comps]
         self.h = [c[1] >> 4 for c in comps]
@@ -162,83 +166,219 @@ class _Frame:
         self.mcuy = -(-height // (8 * self.vmax))
         self.dw = [-(-width * h // self.hmax) for h in self.h]
         self.dh = [-(-height * v // self.vmax) for v in self.v]
-        self.coef = [np.zeros((self.mcuy * v, self.mcux * h, 64), np.int64)
-                     for h, v in zip(self.h, self.v)]
+        self.bx = [self.mcux * h for h in self.h]
+        self.by = [self.mcuy * v for v in self.v]
+        # each component's coefficients, flat [by * bx * 64], kept across
+        # the scans of a progressive stream, and the successive-
+        # approximation bit each coefficient has reached (-1: none yet)
+        self.coef = [[0] * (bx * by * 64) for bx, by in zip(self.bx,
+                                                             self.by)]
+        self.coef_bits = [[-1] * 64 for _ in comps]
+
+    def blocks(self, c):
+        """Component c's coefficients as an array [by, bx, 64]."""
+        return np.asarray(self.coef[c], np.int64).reshape(
+            self.by[c], self.bx[c], 64)
+
+
+def _scan_layout(frame, idx):
+    """The blocks of a scan over the components `idx`, MCU by MCU: lists
+    of (k, block) with k the component's place in the scan and block its
+    flat index in that component's grid. A scan of one component is not
+    interleaved: its MCU is one block, over the component's own
+    ceil(w / 8) x ceil(h / 8) blocks, not the MCU-padded grid."""
+    if len(idx) == 1:
+        c = idx[0]
+        bw, bh = -(-frame.dw[c] // 8), -(-frame.dh[c] // 8)
+        return [[(0, by * frame.bx[c] + bx)]
+                for by in range(bh) for bx in range(bw)]
+    layout = []
+    for my in range(frame.mcuy):
+        for mx in range(frame.mcux):
+            mcu = []
+            for k, c in enumerate(idx):
+                h, v = frame.h[c], frame.v[c]
+                mcu += [(k, (my * v + y) * frame.bx[c] + mx * h + x)
+                        for y in range(v) for x in range(h)]
+            layout.append(mcu)
+    return layout
 
 
 def _decode_scan(frame, scan, dc_tabs, ac_tabs, restart, segments):
-    """Huffman-decode one sequential scan into frame.coef."""
+    """Huffman-decode one scan into frame.coef: a sequential scan, or one
+    of the four progressive kinds of ITU T.81 G.1.2 (DC first, DC refine,
+    AC first with end-of-band runs, AC refine with correction bits), as
+    jdhuff.c and jdphuff.c decode them. Every restart interval starts
+    with the DC predictors and the end-of-band run at 0."""
     comps, ss, se, ah_al = scan
-    if ss != 0 or se != 63 or ah_al != 0:
+    ah, al = ah_al >> 4, ah_al & 15
+    if frame.progressive:
+        if ss > se or se > 63 or (ss == 0) != (se == 0) \
+                or (ss > 0 and len(comps) != 1):
+            raise ValueError("JPEG progressive scan has a bad spectral "
+                             "selection")
+    elif ss != 0 or se != 63 or ah_al != 0:
         raise ValueError("JPEG scan is not sequential (spectral selection "
                          "or successive approximation)")
     idx = [frame.ids.index(cid) for cid, _ in comps]
-    dcs = [dc_tabs[t >> 4] for _, t in comps]
-    acs = [ac_tabs[t & 15] for _, t in comps]
-    if len(comps) == 1:      # non-interleaved: one block per MCU
-        c = idx[0]
-        bw, bh = -(-frame.dw[c] // 8), -(-frame.dh[c] // 8)
-        layout = [[(0, by * frame.coef[c].shape[1] + bx)]
-                  for by in range(bh) for bx in range(bw)]
+    dcs = [dc_tabs.get(t >> 4) for _, t in comps]
+    acs = [ac_tabs.get(t & 15) for _, t in comps]
+    for c in idx:
+        frame.coef_bits[c][ss:se + 1] = [al] * (se + 1 - ss)
+    if not frame.progressive:
+        block_fn = _sequential_block
+    elif ss == 0:
+        block_fn = _dc_first_block if ah == 0 else _dc_refine_block
     else:
-        layout = []
-        for my in range(frame.mcuy):
-            for mx in range(frame.mcux):
-                mcu = []
-                for k, c in enumerate(idx):
-                    h, v = frame.h[c], frame.v[c]
-                    row = frame.coef[c].shape[1]
-                    mcu += [(k, (my * v + y) * row + mx * h + x)
-                            for y in range(v) for x in range(h)]
-                layout.append(mcu)
-    flat = [[0] * frame.coef[c].size for c in idx]
-    natural = _NATURAL
+        block_fn = _ac_first_block if ah == 0 else _ac_refine_block
+    layout = _scan_layout(frame, idx)
+    flat = [frame.coef[c] for c in idx]
     per = restart or len(layout)
     for seg, first in enumerate(range(0, len(layout), per)):
-        win = _windows(segments[seg] if seg < len(segments) else b"")
-        pos = 0
-        pred = [0] * len(comps)
+        st = _ScanState(segments[seg] if seg < len(segments) else b"",
+                        len(comps), ss, se, al)
         for mcu in layout[first:first + per]:
             for k, block in mcu:
-                out, base = flat[k], block * 64
-                e = dcs[k][(win[pos >> 3] >> (8 - (pos & 7))) & 0xFFFF]
-                if not e:
-                    raise ValueError("JPEG data: bad Huffman code")
-                pos += e >> 8
-                s = e & 0xFF
-                if s:
-                    val = ((win[pos >> 3] >> (8 - (pos & 7))) & 0xFFFF) \
-                        >> (16 - s)
-                    pos += s
-                    if val < 1 << (s - 1):
-                        val -= (1 << s) - 1
-                    pred[k] += val
-                out[base] = pred[k]
-                ac = acs[k]
-                i = 1
-                while i < 64:
-                    e = ac[(win[pos >> 3] >> (8 - (pos & 7))) & 0xFFFF]
-                    if not e:
-                        raise ValueError("JPEG data: bad Huffman code")
-                    pos += e >> 8
-                    s = e & 15
-                    r = (e >> 4) & 15
-                    if s:
-                        i += r
-                        val = ((win[pos >> 3] >> (8 - (pos & 7)))
-                               & 0xFFFF) >> (16 - s)
-                        pos += s
-                        if val < 1 << (s - 1):
-                            val -= (1 << s) - 1
-                        out[base + natural[i]] = val
-                        i += 1
-                    elif r == 15:
-                        i += 16
-                    else:
+                block_fn(st, flat[k], block * 64, k, dcs[k], acs[k])
+
+
+class _ScanState:
+    """One restart interval's bit reader (window table and position),
+    DC predictors and end-of-band run."""
+
+    def __init__(self, segment, ncomps, ss, se, al):
+        self.win = _windows(segment)
+        self.pos = 0
+        self.pred = [0] * ncomps
+        self.eobrun = 0
+        self.ss, self.se, self.al = ss, se, al
+
+    def huff(self, table):
+        """The next Huffman symbol of `table`."""
+        pos = self.pos
+        e = table[(self.win[pos >> 3] >> (8 - (pos & 7))) & 0xFFFF] \
+            if table is not None else 0
+        if not e:
+            raise ValueError("JPEG data: bad Huffman code")
+        self.pos = pos + (e >> 8)
+        return e & 0xFF
+
+    def bits(self, n):
+        """The next n <= 16 bits as an unsigned number."""
+        if not n:
+            return 0
+        pos = self.pos
+        self.pos = pos + n
+        return ((self.win[pos >> 3] >> (8 - (pos & 7))) & 0xFFFF) \
+            >> (16 - n)
+
+    def extend(self, s):
+        """The next s bits as a signed magnitude (jdhuff.h HUFF_EXTEND)."""
+        val = self.bits(s)
+        return val - (1 << s) + 1 if s and val < 1 << (s - 1) else val
+
+
+def _sequential_block(st, out, base, k, dc, ac):
+    win, natural = st.win, _NATURAL
+    s = st.huff(dc)
+    if s:
+        st.pred[k] += st.extend(s)
+    out[base] = st.pred[k]
+    pos = st.pos
+    i = 1
+    while i < 64:
+        e = ac[(win[pos >> 3] >> (8 - (pos & 7))) & 0xFFFF]
+        if not e:
+            raise ValueError("JPEG data: bad Huffman code")
+        pos += e >> 8
+        s = e & 15
+        r = (e >> 4) & 15
+        if s:
+            i += r
+            val = ((win[pos >> 3] >> (8 - (pos & 7))) & 0xFFFF) >> (16 - s)
+            pos += s
+            if val < 1 << (s - 1):
+                val -= (1 << s) - 1
+            out[base + natural[i]] = val
+            i += 1
+        elif r == 15:
+            i += 16
+        else:
+            break
+    st.pos = pos
+
+
+def _dc_first_block(st, out, base, k, dc, ac):
+    s = st.huff(dc)
+    if s:
+        st.pred[k] += st.extend(s)
+    out[base] = st.pred[k] << st.al
+
+
+def _dc_refine_block(st, out, base, k, dc, ac):
+    if st.bits(1):
+        out[base] |= 1 << st.al
+
+
+def _ac_first_block(st, out, base, k, dc, ac):
+    if st.eobrun:
+        st.eobrun -= 1
+        return
+    i = st.ss
+    while i <= st.se:
+        rs = st.huff(ac)
+        r, s = rs >> 4, rs & 15
+        if s:
+            i += r
+            out[base + _NATURAL[i]] = st.extend(s) << st.al
+        elif r == 15:
+            i += 15
+        else:
+            st.eobrun = (1 << r) + st.bits(r) - 1
+            return
+        i += 1
+
+
+def _ac_refine_block(st, out, base, k, dc, ac):
+    """jdphuff.c:decode_mcu_AC_refine: new coefficients of magnitude
+    1 << al, and one correction bit for each already-nonzero coefficient
+    passed over."""
+    p1, m1 = 1 << st.al, -1 << st.al
+    natural = _NATURAL
+    i, se = st.ss, st.se
+
+    def correct(j):
+        if st.bits(1) and not out[j] & p1:
+            out[j] += p1 if out[j] >= 0 else m1
+
+    if not st.eobrun:
+        while i <= se:
+            rs = st.huff(ac)
+            r, s = rs >> 4, rs & 15
+            if s:
+                s = p1 if st.bits(1) else m1
+            elif r != 15:
+                st.eobrun = (1 << r) + st.bits(r)
+                break
+            while i <= se:
+                j = base + natural[i]
+                if out[j]:
+                    correct(j)
+                else:
+                    r -= 1
+                    if r < 0:
                         break
-    for k, c in enumerate(idx):
-        frame.coef[c] = np.asarray(flat[k], np.int64).reshape(
-            frame.coef[c].shape)
+                i += 1
+            if s:
+                out[base + natural[i]] = s
+            i += 1
+    if st.eobrun:
+        while i <= se:
+            j = base + natural[i]
+            if out[j]:
+                correct(j)
+            i += 1
+        st.eobrun -= 1
 
 
 def _idct_1d(x):
@@ -396,10 +536,10 @@ def decode(data: bytes) -> np.ndarray:
                 i += 17 + n
         elif marker == 0xDD:                    # DRI
             (restart,) = struct.unpack(">H", body[:2])
-        elif marker in (0xC0, 0xC1):            # SOF0, SOF1
+        elif marker in (0xC0, 0xC1, 0xC2):      # SOF0, SOF1, SOF2
             p, h, w, nf = struct.unpack(">BHHB", body[:6])
             frame = _Frame(p, h, w, [tuple(body[6 + 3 * k:9 + 3 * k])
-                                     for k in range(nf)])
+                                     for k in range(nf)], marker == 0xC2)
         elif marker == 0xDA:                    # SOS
             if frame is None:
                 raise ValueError("JPEG scan before its frame header")
@@ -414,9 +554,19 @@ def decode(data: bytes) -> np.ndarray:
 
 
 def _to_rgba(frame, quant, jfif, adobe):
+    if frame.progressive:
+        # libjpeg smooths the blocks (jdcoefct.c:decompress_smooth_data)
+        # only while a component's DC or first nine AC terms are
+        # unfinished; a complete stream ends every one at bit 0
+        for bits in frame.coef_bits:
+            if bits[0] >= 0 and any(b != 0 for b in bits[:10]):
+                raise ValueError("incomplete progressive JPEG (block "
+                                 "smoothing) is not supported")
+    if len(frame.ids) == 4 and adobe not in (None, 0):
+        raise ValueError("4-component YCCK JPEG is not supported")
     planes = []
     for c in range(len(frame.ids)):
-        coef = frame.coef[c]
+        coef = frame.blocks(c)
         by, bx = coef.shape[:2]
         s = _idct_islow(coef, quant[frame.tq[c]])      # [by, bx, 8, 8]
         s = s.transpose(0, 2, 1, 3).reshape(by * 8, bx * 8)
@@ -425,6 +575,8 @@ def _to_rgba(frame, quant, jfif, adobe):
         planes.append(up[:frame.height, :frame.width])
     if len(planes) == 1:
         rgb = planes * 3
+    elif len(planes) == 4:
+        rgb = _cmyk_to_rgb(planes)
     elif not jfif and (adobe == 0 or (adobe is None and bytes(frame.ids)
                                       == b"RGB")):
         rgb = planes                    # stored as RGB (jdapimin.c)
@@ -434,10 +586,25 @@ def _to_rgba(frame, quant, jfif, adobe):
     return np.stack([*rgb, alpha], axis=-1).astype(np.uint8)
 
 
+def _cmyk_to_rgb(planes):
+    """Pillow's reading of a CMYK JPEG: the samples inverted (raw mode
+    CMYK;I, Adobe's convention), then Convert.c:cmyk2rgb, which scales
+    each of C, M, Y by the inverse of K with MULDIV255 rounding."""
+    c, m, y, k = (255 - p for p in planes)
+    nk = 255 - k
+
+    def muldiv255(a, b):
+        t = a * b + 128
+        return ((t >> 8) + t) >> 8
+
+    return [np.clip(nk - muldiv255(p, nk), 0, 255) for p in (c, m, y)]
+
+
 def _time_decode(size: int = 1024, seed: int = 0) -> None:
-    """Encode a seeded size^2 4:2:0 image with Pillow at quality 75,
-    decode it with `decode`, check it against Pillow and print the host
-    seconds. Pillow is imported here only: the decoder needs none."""
+    """Encode a seeded size^2 4:2:0 image with Pillow at quality 75, as a
+    baseline and as a progressive stream, decode each with `decode`,
+    check it against Pillow and print the host seconds. Pillow is
+    imported here only: the decoder needs none."""
     import time
     from io import BytesIO
 
@@ -447,16 +614,20 @@ def _time_decode(size: int = 1024, seed: int = 0) -> None:
     y, x = np.mgrid[0:size, 0:size]
     img = np.stack([x % 256, y % 256, (x * y) % 256], axis=-1)
     img = np.clip(img + g.integers(-20, 21, img.shape), 0, 255)
-    buf = BytesIO()
-    Image.fromarray(img.astype(np.uint8)).save(buf, format="JPEG",
-                                               subsampling=2, quality=75)
-    data = buf.getvalue()
-    t0 = time.perf_counter()
-    got = decode(data)
-    dt = time.perf_counter() - t0
-    want = np.asarray(Image.open(BytesIO(data)).convert("RGBA"))
-    print(f"decode {size}x{size} 4:2:0 q75 ({len(data)} bytes): {dt:.3f} s "
-          f"on the host, equal to Pillow: {np.array_equal(got, want)}")
+    for progressive in (False, True):
+        buf = BytesIO()
+        Image.fromarray(img.astype(np.uint8)).save(
+            buf, format="JPEG", subsampling=2, quality=75,
+            progressive=progressive)
+        data = buf.getvalue()
+        t0 = time.perf_counter()
+        got = decode(data)
+        dt = time.perf_counter() - t0
+        want = np.asarray(Image.open(BytesIO(data)).convert("RGBA"))
+        kind = "progressive" if progressive else "baseline"
+        print(f"decode {size}x{size} 4:2:0 q75 {kind} ({len(data)} bytes): "
+              f"{dt:.3f} s on the host, equal to Pillow: "
+              f"{np.array_equal(got, want)}")
 
 
 if __name__ == "__main__":
