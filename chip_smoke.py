@@ -154,7 +154,9 @@ is non-zero):
                 within VPU_DB of K7's. Then
                 `python -m tpu_raytracer_torch --scale=1280x720
                 --max-frames 12 --no-preview --target-spp 8 --checkpoint
-                <tmp> --out-dir <tmp>` as a subprocess, stdin not a tty:
+                <tmp> --out-dir <tmp>` as a subprocess, stdin not a tty
+                (its frames replayed CUDA graphs that reuse the G-buffer
+                on static frames, render/graph.py):
                 exit code 0, one PNG read back through utils/png.py, the
                 checkpoint's frame_count 12, K1, K2 and K7 launched; then
                 2 more frames resumed from the checkpoint, starting at
@@ -210,13 +212,34 @@ is non-zero):
                 every band and no other trace kernel; launches a frame
                 beside 4x phase 5's, fps and Mrays/s beside the one-device
                 sequence's. Prints the measured gaps.
-Every frame phase (5, 6, 8, 10, 11, 14, 15, 18, 19, 20, 22, 23, 24) also
+ 25. graph    - the frame as CUDA graphs (render/graph.py:FrameGraph,
+                render_frame and render_progressive captured with their
+                state updated in place): phase 24's headline sequence and
+                its moving camera through the graph and eagerly in
+                lockstep, ldr, hdr, every state tensor and rays bit-equal
+                on every frame; eager frames 1 and 2 (static, and with
+                the G-buffer reused) under set_sync_debug_mode("error");
+                the headline sequence timed eager and then replayed:
+                fps, Mrays/s, launches (a replay counts its capture's;
+                equal to the eager frames'), peak memory, and 2 frames of
+                each under torch.profiler (busy share and host launches,
+                as profile_frame.py reads them); the graph with gb_reuse
+                against eager frames without it (within
+                GRAPH_REUSE_ATOL, rays exactly W x H fewer after the
+                first); config 1's PROGRESSIVE_FRAMES frames bit-equal and
+                timed replayed; and GRAPH_ROUTE_FRAMES frames each of the
+                knot (K3), the gallery (K4), Cornell under vpu (K5) and
+                mxu3 (K6) and Cornell with brute_max=1 (K8), bit-equal,
+                each route's kernels launched in the replay and no other.
+                Prints the phase's wall time.
+Every frame phase (5, 6, 8, 10, 11, 14, 15, 18, 19, 20, 22, 23, 24, 25) also
 checks that K7 launched and prints its launches a frame. Then one JSON
 line of per-kernel results (K1-K6: time, plain time and bound at 524,288
 random rays; K7: at 524,288 rows of Cornell's tri_table; K8: at the big
 scene's 262,144 incoherent rays; launches on each kernel's frames; K1,
-K2 and K7 also their launches a frame on config 4's, each stand-in's
-and the 4-band Cornell frames, K8 on the big scene's and the walked
+K2 and K7 also their launches a frame on config 4's, each stand-in's,
+the 4-band Cornell and the replayed Cornell frames, K8 on the big
+scene's and the walked
 Cornell frames,
 `launches_per_frame`), and last the device line {"ok": true, "device":
 {...}}. Without a CUDA device it exits with 1 and prints no result.
@@ -319,6 +342,11 @@ TILE_MOTION_FRAMES, TILE_MOVE_AT = 4, 2
 # K7's index counts: the random sets, the app's, config 4's and config 5's
 # frames
 GATHER_RAYS = (262144, 524288, APP_W * APP_H, FLY_W * FLY_H, 3840 * 2160)
+# the frame as CUDA graphs (phase 25): G-buffer reuse against the traced
+# G-buffer within the reference test's bound (tests/test_dedup.py:49-69);
+# 2 frames of each other route; 2 replayed frames under torch.profiler
+GRAPH_REUSE_ATOL = 2e-5
+GRAPH_ROUTE_FRAMES, GRAPH_PROFILED = 2, 2
 
 
 def _card() -> str:
@@ -1519,19 +1547,10 @@ def _tiled_sequence(torch, render, state, dev, frames, warmup,
     the camera moved (and the count reset) at frame `move_at`. Returns
     (the last ldr, seconds of the frames after `warmup`, their rays, the
     per-band launches summed over every frame or None)."""
-    from tpu_raytracer_torch.render import camera, renderer
-
-    cam = camera.CameraController()
-    fc, rays, bands, t0 = 0, [], None, None
-    for i in range(frames):
-        if i == move_at:          # move: resets accumulation (state.rs:151)
-            cam.press("w")
-            cam.update(0.05)
-            cam.release("w")
-            fc = 0
-        uniform = renderer.camera_to_device(cam.uniform(1.0, fc, 2), dev)
-        ldr, hdr, state, aux = render(uniform, fc, state, fc > 0)
-        fc += 1
+    rays, bands, t0 = [], None, None
+    for i, (uniform, fc, static_ok) in enumerate(
+            _camera_seq(dev, frames, 2, move_at)):
+        ldr, hdr, state, aux = render(uniform, fc, state, static_ok)
         if "band_launches" in aux:
             bands = [{k: (bands[b][k] if bands else 0) + v
                       for k, v in launched.items()}
@@ -1639,6 +1658,328 @@ def _tiles_phase(torch, dev, card, every, c_fps, c_launches):
     print(f"tiles: phase 24 took {time.time() - t_phase:.1f} s [{card}]",
           flush=True)
     return one_card
+
+
+def _camera_seq(dev, frames, num_lights, move_at=None, start=0):
+    """The inputs of a camera sequence at aspect 1: per frame (uniform on
+    dev, frame_count, static_ok). The counter starts at `start` and
+    resets at frame `move_at`, where the camera moves (state.rs:151)."""
+    from tpu_raytracer_torch.render import camera, renderer
+
+    cam = camera.CameraController()
+    fc, seq = start, []
+    for i in range(frames):
+        if i == move_at:
+            cam.press("w")
+            cam.update(0.05)
+            cam.release("w")
+            fc = 0
+        seq.append((renderer.camera_to_device(
+            cam.uniform(1.0, fc, num_lights), dev), fc, fc > 0))
+        fc += 1
+    return seq
+
+
+def _eager(scene, dev, width, height, **kw):
+    """render(uniform, fc, static_ok): render_frame's eager frames from a
+    fresh state, each frame's state carried to the next."""
+    from tpu_raytracer_torch.render import pipeline
+
+    state = pipeline.init_state(width, height, dev)
+
+    def render(uniform, fc, static_ok):
+        nonlocal state
+        out = pipeline.render_frame(scene, uniform, fc, state, width, height,
+                                    static_ok=static_ok, **kw)
+        state = out[2]
+        return out
+
+    return render
+
+
+def _replay(graph, **kw):
+    """render(uniform, fc, static_ok) through `graph` from a fresh state."""
+    from tpu_raytracer_torch.render import pipeline, renderer
+
+    w, h, dev = graph.width, graph.height, graph.device
+    graph.load_state({"accum": renderer.make_accum(w, h, dev)}
+                     if graph.progressive else pipeline.init_state(w, h, dev))
+
+    def render(uniform, fc, static_ok):
+        return graph(uniform, fc, static_ok, **kw)
+
+    return render
+
+
+def _words(out):
+    """A frame's outputs as (name, tensor) pairs: render_frame's ldr, hdr,
+    each state tensor and aux["rays"], or render_progressive's accum and
+    radiance."""
+    if len(out) == 2:
+        return [("accum", out[0]), ("radiance", out[1])]
+    ldr, hdr, state, aux = out
+    return [("ldr", ldr), ("hdr", hdr), *state.items(), ("rays", aux["rays"])]
+
+
+def _word_gap(torch, a, b):
+    """(max |a - b|, every word equal) of two tensors of one dtype; f32
+    words are compared as their bits."""
+    gap = float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+    if a.dtype == torch.float32:
+        return gap, torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return gap, torch.equal(a, b)
+
+
+def _lockstep(torch, eager, graph, seq, what):
+    """Each frame of `seq` through `eager` and then `graph`, held word for
+    word (ldr, hdr, every state tensor, rays). Returns the max abs gap;
+    raises on a word that differs."""
+    gap = 0.0
+    for i, (u, fc, static_ok) in enumerate(seq):
+        want = _words(eager(u, fc, static_ok))
+        got = _words(graph(u, fc, static_ok))
+        for (name, a), (_, b) in zip(got, want):
+            g, same = _word_gap(torch, a, b)
+            gap = max(gap, g)
+            if not same:
+                raise AssertionError(f"{what} frame {i}: the graph's {name} "
+                                     f"differs from the eager frame's (max "
+                                     f"abs {g:.3g})")
+    return gap
+
+
+def _timed_seq(torch, render, seq, warmup):
+    """(seconds of the frames after `warmup`, their rays: none for the
+    progressive frame) of `seq`."""
+    rays = []
+    for i, (u, fc, static_ok) in enumerate(seq):
+        out = render(u, fc, static_ok)
+        if i == warmup - 1:
+            torch.cuda.synchronize()
+            t0 = time.time()
+        elif i >= warmup and len(out) == 4:
+            rays.append(out[3]["rays"])
+    torch.cuda.synchronize()
+    return time.time() - t0, [float(r) for r in rays]
+
+
+def _memory(torch, dev):
+    """(peak allocated bytes since the last reset, bytes reserved once the
+    allocator's cache is emptied): a CUDA graph's pool stays reserved
+    between replays while its temporaries count as freed, so the second
+    holds what the graphs keep and the first does not."""
+    peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.empty_cache()
+    return peak, torch.cuda.memory_reserved(dev)
+
+
+def _profiled(torch, render, seq):
+    """profile_frame.py's readings of `seq`'s frames, the first half timed
+    unprofiled and the second under torch.profiler: (wall ms a frame,
+    device ms a frame, host launches a frame: kernels and graphs)."""
+    from tpu_raytracer_torch.profile_frame import _device_us
+
+    half = len(seq) // 2
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for u, fc, static_ok in seq[:half]:
+        render(u, fc, static_ok)
+    torch.cuda.synchronize()
+    wall_ms = (time.time() - t0) * 1e3 / half
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for u, fc, static_ok in seq[half:]:
+            render(u, fc, static_ok)
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    device_ms = sum(_device_us(e) for e in avgs
+                    if e.device_type == cuda) / 1e3 / half
+    launches = sum(e.count for e in avgs
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                "cudaLaunchKernelExC",
+                                "cudaGraphLaunch")) / half
+    return wall_ms, device_ms, launches
+
+
+def _graph_phase(torch, dev, card, every):
+    """25. the frame as CUDA graphs (render/graph.py:FrameGraph): the
+    headline sequence, the moving camera, G-buffer reuse, config 1 and
+    the other trace routes, each replayed frame held to the eager frame
+    word for word; an eager frame under set_sync_debug_mode("error");
+    eager and graph fps, launches, busy share and peak memory. Returns
+    the launches of the replayed headline sequence."""
+    from tpu_raytracer_torch.models import scenes
+    from tpu_raytracer_torch.ops import trace_api
+    from tpu_raytracer_torch.render import pipeline, renderer
+    from tpu_raytracer_torch.render.graph import FrameGraph
+
+    t_phase = time.time()
+    scene = scenes.create_cornell_box(dev)
+    frames = WARMUP + TIMED
+    seq = _camera_seq(dev, frames, scene.num_lights)
+    graph = FrameGraph(scene, WIDTH, HEIGHT, dev)
+    gap = _lockstep(torch, _eager(scene, dev, WIDTH, HEIGHT), _replay(graph),
+                    seq, "headline")
+    moved = _camera_seq(dev, TILE_MOTION_FRAMES, scene.num_lights,
+                        move_at=TILE_MOVE_AT)
+    gap_moved = _lockstep(torch, _eager(scene, dev, WIDTH, HEIGHT),
+                          _replay(graph), moved, "moving camera")
+    print(f"graph: Cornell {WIDTH}x{HEIGHT}, the headline sequence ({frames} "
+          f"frames) and the moving camera ({TILE_MOTION_FRAMES} frames, moved "
+          f"at {TILE_MOVE_AT}) through FrameGraph against render_frame: ldr, "
+          f"hdr, every state tensor and rays bit-equal on every frame, max "
+          f"abs gap {gap:.3g} / {gap_moved:.3g}", flush=True)
+
+    # no host read: eager frames after the first under the sync check
+    render = _eager(scene, dev, WIDTH, HEIGHT)
+    (u0, f0, s0), (u1, f1, s1), (u2, f2, s2) = seq[:3]
+    render(u0, f0, s0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = render(u1, f1, s1)[2]
+        pipeline.render_frame(scene, u2, f2, state, WIDTH, HEIGHT,
+                              static_ok=s2, gb_reuse=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print("graph: eager Cornell frames 1 and 2 (static, and with the G-buffer "
+          "reused) under torch.cuda.set_sync_debug_mode('error'): no host "
+          "sync", flush=True)
+
+    # eager, then replayed, on the headline sequence in one process; the
+    # eager frames' memory is read with the graphs deleted
+    del graph
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    trace_api.reset_launch_counts()
+    e_dt, e_rays = _timed_seq(torch, _eager(scene, dev, WIDTH, HEIGHT), seq,
+                              WARMUP)
+    e_launches = dict(trace_api.LAUNCHES)
+    e_peak = _memory(torch, dev)
+    graph = FrameGraph(scene, WIDTH, HEIGHT, dev)
+    _lockstep(torch, _eager(scene, dev, WIDTH, HEIGHT), _replay(graph),
+              seq[:2], "headline (recaptured)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    trace_api.reset_launch_counts()
+    g_dt, g_rays = _timed_seq(torch, _replay(graph), seq, WARMUP)
+    g_launches = dict(trace_api.LAUNCHES)
+    g_peak = _memory(torch, dev)
+    if g_launches != e_launches or g_rays != e_rays:
+        raise AssertionError(f"replayed frames launch {g_launches} and count "
+                             f"{g_rays} rays; the eager frames {e_launches} "
+                             f"and {e_rays}")
+    on = ["closest_hit", "any_hit", "table_gather"]
+    if min(g_launches[k] for k in on) <= 0 or any(
+            g_launches[k] for k in every if k not in on):
+        raise AssertionError(f"the replayed Cornell frames must launch {on} "
+                             f"and no other kernel: {g_launches}")
+    per_frame = {k: g_launches[k] / frames for k in on}
+    tail = _camera_seq(dev, 2 * GRAPH_PROFILED, scene.num_lights,
+                       start=frames)
+    profiled = []
+    for render in (_eager(scene, dev, WIDTH, HEIGHT), _replay(graph)):
+        for u, fc, static_ok in seq:      # the state the tail follows
+            render(u, fc, static_ok)
+        profiled.append(_profiled(torch, render, tail))
+    e_prof, g_prof = profiled
+    for what, dt, rays, peak, (wall, dev_ms, launched) in (
+            ("eager", e_dt, e_rays, e_peak, e_prof),
+            ("graph", g_dt, g_rays, g_peak, g_prof)):
+        print(f"graph: {what} Cornell {WIDTH}x{HEIGHT}, {TIMED} timed frames: "
+              f"{TIMED / dt:.4f} fps, {sum(rays) / dt / 1e6:.4f} Mrays/s, "
+              f"{dt / TIMED * 1e3:.2f} ms/frame; {GRAPH_PROFILED} frames under "
+              f"torch.profiler: wall {wall:.2f} ms/frame, device {dev_ms:.2f} "
+              f"ms/frame, busy {dev_ms / wall:.4f}, host launches "
+              f"{launched:.0f}/frame; peak allocated {peak[0] / 2 ** 30:.3f} "
+              f"GiB, reserved {peak[1] / 2 ** 30:.3f} GiB [{card}]",
+              flush=True)
+    print(f"graph: launches a frame, replayed and eager: {per_frame}",
+          flush=True)
+
+    # the G-buffer reused on static frames, against the traced one
+    eager = _eager(scene, dev, WIDTH, HEIGHT)
+    reuse = _replay(graph, gb_reuse=True)
+    r_gap = 0.0
+    for i, (u, fc, static_ok) in enumerate(seq):
+        want, got = eager(u, fc, static_ok), reuse(u, fc, static_ok)
+        r_gap = max(r_gap, *(float((a - b).abs().max())
+                             for a, b in zip(got[:2], want[:2])))
+        drop = float(want[3]["rays"]) - float(got[3]["rays"])
+        if drop != (WIDTH * HEIGHT if i else 0):
+            raise AssertionError(f"reuse frame {i}: {drop} fewer rays than "
+                                 f"the traced G-buffer's frame")
+    if r_gap > GRAPH_REUSE_ATOL:
+        raise AssertionError(f"reused G-buffer frames: max abs {r_gap:.3g} "
+                             f"off the traced ones (bound {GRAPH_REUSE_ATOL})")
+    print(f"graph: FrameGraph with gb_reuse against render_frame without: "
+          f"ldr and hdr max abs {r_gap:.3g} (bound {GRAPH_REUSE_ATOL}), "
+          f"{WIDTH * HEIGHT} rays fewer on every frame after the first",
+          flush=True)
+    del graph, reuse, render, eager
+
+    # config 1: the progressive frames
+    diffuse = scenes.create_cornell_box_diffuse(dev)
+    p_seq = _camera_seq(dev, PROGRESSIVE_FRAMES, diffuse.num_lights)
+    p_graph = FrameGraph(diffuse, WIDTH, HEIGHT, dev, progressive=True)
+    accum = renderer.make_accum(WIDTH, HEIGHT, dev)
+
+    def progressive(u, fc, static_ok):
+        nonlocal accum
+        accum, rad = renderer.render_progressive(diffuse, u, fc, accum,
+                                                 WIDTH, HEIGHT)
+        return accum, rad
+
+    p_gap = _lockstep(torch, progressive, _replay(p_graph), p_seq,
+                      "config 1")
+    accum = renderer.make_accum(WIDTH, HEIGHT, dev)
+    p_fps = [(PROGRESSIVE_FRAMES - 2) / _timed_seq(torch, r, p_seq, 2)[0]
+             for r in (progressive, _replay(p_graph))]
+    print(f"graph: config 1, {PROGRESSIVE_FRAMES} render_progressive frames "
+          f"through FrameGraph(progressive=True) against eager: accum and "
+          f"radiance bit-equal on every frame (max abs gap {p_gap:.3g}); "
+          f"fps_1spp_progressive eager {p_fps[0]:.4f}, replayed "
+          f"{p_fps[1]:.4f} [{card}]", flush=True)
+    del p_graph, diffuse, accum
+
+    # the other routes, each kernel captured in its own scene's frames
+    routes = (
+        ("knot (K3)", lambda: scenes.create_dense_knot_scene(dev),
+         ["stream_closest_hit", "stream_any_hit"]),
+        ("gallery (K4)", lambda: scenes.create_instancing_gallery_scene(dev),
+         ["inst_closest_hit", "inst_any_hit"]),
+        ("vpu (K5)", lambda: scenes.create_cornell_box(dev, kernel="vpu"),
+         ["vpu_closest_hit"]),
+        ("mxu3 (K6)", lambda: scenes.create_cornell_box(dev, kernel="mxu3"),
+         ["mxu_closest_hit", "any_hit"]),
+        ("walked Cornell (K8)",
+         lambda: scenes.create_cornell_box(dev, brute_max=1),
+         ["bvh_closest_hit", "bvh_any_hit"]))
+    for what, build, on in routes:
+        s = build()
+        r_seq = _camera_seq(dev, GRAPH_ROUTE_FRAMES, s.num_lights)
+        g = FrameGraph(s, WIDTH, HEIGHT, dev)
+        gap = _lockstep(torch, _eager(s, dev, WIDTH, HEIGHT), _replay(g),
+                        r_seq, what)
+        trace_api.reset_launch_counts()
+        render = _replay(g)
+        for u, fc, static_ok in r_seq:
+            render(u, fc, static_ok)
+        launched = dict(trace_api.LAUNCHES)
+        on = [*on, "table_gather"]
+        if min(launched[k] for k in on) <= 0 or any(
+                launched[k] for k in every if k not in on):
+            raise AssertionError(f"the replayed {what} frames must launch "
+                                 f"{on} and no other kernel: {launched}")
+        print(f"graph: {what} {WIDTH}x{HEIGHT}, {GRAPH_ROUTE_FRAMES} frames "
+              f"through FrameGraph bit-equal to render_frame (max abs gap "
+              f"{gap:.3g}); replayed launches {launched}", flush=True)
+        del s, g, render
+    print(f"graph: phase 25 took {time.time() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return g_launches, frames
 
 
 def main() -> int:
@@ -2356,6 +2697,9 @@ def main() -> int:
     # 24. the frame over 4 row bands, against the one-device frame
     t_launches = _tiles_phase(torch, dev, card, every, c_fps, launches)
 
+    # 25. the frame as CUDA graphs, against the eager frames
+    gr_launches, gr_frames = _graph_phase(torch, dev, card, every)
+
     n = TIMED_RAYS[-1]
 
     def entry(name, src, line, launched, err, times, bound):
@@ -2382,12 +2726,15 @@ def main() -> int:
         "config 5": (s_launches, SHOT_FRAMES),
         "config 4": (f_launches, f_frames),
         **{f"stand-in {k}": v for k, v in standins.items()},
-        "tiled Cornell (4 bands)": (t_launches, WARMUP + TIMED)}
+        "tiled Cornell (4 bands)": (t_launches, WARMUP + TIMED),
+        "replayed Cornell (CUDA graph)": (gr_launches, gr_frames)}
     per_frame = {k: {"config 4": f_launches[k] / f_frames,
                      **{f"stand-in {n}": v[k] / f
                         for n, (v, f) in standins.items()},
                      "tiled Cornell (4 bands)": t_launches[k]
-                     / (WARMUP + TIMED)}
+                     / (WARMUP + TIMED),
+                     "replayed Cornell (CUDA graph)": gr_launches[k]
+                     / gr_frames}
                  for k in ("closest_hit", "any_hit")}
     print(json.dumps({"kernels": [
         {**entry("closest_hit", "trace.cu", 392, launches["closest_hit"],

@@ -119,6 +119,7 @@ def test_import_leaves_jax_out():
             "tpu_raytracer_torch.app.interactive, "
             "tpu_raytracer_torch.app.preview, "
             "tpu_raytracer_torch.render.checkpoint, "
+            "tpu_raytracer_torch.render.graph, "
             "tpu_raytracer_torch.utils.config, "
             "tpu_raytracer_torch.utils.profiling, "
             "tpu_raytracer_torch.utils.resample, "

@@ -18,7 +18,11 @@ of winit):
 
 Every frame renders as one frame on one device, 3840x2160 included, or,
 under --tiles N, as N row bands over N devices (parallel/tiles.py): the
-first N CUDA devices, or N bands on the CPU with --device cpu.
+first N CUDA devices, or N bands on the CPU with --device cpu. On one
+CUDA device a frame is a replayed CUDA graph (render/graph.py); the CPU
+and the row bands (threads that meet at a barrier, which a graph cannot
+capture) render eagerly. Static frames reuse last frame's G-buffer, as
+`python -m tpu_raytracer` does (TPU_RT_GB_REUSE).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from ..ops.post import resolve_tonemap
 from ..parallel import tiles
 from ..render import camera as camera_mod
 from ..render import checkpoint, pipeline, renderer
+from ..render.graph import FrameGraph
 from ..utils.config import RenderConfig
 from ..utils.profiling import FrameStats
 from ..utils.resample import resize_u8
@@ -159,18 +164,26 @@ def run(cfg: RenderConfig) -> dict:
     frame_count = 0
 
     # --tiles N: row bands over N devices (parallel/tiles.py), with the
-    # call shape of pipeline.render_frame; the state lives on the bands
+    # call shape of pipeline.render_frame; the state lives on the bands.
+    # One CUDA device: the frame's CUDA graphs, whose static state it is.
     mesh = _tile_mesh(cfg.tiles, dev)
+    graph = None
     if mesh is not None:
         tiled = tiles.make_render_frame_tiled(mesh, w, h, cfg.halo)
         scene_r = tiles.replicate(scene, mesh)
 
         def render_fn(camera, fc, state, static_ok):
-            return tiled(scene_r, camera, fc, state, static_ok)
+            return tiled(scene_r, camera, fc, state, static_ok,
+                         gb_reuse=True)
+    elif dev.type == "cuda":
+        graph = FrameGraph(scene, w, h, dev)
+
+        def render_fn(camera, fc, state, static_ok):
+            return graph(camera, fc, static_ok, gb_reuse=True)
     else:
         def render_fn(camera, fc, state, static_ok):
             return pipeline.render_frame(scene, camera, fc, state, w, h,
-                                         static_ok=static_ok)
+                                         static_ok=static_ok, gb_reuse=True)
 
     def whole(state):
         """The frame state as one dict on `dev`."""
@@ -185,6 +198,9 @@ def run(cfg: RenderConfig) -> dict:
         print(f"resumed from {cfg.checkpoint} at frame {frame_count}")
     if mesh is not None:
         state = tiles.shard_state(state, mesh)
+    elif graph is not None:
+        graph.load_state(state)
+        state = graph.state
 
     saver = ScreenshotSaver(cfg.out_dir)
     presenter = None

@@ -9,9 +9,12 @@ active-lane mask.
 
 Each depth's NEE shadow rays and the next depth's bounce rays ride ONE
 closest-hit query (`_dual_trace`). At the last depth (depth + 1 ==
-MAX_DEPTH, or no lane left alive) the bounce half would never be read, so
-the shadow rays alone go to an any-hit query instead. That choice and
-the loop's exit test share one flag read from the device per depth.
+MAX_DEPTH) the bounce half would never be read, so the shadow rays alone
+go to an any-hit query instead. The loop runs all MAX_DEPTH depths and
+reads nothing back from the device, so a frame can be captured as one
+CUDA graph (`render/graph.py`); the reference leaves its loop once every
+lane is dead, which changes no result (dead lanes draw no RNG and add
+nothing).
 
 Reference quirks kept (they define the target radiance):
   * the bounce loop's `is_specular` reuses the PRIMARY surface's glass
@@ -224,12 +227,11 @@ def trace_path(scene, gb, view_pos, seed, active=None):
     v1_pos = V3(zeros, zeros, zeros)
     v1_normal = V3(zeros, zeros, zeros)
 
-    # bounce loop, depth 1..MAX_DEPTH-1 (restir.wgsl:590-733); lanes that
-    # died consume no RNG and add nothing, so leaving early once every
-    # lane is dead changes no result
-    depth = 1
-    alive = bool(active.any())
-    while depth < MAX_DEPTH and alive:
+    # bounce loop, depth 1..MAX_DEPTH-1 (restir.wgsl:590-733), every depth
+    # whether or not a lane is alive: lanes that died consume no RNG and
+    # add nothing, and a windowed closest hit answers occlusion as the
+    # any-hit does, so the reference's early exit changes no result
+    for depth in range(1, MAX_DEPTH):
         # Russian roulette (restir.wgsl:593-598), drawn before this
         # depth's hit (already traced) is consumed
         rr_mask = active & (depth >= RR_START_DEPTH)
@@ -310,15 +312,13 @@ def trace_path(scene, gb, view_pos, seed, active=None):
             vec3.dot(ffnormal, sc["wi"])) * 1e-3
         next_dir = sc["wi"]
         last_bsdf_pdf = sc["pdf"]
-        alive = bool(active.any())
-        if depth + 1 >= MAX_DEPTH or not alive:
+        if depth + 1 >= MAX_DEPTH:
             blocked, res = _shadow_only(scene, s_ray, r, device, num_lights)
         else:
             blocked, res = _dual_trace(scene, s_ray, origin, next_dir,
                                        active, num_lights)
         accumulated = accumulated + vec3.where(
             nee_mask, _nee_apply(s_pre, blocked), 0.0) * thr_pre
-        depth += 1
 
     return {
         "radiance": vec3.arr(accumulated),

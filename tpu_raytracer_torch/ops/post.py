@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
 from ..utils import vec3
@@ -92,19 +91,37 @@ class _PlaneStencil:
         return out, valid
 
 
-def post_process(hdr_view, gb, gb_view, history_view, frame_count: int,
-                 ctx):
+def frame_f32(frame_count, device):
+    """The accumulation counter as a 0-dim f32 tensor on `device`, from a
+    Python int or a 0-dim int64 tensor (a captured frame's static input,
+    `render/graph.py`); both give the same bits and neither reads the
+    device back."""
+    if isinstance(frame_count, torch.Tensor):
+        return frame_count.to(device=device, dtype=torch.float32)
+    return torch.full((), float(frame_count), dtype=torch.float32,
+                      device=device)
+
+
+def accumulation_blend(frame):
+    """1 - 1/(N + 1) of a 0-dim f32 counter, rounded in f32 at each step
+    as the reference's f32 scalar arithmetic rounds it
+    (post.wgsl:256-259)."""
+    return 1.0 - 1.0 / (frame + 1.0)
+
+
+def post_process(hdr_view, gb, gb_view, history_view, frame_count, ctx):
     """Full post pass over one band.
 
     hdr_view: view of the spatial pass's HDR output [n, 3] (halo >= 2 on
     row bands); gb: the band's flat G-buffer (motion); gb_view: view of
     the packed G-buffer; history_view: view of the accumulation buffer,
-    read at global rows; frame_count: the SPP counter; ctx: the band
-    context (restir.make_ctx).
+    read at global rows; frame_count: the SPP counter, a Python int or a
+    0-dim int64 tensor on the band's device; ctx: the band context
+    (restir.make_ctx).
 
     Returns (ldr [n, 3] gamma-encoded, new_accum [n, 3] linear HDR)."""
     band_h, width, height = ctx["band_h"], ctx["width"], ctx["height"]
-    frame = float(frame_count)
+    frame = frame_f32(frame_count, ctx["device"])
 
     gb_ch = (list(range(GB_ALBEDO.start, GB_ALBEDO.stop))
              + list(range(GB_OCT.start, GB_OCT.stop))
@@ -204,10 +221,8 @@ def post_process(hdr_view, gb, gb_view, history_view, frame_count: int,
 
     # static: progressive average with raw history (post.wgsl:246-259);
     # the blend is an f32 scalar in the reference, so round as it does
-    one = np.float32(1.0)
-    accum_blend = np.clip(one - one / (np.float32(frame) + one), 0.0, 1.0)
-    static_tm = tm_filtered * float(one - accum_blend) \
-        + hist_tm * float(accum_blend)
+    accum_blend = torch.clamp(accumulation_blend(frame), 0.0, 1.0)
+    static_tm = tm_filtered * (1.0 - accum_blend) + hist_tm * accum_blend
     # moving: clamped history with dynamic feedback (post.wgsl:261-266)
     t = torch.clamp(speed / 2.0, 0.0, 1.0)
     feedback = 0.98 + (0.85 - 0.98) * (t * t * (3.0 - 2.0 * t))

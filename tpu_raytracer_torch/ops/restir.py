@@ -174,13 +174,15 @@ def _cam_v3(camera_pos, r):
     return V3(*(camera_pos[k].expand(r) for k in range(3)))
 
 
-def restir_temporal(scene, gb, prev_view, camera, frame_count: int, ctx,
+def restir_temporal(scene, gb, prev_view, camera, frame_count, ctx,
                     static_ok: bool = False):
     """Candidate generation + temporal reuse. Returns (reservoirs,
     ray_count).
 
     prev_view: view over last frame's packed G-buffer + spatial
-    reservoirs [.., GB_COLS + RES_COLS]. static_ok: the caller asserts
+    reservoirs [.., GB_COLS + RES_COLS]. frame_count: a Python int or a
+    0-dim int64 tensor on ctx's device; the seeds are the same bits
+    either way. static_ok: the caller asserts
     nothing (camera, scene) changed since last frame, which lets the
     previous replay's radiance serve as a dedup cache for temporal
     winners; a wrong True renders stale radiance."""
@@ -285,7 +287,7 @@ def _calculate_jacobian(curr_pos, curr_normal, curr_albedo, neighbor_v1,
 
 
 def restir_spatial(scene, gb, comb_view, in_reservoirs, camera,
-                   frame_count: int, ctx):
+                   frame_count, ctx):
     """Spatial reuse over up to 5 disk taps, each with an any-hit
     visibility check, then the final seed replay + shade.
 

@@ -93,12 +93,38 @@ _THREAD = threading.local()
 
 def count_launch(name: str) -> None:
     """Count one launch of kernel `name` in LAUNCHES, and in the calling
-    thread's own counts inside `thread_launches`."""
+    thread's own counts inside `thread_launches`. Inside
+    `captured_launches` the call is recorded into a CUDA graph and
+    launches nothing, so it is counted there instead."""
+    captured = getattr(_THREAD, "captured", None)
+    if captured is not None:
+        captured[name] += 1
+        return
+    add_launches({name: 1})
+
+
+def add_launches(counts: dict) -> None:
+    """Count the launches `counts` (kernel name -> launches) as made now:
+    a replayed CUDA graph adds those its capture recorded."""
     with _LAUNCH_LOCK:
-        LAUNCHES[name] += 1
+        for k, v in counts.items():
+            LAUNCHES[k] += v
     own = getattr(_THREAD, "launches", None)
     if own is not None:
-        own[name] += 1
+        for k, v in counts.items():
+            own[k] += v
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """While the calling thread captures a CUDA graph: yields a dict with
+    LAUNCHES' keys that counts the launches the capture records, which
+    LAUNCHES does not count (the graph's replays do, `add_launches`)."""
+    _THREAD.captured = dict.fromkeys(LAUNCHES, 0)
+    try:
+        yield _THREAD.captured
+    finally:
+        _THREAD.captured = None
 
 
 @contextlib.contextmanager

@@ -192,9 +192,10 @@ def make_render_frame_tiled(mesh: Mesh, width: int, height: int,
                             halo: int = DEFAULT_HALO):
     """The frame over the mesh's row bands at a fixed resolution.
 
-    Returns call(scene, camera, frame_count, state, static_ok=False) ->
-    (ldr_full, hdr_full, new_state, aux), the shape of
-    pipeline.render_frame: `state` is a list of band states
+    Returns call(scene, camera, frame_count, state, static_ok=False,
+    gb_reuse=False) -> (ldr_full, hdr_full, new_state, aux), the shape of
+    pipeline.render_frame (with gb_reuse each band reuses its own
+    G-buffer rows): `state` is a list of band states
     (`shard_state`) and stays on the bands across frames; ldr and hdr are
     gathered onto mesh.devices[0]; aux["rays"] sums the bands' counts
     and aux["band_launches"] lists each band's kernel launches.
@@ -214,7 +215,8 @@ def make_render_frame_tiled(mesh: Mesh, width: int, height: int,
             stacklevel=2)
     halo = min(halo, band_h)
 
-    def call(scene, camera, frame_count, state, static_ok=False):
+    def call(scene, camera, frame_count, state, static_ok=False,
+             gb_reuse=False):
         def per_band(d, dev, exchange):
             y0 = d * band_h
             ctx = restir_ops.make_ctx(width, height, dev, y0=y0,
@@ -227,7 +229,8 @@ def make_render_frame_tiled(mesh: Mesh, width: int, height: int,
             with trace_api.thread_launches() as launches:
                 out = pipeline_mod.render_band(
                     _on(scene, dev), _on(camera, dev), frame_count,
-                    state[d], ctx, make_view, static_ok=static_ok)
+                    state[d], ctx, make_view, static_ok=static_ok,
+                    gb_reuse=gb_reuse)
             return (*out, launches)
 
         bands = run_bands(mesh, per_band)

@@ -1,0 +1,127 @@
+"""A frame as one CUDA graph: the port's counterpart of the reference's
+`jax.jit(..., donate_argnums=(3,))` on `render/pipeline.py:render_frame`
+and `render/renderer.py:render_progressive`.
+
+Run eagerly, a 512^2 frame is ~29,500 launches that the host dispatches
+one by one while the card idles (PERF.md §5). A `FrameGraph` captures the
+whole frame once and replays it: one host call a frame.
+
+  - Static inputs: the camera uniform's tensors, `frame_count` as a 0-dim
+    int64 tensor, and the frame state (the ReSTIR state dict, or the
+    progressive frame's {"accum"}). A call copies its inputs into them.
+  - Donation: the captured frame ends by copying its new state into the
+    static state, so the state is updated in place, as donation does.
+  - One graph per (static_ok, reuse of the G-buffer), each captured on
+    first use, all in one memory pool.
+  - The scene is read through the addresses captured: a new scene (or a
+    refit that returns new tensors) needs a new FrameGraph.
+
+Nothing falls back: a frame that reads the device from the host, or any
+other capture error, raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops import trace_api
+from . import pipeline, renderer
+
+# eager frames on a side stream before a capture, as torch.cuda.graph
+# asks: what initialises lazily (kernel modules, allocator pools) must
+# not do so inside the capture
+WARMUP_ITERS = 2
+
+
+class FrameGraph:
+    """The ReSTIR frame (`pipeline.render_frame`) or, with `progressive`,
+    the progressive frame (`renderer.render_progressive`) of one scene at
+    one size on one CUDA device, replayed from CUDA graphs. `state` is
+    the static frame state: `load_state` copies a saved one in."""
+
+    def __init__(self, scene, width: int, height: int, device,
+                 progressive: bool = False):
+        device = torch.device(device)
+        if device.type != "cuda":
+            raise ValueError(f"FrameGraph captures CUDA graphs; {device} is "
+                             f"not a CUDA device")
+        self.scene, self.width, self.height = scene, width, height
+        self.device, self.progressive = device, progressive
+        self.state = ({"accum": renderer.make_accum(width, height, device)}
+                      if progressive
+                      else pipeline.init_state(width, height, device))
+        self.frame_count = torch.zeros((), dtype=torch.int64, device=device)
+        self.camera = None
+        self._pool = torch.cuda.graph_pool_handle()
+        # (static_ok, reuse) -> (graph, its outputs, its launches)
+        self._graphs = {}
+
+    def load_state(self, state: dict) -> None:
+        """Copy `state` (keys of `self.state`) into the static state."""
+        for k, v in self.state.items():
+            v.copy_(torch.as_tensor(state[k]))
+
+    def _render(self, state, static_ok: bool, reuse: bool):
+        """One frame from the static inputs: (new state, outputs)."""
+        if self.progressive:
+            accum, radiance = renderer.render_progressive(
+                self.scene, self.camera, self.frame_count, state["accum"],
+                self.width, self.height)
+            return {"accum": accum}, (radiance,)
+        ldr, hdr, new_state, aux = pipeline.render_frame(
+            self.scene, self.camera, self.frame_count, state, self.width,
+            self.height, static_ok=static_ok, gb_reuse=reuse)
+        return new_state, (ldr, hdr, aux)
+
+    def _capture(self, key):
+        trace_api.load_kernels()
+        # the warm-up launches for real, so it renders a scratch copy of
+        # the state: the caller's state advances only through replays
+        scratch = {k: v.clone() for k, v in self.state.items()}
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_ITERS):
+                self._render(scratch, *key)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        del scratch
+        graph = torch.cuda.CUDAGraph()
+        with trace_api.captured_launches() as launches:
+            with torch.cuda.graph(graph, pool=self._pool):
+                new_state, outs = self._render(self.state, *key)
+                for k, v in self.state.items():
+                    v.copy_(new_state[k])
+        self._graphs[key] = (graph, outs, dict(launches))
+
+    def __call__(self, camera: dict, frame_count, static_ok: bool = False,
+                 gb_reuse: bool = False):
+        """One frame: camera is a device uniform
+        (`renderer.camera_to_device`), frame_count a Python int or a 0-dim
+        int64 tensor; static_ok and gb_reuse as `pipeline.render_frame`
+        takes them (the progressive frame ignores both). Returns
+        (ldr, hdr, state, aux) as render_frame does, or (accum, radiance)
+        as render_progressive does; `state` and `accum` are the static
+        state, and ldr, hdr and radiance are graph buffers that the next
+        call overwrites, so a caller that keeps a frame clones it. aux is
+        a copy of the graph's."""
+        with torch.cuda.device(self.device):
+            if self.camera is None:
+                self.camera = {k: v.clone() for k, v in camera.items()}
+            else:
+                for k, v in self.camera.items():
+                    v.copy_(camera[k])
+            if isinstance(frame_count, torch.Tensor):
+                self.frame_count.copy_(frame_count)
+            else:
+                self.frame_count.fill_(frame_count)
+            key = ((False, False) if self.progressive
+                   else (bool(static_ok), bool(gb_reuse and static_ok)))
+            if key not in self._graphs:
+                self._capture(key)
+            graph, outs, launches = self._graphs[key]
+            graph.replay()
+        trace_api.add_launches(launches)
+        if self.progressive:
+            return self.state["accum"], outs[0]
+        ldr, hdr, aux = outs
+        return ldr, hdr, self.state, {k: v.clone() for k, v in aux.items()}

@@ -9,6 +9,7 @@ import torch
 
 from ..ops import gbuffer as gbuffer_ops
 from ..ops import path_trace
+from ..ops import post as post_ops
 from ..utils import rng
 
 
@@ -24,10 +25,12 @@ def camera_to_device(camera: dict, device) -> dict:
     return out
 
 
-def render_progressive(scene, camera, frame_count: int, accum, width: int,
+def render_progressive(scene, camera, frame_count, accum, width: int,
                        height: int):
-    """One progressive frame. accum: [H*W, 3] running average. Returns
-    (new_accum, radiance), both [H*W, 3] linear HDR."""
+    """One progressive frame. frame_count: a Python int or a 0-dim int64
+    tensor on accum's device (the same bits either way); accum: [H*W, 3]
+    running average. Returns (new_accum, radiance), both [H*W, 3] linear
+    HDR."""
     gb = gbuffer_ops.render_gbuffer(scene, camera, width, height)
     n = width * height
     pixel = torch.arange(n, dtype=torch.int64, device=accum.device)
@@ -35,9 +38,9 @@ def render_progressive(scene, camera, frame_count: int, accum, width: int,
     radiance = path_trace.trace_path(scene, gb, camera["view_pos"][:3],
                                      seed)["radiance"]
     # blend = 1 - 1/(N+1) in f32, as the reference rounds it
-    one = np.float32(1.0)
-    blend = one - one / (np.float32(frame_count) + one)
-    return accum * float(blend) + radiance * float(one - blend), radiance
+    blend = post_ops.accumulation_blend(
+        post_ops.frame_f32(frame_count, accum.device))
+    return accum * blend + radiance * (1.0 - blend), radiance
 
 
 def make_accum(width: int, height: int, device):
