@@ -232,13 +232,39 @@ is non-zero):
                 mxu3 (K6) and Cornell with brute_max=1 (K8), bit-equal,
                 each route's kernels launched in the replay and no other.
                 Prints the phase's wall time.
-Every frame phase (5, 6, 8, 10, 11, 14, 15, 18, 19, 20, 22, 23, 24, 25) also
+ 26. graphs II - config 4 and the row bands replayed. Config 4's
+                FLY_WARMUP + FLY_TIMED frames through
+                FrameGraph(refit_changed=(CRYSTAL,)) (the refit written in
+                place, ops/refit.py:update_instances_, and the frame in
+                one replay) in lockstep with update_instances +
+                render_frame: ldr, hdr, every state tensor, rays and the
+                scene's refit fields bit-equal on every frame, replays
+                after the first under set_sync_debug_mode("error"), the
+                caller's scene unwritten; eager and replayed fps, Mrays/s,
+                launches (equal), at most GRAPH_FLY_LAUNCHES host launches
+                a replayed frame, its busy share over GRAPH_PROFILED
+                frames under torch.profiler, peak memory. Then phase 24's
+                headline sequence and moving camera through
+                parallel/tiles.py:TiledFrameGraph over 4 bands of this card
+                (and of 4 cards where the host has them) in lockstep with
+                the eager bands and the one-device frames, every word
+                equal; each band's launches its eager band's (K1, K2 and
+                K7, no other trace kernel); the replayed bands timed
+                (phase 24 times the eager ones), graph launches a
+                replayed frame = bands x segments, other launches at
+                most GRAPH_TILE_OTHER, peak memory; on 4 cards also
+                `python -m tpu_raytracer_torch --tiles 4` (its frames
+                replayed band graphs): exit 0, K1, K2 and K7 launched.
+                Prints the phase's wall time.
+Every frame phase (5, 6, 8, 10, 11, 14, 15, 18, 19, 20, 22, 23, 24, 25,
+26) also
 checks that K7 launched and prints its launches a frame. Then one JSON
 line of per-kernel results (K1-K6: time, plain time and bound at 524,288
 random rays; K7: at 524,288 rows of Cornell's tri_table; K8: at the big
 scene's 262,144 incoherent rays; launches on each kernel's frames; K1,
 K2 and K7 also their launches a frame on config 4's, each stand-in's,
-the 4-band Cornell and the replayed Cornell frames, K8 on the big
+the 4-band Cornell and the replayed Cornell frames, and on the replayed
+config 4 and 4-band frames, K8 on the big
 scene's and the walked
 Cornell frames,
 `launches_per_frame`), and last the device line {"ok": true, "device":
@@ -347,6 +373,11 @@ GATHER_RAYS = (262144, 524288, APP_W * APP_H, FLY_W * FLY_H, 3840 * 2160)
 # 2 frames of each other route; 2 replayed frames under torch.profiler
 GRAPH_REUSE_ATOL = 2e-5
 GRAPH_ROUTE_FRAMES, GRAPH_PROFILED = 2, 2
+# config 4 and the row bands replayed (phase 26): host launches a
+# replayed config-4 frame (the graph and its input copies), and a
+# replayed tiled frame's launches besides its bands x segments graphs
+# (frame_count a band and the gather of ldr, hdr and aux)
+GRAPH_FLY_LAUNCHES, GRAPH_TILE_OTHER = 20, 4 * TILE_BANDS + 8
 
 
 def _card() -> str:
@@ -991,6 +1022,18 @@ def _boxes_contain(torch, scene):
     return int(inside.sum())
 
 
+def _wobble(torch, base, i, dev):
+    """bench.py:194-199: every instance's transform at config 4's frame
+    i, the crystal moved; uploaded here, before the refit runs."""
+    from tpu_raytracer_torch.utils.math3d import (rotation_y, scale,
+                                                  translation)
+
+    tf = base.copy()
+    tf[CRYSTAL] = (translation([0.4, -0.5 + 0.02 * (i % 8), 0.3])
+                   @ rotation_y(0.1 * i) @ scale(0.5))[:3, :4]
+    return torch.as_tensor(tf, dtype=torch.float32, device=dev)
+
+
 def _flythrough_phase(torch, dev, card):
     """Phase 20, bench.py's config 4: the Cornell box at FLY_W x FLY_H,
     FLY_WARMUP + FLY_TIMED frames; each frame presses `d` for 1/60 s
@@ -1004,19 +1047,13 @@ def _flythrough_phase(torch, dev, card):
     from tpu_raytracer_torch.models import scenes
     from tpu_raytracer_torch.ops import lbvh, refit, trace_api
     from tpu_raytracer_torch.render import camera, pipeline, renderer
-    from tpu_raytracer_torch.utils.math3d import (rotation_y, scale,
-                                                  translation)
     from tpu_raytracer_torch.utils.vec3 import V3
 
     scene0 = scene = scenes.create_cornell_box(dev)
     base = scene.inst_transform.cpu().numpy()
 
     def wobble(i):
-        """bench.py:194-199; uploaded here, before the refit runs."""
-        tf = base.copy()
-        tf[CRYSTAL] = (translation([0.4, -0.5 + 0.02 * (i % 8), 0.3])
-                       @ rotation_y(0.1 * i) @ scale(0.5))[:3, :4]
-        return torch.as_tensor(tf, dtype=torch.float32, device=dev)
+        return _wobble(torch, base, i, dev)
 
     cam = camera.CameraController()
     state = pipeline.init_state(FLY_W, FLY_H, dev)
@@ -1750,10 +1787,10 @@ def _lockstep(torch, eager, graph, seq, what):
 
 def _timed_seq(torch, render, seq, warmup):
     """(seconds of the frames after `warmup`, their rays: none for the
-    progressive frame) of `seq`."""
+    progressive frame) of `seq`, each frame render(*its inputs)."""
     rays = []
-    for i, (u, fc, static_ok) in enumerate(seq):
-        out = render(u, fc, static_ok)
+    for i, inputs in enumerate(seq):
+        out = render(*inputs)
         if i == warmup - 1:
             torch.cuda.synchronize()
             t0 = time.time()
@@ -1774,33 +1811,36 @@ def _memory(torch, dev):
 
 
 def _profiled(torch, render, seq):
-    """profile_frame.py's readings of `seq`'s frames, the first half timed
-    unprofiled and the second under torch.profiler: (wall ms a frame,
-    device ms a frame, host launches a frame: kernels and graphs)."""
+    """profile_frame.py's readings of `seq`'s frames (each render(*its
+    inputs)), the first half timed unprofiled and the second under
+    torch.profiler: (wall ms a frame, device ms a frame, host launches a
+    frame: kernels and graphs, of them graph launches, and copies)."""
     from tpu_raytracer_torch.profile_frame import _device_us
 
     half = len(seq) // 2
     torch.cuda.synchronize()
     t0 = time.time()
-    for u, fc, static_ok in seq[:half]:
-        render(u, fc, static_ok)
+    for inputs in seq[:half]:
+        render(*inputs)
     torch.cuda.synchronize()
     wall_ms = (time.time() - t0) * 1e3 / half
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        for u, fc, static_ok in seq[half:]:
-            render(u, fc, static_ok)
+        for inputs in seq[half:]:
+            render(*inputs)
         torch.cuda.synchronize()
     avgs = prof.key_averages()
     cuda = torch.autograd.DeviceType.CUDA
     device_ms = sum(_device_us(e) for e in avgs
                     if e.device_type == cuda) / 1e3 / half
-    launches = sum(e.count for e in avgs
-                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                "cudaLaunchKernelExC",
-                                "cudaGraphLaunch")) / half
-    return wall_ms, device_ms, launches
+
+    def count(*keys):
+        return sum(e.count for e in avgs if e.key in keys) / half
+    launches = count("cudaLaunchKernel", "cuLaunchKernel",
+                     "cudaLaunchKernelExC", "cudaGraphLaunch")
+    return (wall_ms, device_ms, launches, count("cudaGraphLaunch"),
+            count("cudaMemcpyAsync", "cudaMemcpyPeerAsync"))
 
 
 def _graph_phase(torch, dev, card, every):
@@ -1885,7 +1925,7 @@ def _graph_phase(torch, dev, card, every):
             render(u, fc, static_ok)
         profiled.append(_profiled(torch, render, tail))
     e_prof, g_prof = profiled
-    for what, dt, rays, peak, (wall, dev_ms, launched) in (
+    for what, dt, rays, peak, (wall, dev_ms, launched, _, _) in (
             ("eager", e_dt, e_rays, e_peak, e_prof),
             ("graph", g_dt, g_rays, g_peak, g_prof)):
         print(f"graph: {what} Cornell {WIDTH}x{HEIGHT}, {TIMED} timed frames: "
@@ -1980,6 +2020,301 @@ def _graph_phase(torch, dev, card, every):
     print(f"graph: phase 25 took {time.time() - t_phase:.1f} s [{card}]",
           flush=True)
     return g_launches, frames
+
+def _refit_graph(torch, dev, card, every):
+    """26a. config 4 replayed (render/graph.py:FrameGraph with
+    refit_changed): bench.py:187-206's sequence, each frame's crystal
+    refit in place and the frame in one replay, held in lockstep to the
+    eager sequence (update_instances, then render_frame): every output,
+    state word and refit field equal; replays after the first under
+    set_sync_debug_mode("error"). Then both timed in this process, and
+    GRAPH_PROFILED replayed frames under torch.profiler. Returns the
+    replayed launches and frames."""
+    from tpu_raytracer_torch.models import scenes
+    from tpu_raytracer_torch.ops import refit, trace_api
+    from tpu_raytracer_torch.render import camera, pipeline, renderer
+    from tpu_raytracer_torch.render.graph import FrameGraph
+
+    scene0 = scenes.create_cornell_box(dev)
+    names = refit.refit_fields(scene0)
+    kept = {n: getattr(scene0, n).clone() for n in names}
+    base = scene0.inst_transform.cpu().numpy()
+    cam = camera.CameraController()
+    frames = FLY_WARMUP + FLY_TIMED
+    seq = []
+    for i in range(frames + 2 * GRAPH_PROFILED):
+        cam.press("d")
+        cam.update(1.0 / 60.0)
+        cam.release("d")
+        seq.append((renderer.camera_to_device(
+            cam.uniform(FLY_W / FLY_H, 0, scene0.num_lights), dev),
+            _wobble(torch, base, i, dev)))
+
+    def eager():
+        """(render(uniform, transforms), the refit scene of its last
+        frame) from config 4's first state."""
+        at = {"scene": scene0,
+              "state": pipeline.init_state(FLY_W, FLY_H, dev)}
+
+        def render(u, tf):
+            at["scene"] = refit.update_instances(at["scene"], tf,
+                                                 changed=(CRYSTAL,))
+            out = pipeline.render_frame(at["scene"], u, 0, at["state"],
+                                        FLY_W, FLY_H, static_ok=False)
+            at["state"] = out[2]
+            return out
+        return render, at
+
+    graph = FrameGraph(scene0, FLY_W, FLY_H, dev, refit_changed=(CRYSTAL,))
+
+    def replay(u, tf):
+        return graph(u, 0, False, transforms=tf)
+
+    render, at = eager()
+    gap = 0.0
+    for i, (u, tf) in enumerate(seq[:frames]):
+        want = _words(render(u, tf))
+        if i:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = _words(replay(u, tf))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        got += [(n, getattr(graph.scene, n)) for n in names]
+        want += [(n, getattr(at["scene"], n)) for n in names]
+        for (name, a), (_, b) in zip(got, want):
+            g, same = _word_gap(torch, a, b)
+            gap = max(gap, g)
+            if not same:
+                raise AssertionError(f"config 4 frame {i}: the replay's "
+                                     f"{name} differs from the eager "
+                                     f"sequence's (max abs {g:.3g})")
+    for n, t in kept.items():
+        if not torch.equal(getattr(scene0, n), t):
+            raise AssertionError(f"config 4: the replays wrote the "
+                                 f"caller's scene ({n})")
+    print(f"graph II: config 4 (Cornell {FLY_W}x{FLY_H} fly-through, the "
+          f"crystal refit with changed=({CRYSTAL},) in place) through "
+          f"FrameGraph(refit_changed) against update_instances + "
+          f"render_frame, {frames} frames: ldr, hdr, every state tensor, "
+          f"rays and the refit fields {list(names)} bit-equal on every "
+          f"frame (max abs gap {gap:.3g}); replays 1-{frames - 1} under "
+          f"set_sync_debug_mode('error'): no host sync; the caller's scene "
+          f"unwritten", flush=True)
+
+    on = ["closest_hit", "any_hit", "table_gather"]
+    readings = {}
+    for what in ("eager", "replayed"):
+        if what == "eager":
+            render, _ = eager()
+        else:
+            graph.load_state(pipeline.init_state(FLY_W, FLY_H, dev))
+            render = replay
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        trace_api.reset_launch_counts()
+        dt, rays = _timed_seq(torch, render, seq[:frames], FLY_WARMUP)
+        launches = dict(trace_api.LAUNCHES)
+        peak = _memory(torch, dev)
+        readings[what] = (dt, rays, launches, peak, None if what == "eager"
+                          else _profiled(torch, render, seq[frames:]))
+    (_, e_rays, e_launches, _, _), (_, g_rays, g_launches, _, g_prof) = (
+        readings["eager"], readings["replayed"])
+    if g_launches != e_launches or g_rays != e_rays:
+        raise AssertionError(f"config 4 replayed launches {g_launches} and "
+                             f"counts {g_rays} rays; eager {e_launches}, "
+                             f"{e_rays}")
+    if min(g_launches[k] for k in on) <= 0 or any(
+            g_launches[k] for k in every if k not in on):
+        raise AssertionError(f"config 4 replayed must launch {on} and no "
+                             f"other kernel: {g_launches}")
+    if g_prof[2] > GRAPH_FLY_LAUNCHES:
+        raise AssertionError(f"config 4 replayed: {g_prof[2]:.0f} host "
+                             f"launches a frame (at most "
+                             f"{GRAPH_FLY_LAUNCHES})")
+    for what, (dt, rays, _, peak, prof) in readings.items():
+        extra = ""
+        if prof is not None:
+            wall, dev_ms, launched, graphs, copies = prof
+            extra = (f"; {GRAPH_PROFILED} frames under torch.profiler: wall "
+                     f"{wall:.2f} ms/frame, device {dev_ms:.2f} ms/frame, "
+                     f"busy {dev_ms / wall:.4f}, host launches "
+                     f"{launched:.0f}/frame ({graphs:.0f} graphs), "
+                     f"{copies:.0f} copies/frame")
+        print(f"graph II: config 4 {what}, {FLY_TIMED} timed frames: "
+              f"fps_1080p_flythrough_refit {FLY_TIMED / dt:.4f}, "
+              f"{sum(rays) / dt / 1e6:.4f} Mrays/s, "
+              f"{dt / FLY_TIMED * 1e3:.2f} ms/frame{extra}; peak allocated "
+              f"{peak[0] / 2 ** 30:.3f} GiB, reserved {peak[1] / 2 ** 30:.3f} "
+              f"GiB [{card}]", flush=True)
+    print(f"graph II: config 4 launches a frame, replayed and eager: "
+          f"{ {k: g_launches[k] / frames for k in on} }", flush=True)
+    del graph
+    return g_launches, frames
+
+
+def _tiled_graph(torch, root, dev, card, every):
+    """26b. the row bands replayed (parallel/tiles.py:TiledFrameGraph):
+    phase 24's headline sequence and moving camera over 4 bands of this
+    card, and of 4 cards where the host has them (there also `python -m
+    tpu_raytracer_torch --tiles 4`), each frame held to the eager tiled
+    frame and to the one-device frame. Returns the replayed launches over
+    the headline sequence on this card and its frames."""
+    from tpu_raytracer_torch.models import scenes
+
+    scene = scenes.create_cornell_box(dev)
+    one_card = _bands_replayed(torch, dev, card, every, scene, "1 card",
+                               [dev] * TILE_BANDS)
+    if torch.cuda.device_count() >= TILE_BANDS:
+        _bands_replayed(torch, dev, card, every, scene,
+                        f"{TILE_BANDS} cards",
+                        [torch.device("cuda", i) for i in range(TILE_BANDS)])
+        _tiled_app(root, card)
+    return one_card, WARMUP + TIMED
+
+
+def _bands_replayed(torch, dev, card, every, scene, what, devices):
+    """TiledFrameGraph over `devices`: the headline sequence and the
+    moving camera in lockstep with the eager bands and the one-device
+    frames, every word equal; each band's launches its eager band's (K1,
+    K2 and K7, no other trace kernel). Then the replayed headline
+    sequence timed, GRAPH_PROFILED frames under torch.profiler (graph
+    launches a frame = bands x segments, other launches at most
+    GRAPH_TILE_OTHER), peak memory. Returns the timed launches."""
+    from tpu_raytracer_torch.ops import trace_api
+    from tpu_raytracer_torch.parallel import tiles
+    from tpu_raytracer_torch.render import pipeline
+
+    t0 = time.time()
+    frames = WARMUP + TIMED
+    seqs = (("headline", _camera_seq(dev, frames, scene.num_lights)),
+            ("moving camera", _camera_seq(dev, TILE_MOTION_FRAMES,
+                                          scene.num_lights,
+                                          move_at=TILE_MOVE_AT)))
+    on = ["closest_hit", "any_hit", "table_gather"]
+    mesh = tiles.make_mesh(devices)
+    scene_r = tiles.replicate(scene, mesh)
+    tiled = tiles.make_render_frame_tiled(mesh, WIDTH, HEIGHT)
+    graph = tiles.TiledFrameGraph(mesh, scene_r, WIDTH, HEIGHT)
+
+    def eager_bands():
+        state = tiles.shard_state(pipeline.init_state(WIDTH, HEIGHT, dev),
+                                  mesh)
+
+        def render(u, fc, static_ok):
+            nonlocal state
+            ldr, hdr, state, aux = tiled(scene_r, u, fc, state, static_ok)
+            return ldr, hdr, tiles.gather_state(state), aux
+        return render
+
+    def replay(u, fc, static_ok):
+        ldr, hdr, state, aux = graph(u, fc, static_ok)
+        return ldr, hdr, tiles.gather_state(state), aux
+
+    gaps = {}
+    for name, seq in seqs:
+        one, bands = _eager(scene, dev, WIDTH, HEIGHT), eager_bands()
+        graph.load_state(pipeline.init_state(WIDTH, HEIGHT, dev))
+        gap = 0.0
+        for i, (u, fc, static_ok) in enumerate(seq):
+            want1 = _words(one(u, fc, static_ok))
+            out_e = bands(u, fc, static_ok)
+            out_g = replay(u, fc, static_ok)
+            for ref, against in ((_words(out_e), "eager bands"),
+                                 (want1, "one-device frame")):
+                for (n, a), (_, b) in zip(_words(out_g), ref):
+                    g, same = _word_gap(torch, a, b)
+                    gap = max(gap, g)
+                    if not same:
+                        raise AssertionError(
+                            f"{TILE_BANDS} bands replayed on {what}, {name} "
+                            f"frame {i}: {n} differs from the {against}' "
+                            f"(max abs {g:.3g})")
+            e_b, g_b = (o[3]["band_launches"] for o in (out_e, out_g))
+            if e_b != g_b:
+                raise AssertionError(f"replayed band launches {g_b}, eager "
+                                     f"{e_b}")
+            for b, band in enumerate(g_b):
+                if min(band[k] for k in on) <= 0 or any(
+                        band[k] for k in every if k not in on):
+                    raise AssertionError(f"replayed band {b} must launch "
+                                         f"{on} and no other kernel: {band}")
+        gaps[name] = gap
+    t_lock = time.time() - t0
+    print(f"graph II: {TILE_BANDS} bands of {HEIGHT // TILE_BANDS} rows on "
+          f"{what}, Cornell {WIDTH}x{HEIGHT}, {graph.segments} segments a "
+          f"band, through TiledFrameGraph against the eager bands and the "
+          f"one-device frames: ldr, hdr, every state word and rays "
+          f"bit-equal on every frame (max abs {gaps}); replayed band "
+          f"launches equal the eager bands' "
+          f"({[{k: b[k] for k in on} for b in g_b]}); lockstep and "
+          f"captures {t_lock:.1f} s [{card}]", flush=True)
+
+    graph.load_state(pipeline.init_state(WIDTH, HEIGHT, dev))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    trace_api.reset_launch_counts()
+    dt, rays = _timed_seq(torch, replay, seqs[0][1], WARMUP)
+    launches = dict(trace_api.LAUNCHES)
+    peak = _memory(torch, dev)
+    wall, dev_ms, launched, graphs, copies = _profiled(
+        torch, replay, _camera_seq(dev, 2 * GRAPH_PROFILED, scene.num_lights,
+                                   start=frames))
+    if graphs != TILE_BANDS * graph.segments or \
+            launched - graphs > GRAPH_TILE_OTHER:
+        raise AssertionError(
+            f"{TILE_BANDS} bands replayed: {graphs:.0f} graph launches a "
+            f"frame ({TILE_BANDS} x {graph.segments} expected) and "
+            f"{launched - graphs:.0f} other launches (at most "
+            f"{GRAPH_TILE_OTHER})")
+    print(f"graph II: {TILE_BANDS} bands on {what} replayed, {TIMED} timed "
+          f"frames: {TIMED / dt:.4f} fps, {sum(rays) / dt / 1e6:.4f} Mrays/s, "
+          f"{dt / TIMED * 1e3:.2f} ms/frame; launches a frame "
+          f"{ {k: launches[k] / frames for k in on} }; {GRAPH_PROFILED} "
+          f"frames under torch.profiler: wall {wall:.2f} ms/frame, device "
+          f"{dev_ms:.2f} ms/frame, busy {dev_ms / wall:.4f}, host launches "
+          f"{launched:.0f}/frame ({graphs:.0f} graphs), {copies:.0f} "
+          f"copies/frame; peak allocated {peak[0] / 2 ** 30:.3f} GiB, "
+          f"reserved {peak[1] / 2 ** 30:.3f} GiB [{card}]", flush=True)
+    return launches
+
+
+def _tiled_app(root, card):
+    """`python -m tpu_raytracer_torch --tiles 4` on 4 cards: the app's
+    frames as replayed band graphs. Exit 0, K1, K2 and K7 launched."""
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_raytracer_torch", "--tiles",
+         str(TILE_BANDS), f"--scale={APP_W}x{APP_H}", "--max-frames",
+         str(APP_FRAMES), "--no-preview"],
+        cwd=root, stdin=subprocess.DEVNULL, capture_output=True, text=True,
+        timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"the app with --tiles {TILE_BANDS} exited "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    tel = json.loads(proc.stdout.strip().splitlines()[-1])
+    if min(tel["launches"][k] for k in ("closest_hit", "any_hit",
+                                        "table_gather")) <= 0:
+        raise AssertionError(f"the app with --tiles {TILE_BANDS}: {tel}")
+    print(f"graph II: python -m tpu_raytracer_torch --tiles {TILE_BANDS} "
+          f"--scale={APP_W}x{APP_H}, {tel['frames']} frames on "
+          f"{TILE_BANDS} cards in {time.time() - t0:.2f} s of wall time "
+          f"(process included): fps {tel['fps']:.4f}, "
+          f"{tel['mrays_per_s']:.4f} Mrays/s from its FrameStats; launches "
+          f"{tel['launches']} [{card}]", flush=True)
+
+
+def _graphs2_phase(torch, root, dev, card, every):
+    """26. graphs II: config 4 and the row bands replayed. Returns
+    ((config 4's launches, frames), (the bands', frames))."""
+    t_phase = time.time()
+    fly = _refit_graph(torch, dev, card, every)
+    print(f"graph II: config 4 took {time.time() - t_phase:.1f} s",
+          flush=True)
+    bands = _tiled_graph(torch, root, dev, card, every)
+    print(f"graph II: phase 26 took {time.time() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return fly, bands
 
 
 def main() -> int:
@@ -2700,6 +3035,10 @@ def main() -> int:
     # 25. the frame as CUDA graphs, against the eager frames
     gr_launches, gr_frames = _graph_phase(torch, dev, card, every)
 
+    # 26. config 4 and the row bands replayed, against their eager frames
+    (gf_launches, gf_frames), (gt_launches, gt_frames) = _graphs2_phase(
+        torch, root, dev, card, every)
+
     n = TIMED_RAYS[-1]
 
     def entry(name, src, line, launched, err, times, bound):
@@ -2727,14 +3066,19 @@ def main() -> int:
         "config 4": (f_launches, f_frames),
         **{f"stand-in {k}": v for k, v in standins.items()},
         "tiled Cornell (4 bands)": (t_launches, WARMUP + TIMED),
-        "replayed Cornell (CUDA graph)": (gr_launches, gr_frames)}
+        "replayed Cornell (CUDA graph)": (gr_launches, gr_frames),
+        "replayed config 4": (gf_launches, gf_frames),
+        "replayed tiled Cornell (4 bands)": (gt_launches, gt_frames)}
     per_frame = {k: {"config 4": f_launches[k] / f_frames,
                      **{f"stand-in {n}": v[k] / f
                         for n, (v, f) in standins.items()},
                      "tiled Cornell (4 bands)": t_launches[k]
                      / (WARMUP + TIMED),
                      "replayed Cornell (CUDA graph)": gr_launches[k]
-                     / gr_frames}
+                     / gr_frames,
+                     "replayed config 4": gf_launches[k] / gf_frames,
+                     "replayed tiled Cornell (4 bands)": gt_launches[k]
+                     / gt_frames}
                  for k in ("closest_hit", "any_hit")}
     print(json.dumps({"kernels": [
         {**entry("closest_hit", "trace.cu", 392, launches["closest_hit"],

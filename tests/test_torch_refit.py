@@ -27,9 +27,17 @@ Tolerances, each with its measured value:
     `bvh_rec`, and over the one after a repack, against the swept trace
     of the same scene: tri equal on every lane and t bit-equal (measured:
     equal), and the reference's checks (tests/test_refit.py:57-60,
-    117-123) against the fresh build and the unpacked scene.
+    117-123) against the fresh build and the unpacked scene;
+  - `update_instances_` (the refit written into the scene's tensors)
+    against `update_instances` on the same transforms: every field it
+    writes EQUAL word for word (the same arithmetic, copied; Cornell with
+    changed=(6,), the full refit, the instanced gallery, mxu3's K6
+    table), every address kept; over a 4-frame wobble against the
+    reference's changed refit, the geometry EXACT and the rest within
+    REFIT_ATOL (measured 2.4e-7 on tri_table and inst_normal_mat).
 """
 
+import dataclasses
 import gc
 
 import jax
@@ -415,3 +423,108 @@ def test_config4_flythrough_matches_reference(cornell):
         p = psnr(got, c_ldr.numpy())
         assert p >= REFIT_FRAME_DB, f"frame {i}: {p:.2f} dB against the " \
             f"frame on the reference's refit tables"
+
+
+# --- the refit written in place (update_instances_) ----------------------
+
+def _owned(scene):
+    """`scene` with its own copy of the fields a refit writes."""
+    return dataclasses.replace(scene, **{
+        name: getattr(scene, name).clone()
+        for name in refit.refit_fields(scene)})
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _in_place_case(request, case):
+    """(scene, transforms, changed) of each in-place case."""
+    if case == "gallery":
+        _, ref_np, port = request.getfixturevalue("gallery")
+        tf = np.array(ref_np.inst_transform)
+        tf[:, :, 3] += np.random.default_rng(5).uniform(
+            -0.5, 0.5, (tf.shape[0], 3))
+        return port, tf.astype(np.float32), None
+    if case == "mxu3":
+        port = scenes.create_cornell_box("cpu", kernel="mxu3")
+    else:
+        port = request.getfixturevalue("cornell")[2]
+    tf = _wobble(port.inst_transform.numpy(), 3)
+    return port, tf, None if case == "full" else (CRYSTAL,)
+
+
+IN_PLACE = ["changed", "full", "gallery", "mxu3"]
+
+
+@pytest.mark.parametrize("case", IN_PLACE)
+def test_update_instances_in_place_equals_functional(request, case):
+    """update_instances_ writes what update_instances returns, word for
+    word, into every field it names, and leaves the rest alone."""
+    port, tf, changed = _in_place_case(request, case)
+    want = refit.update_instances(port, torch.from_numpy(tf), changed)
+    scene = _owned(port)
+    got = refit.update_instances_(scene, torch.from_numpy(tf), changed)
+    assert got is scene
+    names = refit.refit_fields(scene)
+    assert ("coef48_t" in names) == (case == "mxu3")
+    assert ("inst_table" in names) == (case == "gallery")
+    for name in names:
+        assert torch.equal(_bits(getattr(scene, name)),
+                           _bits(getattr(want, name))), name
+    assert not torch.equal(scene.inst_transform, port.inst_transform)
+    for f in dataclasses.fields(scene):
+        if f.name not in names:
+            assert getattr(scene, f.name) is getattr(port, f.name), f.name
+
+
+@pytest.mark.parametrize("case", IN_PLACE)
+def test_update_instances_in_place_keeps_addresses(request, case):
+    """Every field update_instances_ writes keeps its tensor and its
+    data_ptr across two refits: a CUDA graph reads it there."""
+    port, tf, changed = _in_place_case(request, case)
+    scene = _owned(port)
+    before = {n: (getattr(scene, n), getattr(scene, n).data_ptr())
+              for n in refit.refit_fields(scene)}
+    for step in (0.0, 0.1):
+        refit.update_instances_(scene, torch.from_numpy(tf + step), changed)
+        for n, (t, ptr) in before.items():
+            assert getattr(scene, n) is t and t.data_ptr() == ptr, n
+
+
+def test_in_place_wobble_tracks_reference(cornell):
+    """Config 4's 4 first frames: the crystal moved by bench.py's wobble
+    and refit in place each frame, against the reference's changed refit
+    of the same transforms, frame by frame."""
+    ref, _, port = cornell
+    scene = _owned(port)
+    base = port.inst_transform.numpy()
+    worst = {}
+    for i in range(4):
+        tf = _wobble(base, i)
+        ref = ref_refit.update_instances(ref, jnp.asarray(tf),
+                                         changed=(CRYSTAL,))
+        refit.update_instances_(scene, torch.from_numpy(tf),
+                                changed=(CRYSTAL,))
+        want = _np(ref)
+        for name in refit.refit_fields(scene):
+            got, exp = getattr(scene, name).numpy(), np.asarray(
+                getattr(want, name))
+            if name in EXACT:
+                assert np.array_equal(got, exp), (i, name)
+            else:
+                worst[name] = max(worst.get(name, 0.0),
+                                  float(np.abs(got - exp).max()))
+    assert set(worst) == {"tri_table", "inst_normal_mat"}
+    assert max(worst.values()) <= REFIT_ATOL, worst
+
+
+def test_in_place_repack_raises(cornell):
+    """A repack re-sorts the triangles into new tensors: the in-place
+    refit refuses it and writes nothing."""
+    scene = _owned(cornell[2])
+    planes = scene.tri_planes.clone()
+    tf = torch.from_numpy(_wobble(scene.inst_transform.numpy(), 2))
+    with pytest.raises(ValueError, match="repack"):
+        refit.update_instances_(scene, tf, repack=True)
+    assert torch.equal(scene.tri_planes, planes)

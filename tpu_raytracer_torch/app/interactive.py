@@ -18,11 +18,12 @@ of winit):
 
 Every frame renders as one frame on one device, 3840x2160 included, or,
 under --tiles N, as N row bands over N devices (parallel/tiles.py): the
-first N CUDA devices, or N bands on the CPU with --device cpu. On one
-CUDA device a frame is a replayed CUDA graph (render/graph.py); the CPU
-and the row bands (threads that meet at a barrier, which a graph cannot
-capture) render eagerly. Static frames reuse last frame's G-buffer, as
-`python -m tpu_raytracer` does (TPU_RT_GB_REUSE).
+first N CUDA devices, or N bands on the CPU with --device cpu. On CUDA
+devices a frame is replayed from CUDA graphs: one device's from
+render/graph.py:FrameGraph, N bands' from parallel/tiles.py:
+TiledFrameGraph (each band in segments between its halo exchanges); the
+CPU renders eagerly, the bands as threads. Static frames reuse last
+frame's G-buffer, as `python -m tpu_raytracer` does (TPU_RT_GB_REUSE).
 """
 
 from __future__ import annotations
@@ -165,10 +166,15 @@ def run(cfg: RenderConfig) -> dict:
 
     # --tiles N: row bands over N devices (parallel/tiles.py), with the
     # call shape of pipeline.render_frame; the state lives on the bands.
-    # One CUDA device: the frame's CUDA graphs, whose static state it is.
+    # On CUDA devices: the frame's CUDA graphs, whose static state it is.
     mesh = _tile_mesh(cfg.tiles, dev)
     graph = None
-    if mesh is not None:
+    if mesh is not None and dev.type == "cuda":
+        graph = tiles.TiledFrameGraph(mesh, scene, w, h, cfg.halo)
+
+        def render_fn(camera, fc, state, static_ok):
+            return graph(camera, fc, static_ok, gb_reuse=True)
+    elif mesh is not None:
         tiled = tiles.make_render_frame_tiled(mesh, w, h, cfg.halo)
         scene_r = tiles.replicate(scene, mesh)
 
@@ -198,7 +204,7 @@ def run(cfg: RenderConfig) -> dict:
         print(f"resumed from {cfg.checkpoint} at frame {frame_count}")
     if mesh is not None:
         state = tiles.shard_state(state, mesh)
-    elif graph is not None:
+    if graph is not None:
         graph.load_state(state)
         state = graph.state
 

@@ -16,6 +16,11 @@ Topology stays (the same BVH, refit only). Every step is tensor code on
 the scene's device with no read back to the host, so `update_instances`
 can run every frame: the only host work is resolving a `changed` set's
 triangle indices, once per (scene, changed) pair.
+
+`update_instances` returns a new scene, as the reference's jitted refit
+does; `update_instances_` writes the same result into the scene's own
+tensors, so a CUDA graph that reads the scene at its captured addresses
+sees the refit (render/graph.py).
 """
 
 from __future__ import annotations
@@ -86,6 +91,33 @@ def update_instances(scene, transforms, changed=None, repack=False):
     if changed is not None:
         return _update_changed(scene, transforms, tuple(sorted(changed)))
     return _update_full(scene, transforms)
+
+
+def refit_fields(scene) -> tuple:
+    """The names of the scene tensors a refit writes."""
+    if scene.instanced:
+        return ("inst_table", "inst_aabb", "inst_transform",
+                "inst_normal_mat")
+    return ("tri_planes", "chunk_aabb", "tri_table", "bvh_rec",
+            "inst_transform", "inst_normal_mat") + (
+        () if scene.coef48_t is None else ("coef48_t",))
+
+
+def update_instances_(scene, transforms, changed=None, repack=False):
+    """`update_instances` written in place: each of the scene's
+    `refit_fields` takes the refit's result by `copy_`, so every address
+    stays. Returns the scene. `changed` resolves on the host at its first
+    use for the scene (`changed_indices`); call that before capturing a
+    graph. A repack re-sorts the triangles into new tensors, so it is
+    refused here."""
+    if repack:
+        raise ValueError("update_instances_ refits in place; a repack "
+                         "re-sorts the triangles: call update_instances")
+    new = update_instances(scene, transforms, changed)
+    if new is not scene:
+        for name in refit_fields(scene):
+            getattr(scene, name).copy_(getattr(new, name))
+    return scene
 
 
 def _world(scene, a, t, nm, local, tl):
@@ -216,18 +248,19 @@ def _resolve_changed(scene, changed: tuple) -> tuple:
                  for x in (sel, local, remap[inst_h[sel]], rows, changed))
 
 
-def _update_changed(scene, transforms, changed: tuple):
-    """Refit restricted to the `changed` instances' triangles: O(moved
-    triangles) transforms, then O(T) box reductions.
+def changed_indices(scene, changed) -> tuple:
+    """The device indices of a changed-instance refit of `scene` (see
+    `_resolve_changed`), resolved on the host at the first call for
+    (scene, changed) and served from a cache after it.
 
     The cache keys on id(tri_inst), which a refit keeps. Each entry holds
     a weakref to that tensor whose callback evicts the entry, so an id
     that CPython recycles after the scene dies can never serve another
     scene's indices; the cache also drops its oldest entry beyond
     _CHANGED_CACHE_MAX, so a long-lived process does not pin old
-    tensors."""
-    if not changed:
-        return scene
+    tensors; a caller that captures the indices in a CUDA graph keeps the
+    returned tuple."""
+    changed = tuple(sorted(changed))
     key = (id(scene.tri_inst), changed)
     if key not in _CHANGED_CACHE:
         while len(_CHANGED_CACHE) >= _CHANGED_CACHE_MAX:
@@ -235,8 +268,16 @@ def _update_changed(scene, transforms, changed: tuple):
         guard = weakref.ref(scene.tri_inst,
                             lambda _r, k=key: _CHANGED_CACHE.pop(k, None))
         _CHANGED_CACHE[key] = (_resolve_changed(scene, changed), guard)
-    (sel, local, sub_inst, rows, ch), _ = _CHANGED_CACHE[key]
-    return _changed_device(scene, transforms, sel, local, sub_inst, rows, ch)
+    return _CHANGED_CACHE[key][0]
+
+
+def _update_changed(scene, transforms, changed: tuple):
+    """Refit restricted to the `changed` instances' triangles: O(moved
+    triangles) transforms, then O(T) box reductions."""
+    if not changed:
+        return scene
+    return _changed_device(scene, transforms,
+                           *changed_indices(scene, changed))
 
 
 def _changed_device(scene, transforms, sel, local, sub_inst, rows, ch):

@@ -11,10 +11,14 @@ whole frame once and replays it: one host call a frame.
     progressive frame's {"accum"}). A call copies its inputs into them.
   - Donation: the captured frame ends by copying its new state into the
     static state, so the state is updated in place, as donation does.
-  - One graph per (static_ok, reuse of the G-buffer), each captured on
-    first use, all in one memory pool.
-  - The scene is read through the addresses captured: a new scene (or a
-    refit that returns new tensors) needs a new FrameGraph.
+  - One graph per (static_ok, reuse of the G-buffer, refit), each
+    captured on first use, all in one memory pool.
+  - The scene is read through the addresses captured: a new scene needs a
+    new FrameGraph. Moving instances is config 4's refit, captured with
+    the frame (`refit_changed`): the graph owns a copy of the scene's
+    refit fields and writes the refit into them in place
+    (`ops/refit.py:update_instances_`), from a static transforms buffer,
+    before the frame reads them; the caller's scene is never written.
 
 Nothing falls back: a frame that reads the device from the host, or any
 other capture error, raises.
@@ -22,9 +26,11 @@ other capture error, raises.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from ..ops import trace_api
+from ..ops import refit, trace_api
 from . import pipeline, renderer
 
 # eager frames on a side stream before a capture, as torch.cuda.graph
@@ -37,14 +43,32 @@ class FrameGraph:
     """The ReSTIR frame (`pipeline.render_frame`) or, with `progressive`,
     the progressive frame (`renderer.render_progressive`) of one scene at
     one size on one CUDA device, replayed from CUDA graphs. `state` is
-    the static frame state: `load_state` copies a saved one in."""
+    the static frame state: `load_state` copies a saved one in.
+
+    refit_changed: the ids of the instances a frame may move (a tuple),
+    or "all"; then `self.scene` is a copy of `scene` whose refit fields
+    the graph owns, and a call with `transforms` refits them before its
+    frame (config 4). The changed ids resolve on the host here, once."""
 
     def __init__(self, scene, width: int, height: int, device,
-                 progressive: bool = False):
+                 progressive: bool = False, refit_changed=None):
         device = torch.device(device)
         if device.type != "cuda":
             raise ValueError(f"FrameGraph captures CUDA graphs; {device} is "
                              f"not a CUDA device")
+        self.changed = self.transforms = self._indices = None
+        if refit_changed is not None:
+            scene = dataclasses.replace(scene, **{
+                name: getattr(scene, name).clone()
+                for name in refit.refit_fields(scene)})
+            self.transforms = scene.inst_transform.clone()
+            if refit_changed != "all":
+                self.changed = tuple(sorted(refit_changed))
+                if self.changed and not scene.instanced:
+                    # resolved on the host now; the graph keeps the
+                    # indices it captures
+                    self._indices = refit.changed_indices(scene,
+                                                          self.changed)
         self.scene, self.width, self.height = scene, width, height
         self.device, self.progressive = device, progressive
         self.state = ({"accum": renderer.make_accum(width, height, device)}
@@ -53,7 +77,7 @@ class FrameGraph:
         self.frame_count = torch.zeros((), dtype=torch.int64, device=device)
         self.camera = None
         self._pool = torch.cuda.graph_pool_handle()
-        # (static_ok, reuse) -> (graph, its outputs, its launches)
+        # (static_ok, reuse, refit) -> (graph, its outputs, its launches)
         self._graphs = {}
 
     def load_state(self, state: dict) -> None:
@@ -61,8 +85,12 @@ class FrameGraph:
         for k, v in self.state.items():
             v.copy_(torch.as_tensor(state[k]))
 
-    def _render(self, state, static_ok: bool, reuse: bool):
-        """One frame from the static inputs: (new state, outputs)."""
+    def _render(self, state, static_ok: bool, reuse: bool, moved: bool):
+        """One frame from the static inputs, the refit first where
+        `moved`: (new state, outputs)."""
+        if moved:
+            refit.update_instances_(self.scene, self.transforms,
+                                    self.changed)
         if self.progressive:
             accum, radiance = renderer.render_progressive(
                 self.scene, self.camera, self.frame_count, state["accum"],
@@ -94,17 +122,27 @@ class FrameGraph:
         self._graphs[key] = (graph, outs, dict(launches))
 
     def __call__(self, camera: dict, frame_count, static_ok: bool = False,
-                 gb_reuse: bool = False):
+                 gb_reuse: bool = False, transforms=None):
         """One frame: camera is a device uniform
         (`renderer.camera_to_device`), frame_count a Python int or a 0-dim
         int64 tensor; static_ok and gb_reuse as `pipeline.render_frame`
-        takes them (the progressive frame ignores both). Returns
+        takes them (the progressive frame ignores both); transforms, on a
+        graph made with `refit_changed`: every instance's [I, 3, 4] or
+        [I, 4, 4] affine, as `refit.update_instances` takes them, which
+        the replay refits the scene to before its frame. Returns
         (ldr, hdr, state, aux) as render_frame does, or (accum, radiance)
         as render_progressive does; `state` and `accum` are the static
         state, and ldr, hdr and radiance are graph buffers that the next
         call overwrites, so a caller that keeps a frame clones it. aux is
         a copy of the graph's."""
+        moved = transforms is not None
+        if moved and self.transforms is None:
+            raise ValueError("transforms given to a FrameGraph made without "
+                             "refit_changed")
         with torch.cuda.device(self.device):
+            if moved:
+                self.transforms.copy_(torch.as_tensor(
+                    transforms, dtype=torch.float32)[:, :3, :4])
             if self.camera is None:
                 self.camera = {k: v.clone() for k, v in camera.items()}
             else:
@@ -114,8 +152,9 @@ class FrameGraph:
                 self.frame_count.copy_(frame_count)
             else:
                 self.frame_count.fill_(frame_count)
-            key = ((False, False) if self.progressive
-                   else (bool(static_ok), bool(gb_reuse and static_ok)))
+            key = ((False, False, moved) if self.progressive
+                   else (bool(static_ok), bool(gb_reuse and static_ok),
+                         moved))
             if key not in self._graphs:
                 self._capture(key)
             graph, outs, launches = self._graphs[key]
