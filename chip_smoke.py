@@ -256,18 +256,45 @@ is non-zero):
                 `python -m tpu_raytracer_torch --tiles 4` (its frames
                 replayed band graphs): exit 0, K1, K2 and K7 launched.
                 Prints the phase's wall time.
+ 27. tap batch - batched spatial-tap visibility (ops/restir.py,
+                `tap_batch`: the five taps' shadow rays as one any-hit call
+                over a pixel-interleaved stream of 5R rays,
+                `_tap_stream`). The Cornell box at 512^2, TAP_WARMUP +
+                TAP_TIMED frames through FrameGraph(tap_batch=True) in
+                lockstep with render_frame(tap_batch=True), every word
+                equal, an eager batched frame under
+                set_sync_debug_mode("error"); then timed in this process:
+                batched replayed, sequential replayed and batched eager
+                (fps, Mrays/s, K1/K2/K7 launches a frame: K2 4 fewer a
+                frame batched, replayed launches equal to eager), and the
+                replayed batched frame's host launches (2) and busy share
+                under torch.profiler. The stream `_tap_stream` made in one
+                eager frame (spied, not rebuilt) through K2 against plain
+                closest-hit tri>=0, on every lane, t = t_max, timed by
+                CUDA events beside plain with K2's bound; the knot's and
+                the gallery's streams through K3's and K4's any hit
+                against their plain versions. TAP_BAND_FRAMES frames of
+                TiledFrameGraph(tap_batch=True) over 4 bands of this card
+                against the one-device batched frames, every word equal.
+                Then the Cornell box built with subdivide_max_diag=
+                SUBDIV_DIAG: its triangles and chunks against the
+                unsplit box's and its build time, K1 (tri equal, t
+                bit-equal) and K2 against plain on its 512^2 primary
+                rays, SUBDIV_WARMUP + SUBDIV_TIMED replayed frames (K1,
+                K2 and K7 only; fps, Mrays/s). Prints the phase's wall
+                time.
 Every frame phase (5, 6, 8, 10, 11, 14, 15, 18, 19, 20, 22, 23, 24, 25,
-26) also
+26, 27) also
 checks that K7 launched and prints its launches a frame. Then one JSON
 line of per-kernel results (K1-K6: time, plain time and bound at 524,288
 random rays; K7: at 524,288 rows of Cornell's tri_table; K8: at the big
 scene's 262,144 incoherent rays; launches on each kernel's frames; K1,
 K2 and K7 also their launches a frame on config 4's, each stand-in's,
 the 4-band Cornell and the replayed Cornell frames, and on the replayed
-config 4 and 4-band frames, K8 on the big
-scene's and the walked
-Cornell frames,
-`launches_per_frame`), and last the device line {"ok": true, "device":
+config 4, 4-band, batched-tap and subdivided Cornell frames, K8 on the
+big scene's and the walked Cornell frames, `launches_per_frame`; K2
+also its time, plain time and bound on phase 27's tap stream,
+`tap_stream`), and last the device line {"ok": true, "device":
 {...}}. Without a CUDA device it exits with 1 and prints no result.
 
 A kernel's bound is the least time the card could take for the work
@@ -378,6 +405,11 @@ GRAPH_ROUTE_FRAMES, GRAPH_PROFILED = 2, 2
 # replayed tiled frame's launches besides its bands x segments graphs
 # (frame_count a band and the gather of ldr, hdr and aux)
 GRAPH_FLY_LAUNCHES, GRAPH_TILE_OTHER = 20, 4 * TILE_BANDS + 8
+# batched spatial taps (phase 27): the Cornell frames eager and replayed,
+# the 4-band frames, and the subdivided Cornell box's cut
+# (subdivide_max_diag) and frames
+TAP_WARMUP, TAP_TIMED, TAP_BAND_FRAMES = 2, 6, 2
+SUBDIV_DIAG, SUBDIV_WARMUP, SUBDIV_TIMED = 0.1, 2, 4
 
 
 def _card() -> str:
@@ -2317,6 +2349,275 @@ def _graphs2_phase(torch, root, dev, card, every):
     return fly, bands
 
 
+def _spied_stream(torch, scene, dev, inputs):
+    """The stream restir._tap_stream hands the any-hit call in one eager
+    batched frame (its inputs: uniform, frame_count, static_ok) from a
+    fresh state: (o, d [3, 5R], t_min, t_max [5R] with the inactive lanes
+    dead), as scene_trace hands it on."""
+    from tpu_raytracer_torch.ops import restir
+
+    render = _eager(scene, dev, WIDTH, HEIGHT, tap_batch=True)
+    seen = []
+    orig = restir._tap_stream
+
+    def spy(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        seen.append(out[1])
+        return out
+    restir._tap_stream = spy
+    try:
+        render(*inputs)
+    finally:
+        restir._tap_stream = orig
+    if len(seen) != 1:
+        raise AssertionError(f"the batched frame made {len(seen)} tap "
+                             f"streams, not 1")
+    st = seen[0]
+    n = st["t_max"].shape[0]
+    if n != restir.TAPS * WIDTH * HEIGHT:
+        raise AssertionError(f"the tap stream has {n} lanes")
+    return (torch.stack(list(st["o"])).contiguous(),
+            torch.stack(list(st["d"])).contiguous(),
+            torch.full((n,), 1e-3, device=dev),
+            torch.where(st["active"], st["t_max"], 0.0).contiguous())
+
+
+def _occlusion_check(torch, what, got, want, t_max):
+    """Raise unless any-hit `got` flags exactly the lanes `want` does,
+    with t = t_max; returns the occluded and the live shares."""
+    bad = int(((got["tri"] >= 0) != want).sum())
+    if bad:
+        raise AssertionError(f"{what}: occlusion differs from plain on {bad} "
+                             f"lanes")
+    if not torch.equal(got["t"], t_max):
+        raise AssertionError(f"{what}: t is not t_max")
+    return float(want.float().mean()), float((t_max > 0).float().mean())
+
+
+def _tap_batch_phase(torch, dev, card, every):
+    """27. batched spatial taps (ops/restir.py:_tap_stream, tap_batch):
+    the Cornell frames eager and replayed in lockstep, timed beside the
+    sequential replayed frames, K2 on one frame's tap stream against
+    plain and timed; K3 and K4 on the knot's and the gallery's streams;
+    4 bands against one device; the subdivided Cornell box. Returns
+    (the replayed batched frames' launches, their frames, K2 on the
+    stream: (lanes, ms, plain ms, bound), the subdivided frames'
+    launches, their frames)."""
+    from tpu_raytracer_torch.models import scenes
+    from tpu_raytracer_torch.ops import (gbuffer, restir, trace_api,
+                                         trace_inst, trace_stream)
+    from tpu_raytracer_torch.parallel import tiles
+    from tpu_raytracer_torch.render import pipeline
+    from tpu_raytracer_torch.render.graph import FrameGraph
+    from tpu_raytracer_torch.utils.vec3 import V3
+
+    t_phase = time.time()
+    scene = scenes.create_cornell_box(dev)
+    frames = TAP_WARMUP + TAP_TIMED
+    seq = _camera_seq(dev, frames, scene.num_lights)
+    graph = FrameGraph(scene, WIDTH, HEIGHT, dev, tap_batch=True)
+    gap = _lockstep(torch, _eager(scene, dev, WIDTH, HEIGHT, tap_batch=True),
+                    _replay(graph), seq, "tap batch")
+    render = _eager(scene, dev, WIDTH, HEIGHT, tap_batch=True)
+    render(*seq[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        render(*seq[1])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"tap batch: Cornell {WIDTH}x{HEIGHT}, {frames} frames through "
+          f"FrameGraph(tap_batch=True) against render_frame(tap_batch=True): "
+          f"ldr, hdr, every state tensor and rays bit-equal on every frame "
+          f"(max abs gap {gap:.3g}); eager frame 1 under "
+          f"set_sync_debug_mode('error'): no host sync", flush=True)
+
+    # timed in this process: batched replayed, sequential replayed,
+    # batched eager; each graph captured before its counts are reset
+    seq_graph = FrameGraph(scene, WIDTH, HEIGHT, dev)
+    _lockstep(torch, _eager(scene, dev, WIDTH, HEIGHT), _replay(seq_graph),
+              seq[:2], "sequential taps")
+    runs = {}
+    for what, render in (
+            ("batched, replayed", _replay(graph)),
+            ("sequential, replayed", _replay(seq_graph)),
+            ("batched, eager", _eager(scene, dev, WIDTH, HEIGHT,
+                                      tap_batch=True))):
+        trace_api.reset_launch_counts()
+        dt, rays = _timed_seq(torch, render, seq, TAP_WARMUP)
+        runs[what] = (dt, rays, dict(trace_api.LAUNCHES))
+    b_launches, s_launches = (runs[k][2] for k in ("batched, replayed",
+                                                   "sequential, replayed"))
+    on = ["closest_hit", "any_hit", "table_gather"]
+    if min(b_launches[k] for k in on) <= 0 or any(
+            b_launches[k] for k in every if k not in on):
+        raise AssertionError(f"the batched Cornell frames must launch {on} "
+                             f"and no other kernel: {b_launches}")
+    saved = s_launches["any_hit"] - b_launches["any_hit"]
+    if saved != (restir.TAPS - 1) * frames:
+        raise AssertionError(f"K2 launches: {b_launches['any_hit']} batched "
+                             f"against {s_launches['any_hit']} sequential "
+                             f"over {frames} frames")
+    if runs["batched, replayed"][2] != runs["batched, eager"][2]:
+        raise AssertionError(f"replayed batched frames launch "
+                             f"{b_launches}; eager ones "
+                             f"{runs['batched, eager'][2]}")
+    for what, (dt, rays, launched) in runs.items():
+        print(f"tap batch: Cornell {WIDTH}x{HEIGHT} {what}, {TAP_TIMED} "
+              f"timed frames: {TAP_TIMED / dt:.4f} fps, "
+              f"{sum(rays) / dt / 1e6:.4f} Mrays/s, "
+              f"{dt / TAP_TIMED * 1e3:.2f} ms/frame; K1/K2/K7 launches a "
+              f"frame {launched['closest_hit'] / frames:.2f} / "
+              f"{launched['any_hit'] / frames:.2f} / "
+              f"{launched['table_gather'] / frames:.2f} [{card}]",
+              flush=True)
+    tail = _camera_seq(dev, 2 * GRAPH_PROFILED, scene.num_lights,
+                       start=frames)
+    render = _replay(graph)
+    for inputs in seq:
+        render(*inputs)
+    wall, dev_ms, launched, graphs, _ = _profiled(torch, render, tail)
+    if launched > 2:
+        raise AssertionError(f"a replayed batched frame makes {launched:.0f} "
+                             f"host launches (2 expected)")
+    print(f"tap batch: replayed, {GRAPH_PROFILED} frames under "
+          f"torch.profiler: wall {wall:.2f} ms/frame, device {dev_ms:.2f} "
+          f"ms/frame, busy {dev_ms / wall:.4f}, host launches "
+          f"{launched:.0f}/frame ({graphs:.0f} graphs) [{card}]", flush=True)
+    del graph, seq_graph, render
+
+    # K2 on one frame's tap stream against plain, timed, bound
+    o, d, t_min, t_max = _spied_stream(torch, scene, dev, seq[0])
+    n = t_max.shape[0]
+
+    def k2():
+        return trace_api.trace_kernel(scene.tri_planes, scene.chunk_aabb, o,
+                                      d, t_min, t_max, any_hit=True)
+
+    def plain():
+        return trace_api.trace_plain(scene.tri_planes, scene.chunk_aabb,
+                                     V3(*o), V3(*d), t_min, t_max)
+
+    want = plain()["tri"] >= 0
+    occ, live = _occlusion_check(torch, "K2 on the tap stream", k2(), want,
+                                 t_max)
+    ms = _time_ms(torch, k2, 20)
+    plain_ms = _time_ms(torch, lambda: plain()["tri"] >= 0, 3)
+    tests = int(want.sum()) + _flat_tests(
+        trace_api, scene, o, d, t_min, torch.where(want, 0.0, t_max))[0]
+    bound = _bound(tests * MT_FLOPS, _nbytes(
+        o, d, t_min, t_max, scene.tri_planes, scene.chunk_aabb) + n * 8)
+    print(f"tap batch: K2 on one Cornell frame's tap stream ({n} rays, "
+          f"pixel-interleaved, {live:.4f} live, {occ:.4f} occluded) equals "
+          f"plain closest-hit tri>=0 on every lane, t = t_max; "
+          f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
+          f"({bound[1]}, {tests} tests) [{card}]", flush=True)
+    k2_stream = (n, ms, plain_ms, bound)
+
+    # K3 and K4 on the knot's and the gallery's streams
+    for what, build, kernel, plain_fn in (
+            ("K3 (knot)", scenes.create_dense_knot_scene,
+             lambda s, o, d, t0, t1: trace_stream.trace_stream_kernel(
+                 s.tri_planes, s.chunk_aabb, o, d, t0, t1, any_hit=True),
+             lambda s, o, d, t0, t1: trace_stream.trace_stream_plain(
+                 s.tri_planes, s.chunk_aabb, V3(*o), V3(*d), t0, t1,
+                 any_hit=True)),
+            ("K4 (gallery)", scenes.create_instancing_gallery_scene,
+             lambda s, o, d, t0, t1: trace_inst.trace_instanced_kernel(
+                 s.tri_planes, s.obj_group_aabb, s.inst_table, s.inst_aabb,
+                 s.inst_group_span, o, d, t0, t1, any_hit=True),
+             lambda s, o, d, t0, t1: trace_inst.trace_instanced_plain(
+                 s.tri_planes, s.obj_group_aabb, s.inst_table, s.inst_aabb,
+                 s.unit_inst, s.unit_group, V3(*o), V3(*d), t0, t1))):
+        t0 = time.time()
+        s = build(dev)
+        stream = _spied_stream(torch, s, dev,
+                               _camera_seq(dev, 1, s.num_lights)[0])
+        got = kernel(s, *stream)
+        want = plain_fn(s, *stream)["tri"] >= 0
+        occ, live = _occlusion_check(torch, f"{what} on the tap stream", got,
+                                     want, stream[3])
+        print(f"tap batch: {what} any-hit on one frame's tap stream "
+              f"({stream[3].shape[0]} rays, {live:.4f} live, {occ:.4f} "
+              f"occluded) equals plain on every lane, t = t_max "
+              f"({time.time() - t0:.1f} s with the build)", flush=True)
+        del s, stream, got, want
+
+    # 4 bands of this card against the one-device batched frames
+    mesh = tiles.make_mesh([dev] * TILE_BANDS)
+    bands = tiles.TiledFrameGraph(mesh, tiles.replicate(scene, mesh), WIDTH,
+                                  HEIGHT, tap_batch=True)
+    one = _eager(scene, dev, WIDTH, HEIGHT, tap_batch=True)
+    b_gap = 0.0
+    for i, inputs in enumerate(seq[:TAP_BAND_FRAMES]):
+        ldr, hdr, state, aux = bands(*inputs)
+        got = _words((ldr, hdr, tiles.gather_state(state), aux))
+        for (name, a), (_, b) in zip(got, _words(one(*inputs))):
+            g, same = _word_gap(torch, a, b)
+            b_gap = max(b_gap, g)
+            if not same:
+                raise AssertionError(f"{TILE_BANDS} batched bands, frame "
+                                     f"{i}: {name} differs from the "
+                                     f"one-device frame's (max abs {g:.3g})")
+    print(f"tap batch: {TILE_BANDS} bands of {HEIGHT // TILE_BANDS} rows "
+          f"through TiledFrameGraph(tap_batch=True) against the one-device "
+          f"batched frames, {TAP_BAND_FRAMES} frames: every word equal (max "
+          f"abs {b_gap:.3g})", flush=True)
+    del bands, one
+
+    # the subdivided Cornell box
+    t0 = time.time()
+    split = scenes.create_cornell_box(dev, subdivide_max_diag=SUBDIV_DIAG)
+    t_build = time.time() - t0
+    n_tri = int(split.tri_planes[3, 0].sum())
+    chunks = split.chunk_aabb.shape[0]
+    if not n_tri > scene.num_triangles or chunks <= scene.chunk_aabb.shape[0]:
+        raise AssertionError(f"the subdivided box has {n_tri} triangles in "
+                             f"{chunks} chunks")
+    u = seq[0][0]
+    po, pd = gbuffer.generate_primary_rays(u, WIDTH, HEIGHT)
+    po, pd = (torch.stack(list(x)).contiguous() for x in (po, pd))
+    t_lo = torch.full((po.shape[1],), 1e-3, device=dev)
+    t_hi = torch.full((po.shape[1],), 1000.0, device=dev)
+    want = trace_api.trace_plain(split.tri_planes, split.chunk_aabb, V3(*po),
+                                 V3(*pd), t_lo, t_hi)
+    got = trace_api.trace_kernel(split.tri_planes, split.chunk_aabb, po, pd,
+                                 t_lo, t_hi)
+    ulps, _, hit = _check_closest("K1 on the subdivided box", got, want)
+    if ulps:
+        raise AssertionError(f"K1 on the subdivided box: t differs from "
+                             f"plain by {ulps} ulps")
+    _occlusion_check(torch, "K2 on the subdivided box", trace_api.trace_kernel(
+        split.tri_planes, split.chunk_aabb, po, pd, t_lo, t_hi,
+        any_hit=True), want["tri"] >= 0, t_hi)
+    s_frames = SUBDIV_WARMUP + SUBDIV_TIMED
+    s_graph = FrameGraph(split, WIDTH, HEIGHT, dev)
+    s_seq = _camera_seq(dev, s_frames, split.num_lights)
+    _lockstep(torch, _eager(split, dev, WIDTH, HEIGHT), _replay(s_graph),
+              s_seq[:2], "subdivided Cornell")
+    trace_api.reset_launch_counts()
+    dt, rays = _timed_seq(torch, _replay(s_graph), s_seq, SUBDIV_WARMUP)
+    sub_launches = dict(trace_api.LAUNCHES)
+    if min(sub_launches[k] for k in on) <= 0 or any(
+            sub_launches[k] for k in every if k not in on):
+        raise AssertionError(f"the subdivided Cornell frames must launch {on} "
+                             f"and no other kernel: {sub_launches}")
+    print(f"tap batch: subdivided Cornell (subdivide_max_diag={SUBDIV_DIAG}):"
+          f" {n_tri} triangles in {chunks} chunks (unsplit "
+          f"{scene.num_triangles} in {scene.chunk_aabb.shape[0]}), built in "
+          f"{t_build:.2f} s; K1 on its {po.shape[1]} primary rays ({hit:.3f} "
+          f"hit) tri equal on every lane and t bit-equal to plain, K2 "
+          f"occlusion equal; {SUBDIV_TIMED} replayed frames: "
+          f"{SUBDIV_TIMED / dt:.4f} fps, {sum(rays) / dt / 1e6:.4f} Mrays/s; "
+          f"launches a frame "
+          f"{ {k: sub_launches[k] / s_frames for k in on} } [{card}]",
+          flush=True)
+    print(f"tap batch: phase 27 took {time.time() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return b_launches, frames, k2_stream, sub_launches, s_frames
+
+
 def main() -> int:
     import torch
 
@@ -3039,6 +3340,10 @@ def main() -> int:
     (gf_launches, gf_frames), (gt_launches, gt_frames) = _graphs2_phase(
         torch, root, dev, card, every)
 
+    # 27. batched spatial taps, and the subdivided Cornell box
+    tb_launches, tb_frames, k2_stream, sd_launches, sd_frames = \
+        _tap_batch_phase(torch, dev, card, every)
+
     n = TIMED_RAYS[-1]
 
     def entry(name, src, line, launched, err, times, bound):
@@ -3068,7 +3373,9 @@ def main() -> int:
         "tiled Cornell (4 bands)": (t_launches, WARMUP + TIMED),
         "replayed Cornell (CUDA graph)": (gr_launches, gr_frames),
         "replayed config 4": (gf_launches, gf_frames),
-        "replayed tiled Cornell (4 bands)": (gt_launches, gt_frames)}
+        "replayed tiled Cornell (4 bands)": (gt_launches, gt_frames),
+        "replayed Cornell, tap_batch": (tb_launches, tb_frames),
+        "replayed subdivided Cornell": (sd_launches, sd_frames)}
     per_frame = {k: {"config 4": f_launches[k] / f_frames,
                      **{f"stand-in {n}": v[k] / f
                         for n, (v, f) in standins.items()},
@@ -3078,7 +3385,11 @@ def main() -> int:
                      / gr_frames,
                      "replayed config 4": gf_launches[k] / gf_frames,
                      "replayed tiled Cornell (4 bands)": gt_launches[k]
-                     / gt_frames}
+                     / gt_frames,
+                     "replayed Cornell, tap_batch": tb_launches[k]
+                     / tb_frames,
+                     "replayed subdivided Cornell": sd_launches[k]
+                     / sd_frames}
                  for k in ("closest_hit", "any_hit")}
     print(json.dumps({"kernels": [
         {**entry("closest_hit", "trace.cu", 392, launches["closest_hit"],
@@ -3086,7 +3397,12 @@ def main() -> int:
          "launches_per_frame": per_frame["closest_hit"]},
         {**entry("any_hit", "trace.cu", 611, launches["any_hit"], k2_err,
                  timings[n][2:], k2_bound),
-         "launches_per_frame": per_frame["any_hit"]},
+         "launches_per_frame": per_frame["any_hit"],
+         "tap_stream": {"rays": k2_stream[0], "ms": k2_stream[1],
+                        "plain_ms": k2_stream[2],
+                        "bound_ms": k2_stream[3][0],
+                        "bound_by": k2_stream[3][1],
+                        "launches": tb_launches["any_hit"]}},
         entry("inst_closest_hit", "trace_inst.cu", 1916,
               g_launches["inst_closest_hit"], k4_err, k4_times[:2],
               k4_bound),

@@ -272,3 +272,83 @@ def test_module_runs_on_cpu(tmp_path):
     assert proc.returncode == 0, proc.stderr
     tel = json.loads(proc.stdout.strip().splitlines()[-1])
     assert tel["frames"] == 1
+
+
+KNOBS = ("TPU_RT_GB_REUSE", "TPU_RT_BRUTE_MAX", "TPU_RT_KERNEL",
+         "TPU_RT_INCULL", "TPU_RT_TAP_BATCH")
+
+
+def _knob_run(tmp_path, monkeypatch, env):
+    """interactive.run on the CPU (cornell, 8x8, 2 frames) under the
+    TPU_RT_* variables `env` (the others unset): the config, and per
+    frame the scene and keyword arguments render_frame got and the ctx
+    restir_spatial got."""
+    from tpu_raytracer_torch.ops import restir
+
+    for name in KNOBS:
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    frames, ctxs = [], []
+    orig_frame, orig_spatial = pipeline.render_frame, restir.restir_spatial
+
+    def frame(scene, *args, **kwargs):
+        frames.append((scene, kwargs))
+        return orig_frame(scene, *args, **kwargs)
+
+    def spatial(*args):
+        ctxs.append(args[-1])
+        return orig_spatial(*args)
+    monkeypatch.setattr(pipeline, "render_frame", frame)
+    monkeypatch.setattr(restir, "restir_spatial", spatial)
+    cfg = parse_args(["--device", "cpu", "--scale=8x8", "--max-frames", "2",
+                      "--no-preview", "--out-dir", str(tmp_path)])
+    interactive.run(cfg)
+    return cfg, frames, ctxs
+
+
+def test_knobs_default_to_the_reference_app(tmp_path, monkeypatch):
+    """With no TPU_RT_* variable set the app runs as `python -m
+    tpu_raytracer` does: the G-buffer reused on static frames, the 2M
+    cap, mxuf2, no in-kernel cull, sequential taps."""
+    from tpu_raytracer_torch.ops import trace_api
+
+    cfg, frames, ctxs = _knob_run(tmp_path, monkeypatch, {})
+    assert (cfg.gb_reuse, cfg.brute_max, cfg.kernel, cfg.incull,
+            cfg.tap_batch) == (True, None, "mxuf2", False, False)
+    scene = frames[0][0]
+    assert scene.brute_max == trace_api.BRUTE_FORCE_MAX_TRIS == 2 * 1024 ** 2
+    assert (scene.kernel, scene.incull) == ("mxuf2", False)
+    assert [kw["gb_reuse"] for _, kw in frames] == [True, True]
+    assert [kw["tap_batch"] for _, kw in frames] == [False, False]
+    assert [c["tap_batch"] for c in ctxs] == [False, False]
+
+
+def test_knobs_reach_the_frame(tmp_path, monkeypatch):
+    """TPU_RT_GB_REUSE=0 reaches render_fn as gb_reuse=False and
+    TPU_RT_TAP_BATCH=1 reaches the ReSTIR ctx."""
+    cfg, frames, ctxs = _knob_run(tmp_path, monkeypatch, {
+        "TPU_RT_GB_REUSE": "0", "TPU_RT_TAP_BATCH": "1"})
+    assert (cfg.gb_reuse, cfg.tap_batch) == (False, True)
+    assert [kw["gb_reuse"] for _, kw in frames] == [False, False]
+    assert [c["tap_batch"] for c in ctxs] == [True, True]
+
+
+def test_knobs_reach_the_scene(tmp_path, monkeypatch):
+    """TPU_RT_BRUTE_MAX=1, TPU_RT_KERNEL=vpu and TPU_RT_INCULL=1 reach
+    the built scene; TPU_RT_BRUTE_MAX=0 is the default cap."""
+    _, frames, _ = _knob_run(tmp_path, monkeypatch, {
+        "TPU_RT_BRUTE_MAX": "1", "TPU_RT_KERNEL": "vpu",
+        "TPU_RT_INCULL": "1"})
+    scene = frames[0][0]
+    assert (scene.brute_max, scene.kernel, scene.incull) == (1, "vpu", True)
+    monkeypatch.setenv("TPU_RT_BRUTE_MAX", "0")
+    assert parse_args([]).brute_max is None
+
+
+def test_bad_kernel_knob_raises(monkeypatch):
+    """A TPU_RT_KERNEL that names no mode raises as trace_api.check_mode
+    does."""
+    monkeypatch.setenv("TPU_RT_KERNEL", "mxq7")
+    with pytest.raises(ValueError, match="kernel='mxq7'"):
+        parse_args([])

@@ -238,6 +238,28 @@ def test_frame_makes_no_host_read(scenes, monkeypatch):
         guard.off()
 
 
+def test_tap_batch_frame_makes_no_host_read(scenes, monkeypatch):
+    """The batched spatial taps (`tap_batch`) read nothing back either:
+    their stream has the shape of the band, whatever the data, so a
+    FrameGraph(tap_batch=True) can capture the frame."""
+    guard = _NoHostReads()
+    for mod, name in ((gbuffer, "scene_trace"), (path_trace, "scene_trace"),
+                      (path_trace, "scene_occluded"),
+                      (restir, "scene_occluded")):
+        monkeypatch.setattr(mod, name, guard.lifted(getattr(mod, name)))
+    cam = camera_mod.CameraController()
+    state = pipeline.init_state(W, H, "cpu")
+    guard.on()
+    try:
+        for f in range(2):
+            u = renderer.camera_to_device(cam.uniform(1.0, f, 2), "cpu")
+            state = pipeline.render_frame(
+                scenes[1], u, torch.tensor(f, dtype=torch.int64), state, W,
+                H, static_ok=f > 0, gb_reuse=True, tap_batch=True)[2]
+    finally:
+        guard.off()
+
+
 def _ref_frames(ref, static):
     cam = camera_mod.CameraController()
     state = ref_pipeline.init_state(W, H)
@@ -343,6 +365,8 @@ def test_frame_graph_refuses_the_cpu(scenes):
         graph_mod.FrameGraph(scenes[1], W, H, "cpu")
     with pytest.raises(ValueError, match="not a CUDA device"):
         graph_mod.FrameGraph(scenes[1], W, H, "cpu", progressive=True)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        graph_mod.FrameGraph(scenes[1], W, H, "cpu", tap_batch=True)
 
 
 def test_captured_launches_count_on_replay():

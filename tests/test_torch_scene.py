@@ -138,3 +138,38 @@ def test_import_leaves_jax_out():
             " or m == 'tpu_raytracer'];"
             " assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+def test_environment_read_in_one_place():
+    """The package reads the reference app's TPU_RT_* knobs in
+    utils/config.py alone (the scene build and the frame take them as
+    arguments); besides, only the kernel build reads CUDA_HOME
+    (ops/trace_api.py:_nvcc, through load_kernels)."""
+    import ast
+    import os
+
+    import tpu_raytracer_torch
+
+    root = os.path.dirname(tpu_raytracer_torch.__file__)
+    reads = []
+    for folder, _, files in os.walk(root):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(folder, name)
+            rel = os.path.relpath(path, root)
+            with open(path) as f:
+                tree = ast.parse(f.read())
+            funcs = [n for n in ast.walk(tree)
+                     if isinstance(n, (ast.FunctionDef,
+                                       ast.AsyncFunctionDef))]
+            for node in ast.walk(tree):
+                if (isinstance(node, ast.Attribute)
+                        and node.attr in ("environ", "getenv", "putenv")) \
+                        or (isinstance(node, ast.Name)
+                            and node.id in ("environ", "getenv")):
+                    owner = [fn.name for fn in funcs
+                             if fn.lineno <= node.lineno <= fn.end_lineno]
+                    reads.append((rel, owner[-1] if owner else None))
+    allowed = {("utils/config.py", "env_knobs"), ("ops/trace_api.py", "_nvcc")}
+    assert reads and set(reads) <= allowed, reads

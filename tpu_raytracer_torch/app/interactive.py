@@ -22,8 +22,11 @@ first N CUDA devices, or N bands on the CPU with --device cpu. On CUDA
 devices a frame is replayed from CUDA graphs: one device's from
 render/graph.py:FrameGraph, N bands' from parallel/tiles.py:
 TiledFrameGraph (each band in segments between its halo exchanges); the
-CPU renders eagerly, the bands as threads. Static frames reuse last
-frame's G-buffer, as `python -m tpu_raytracer` does (TPU_RT_GB_REUSE).
+CPU renders eagerly, the bands as threads. The reference app's TPU_RT_*
+knobs arrive on the RenderConfig (utils/config.py:env_knobs): static
+frames reuse last frame's G-buffer unless TPU_RT_GB_REUSE says otherwise,
+as `python -m tpu_raytracer` does, and the trace-kernel mode, cull, cap
+and batched spatial taps go to the scene build and the frame.
 """
 
 from __future__ import annotations
@@ -50,7 +53,12 @@ from ..utils.resample import resize_u8
 from .screenshot import ScreenshotSaver, denoised_screenshot
 
 
-def load_scene(name: str, device):
+def load_scene(name: str, device, kernel: str = "mxuf2",
+               incull: bool = False, brute_max: int | None = None):
+    """A catalog scene by name, or a .gltf/.glb path, built on `device`
+    under the trace-kernel mode (kernel, incull) and cap (brute_max) that
+    `SceneBuilder.build` takes."""
+    build = {"kernel": kernel, "incull": incull, "brute_max": brute_max}
     catalog = {
         "cornell": scene_catalog.create_cornell_box,
         "cornell_diffuse": scene_catalog.create_cornell_box_diffuse,
@@ -64,9 +72,9 @@ def load_scene(name: str, device):
         "gallery": scene_catalog.create_instancing_gallery_scene,
     }
     if name in catalog:
-        return catalog[name](device)
+        return catalog[name](device, **build)
     if name.endswith((".gltf", ".glb")):
-        return scene_catalog.create_gltf_scene(device, name)
+        return scene_catalog.create_gltf_scene(device, name, **build)
     raise ValueError(f"unknown scene '{name}'")
 
 
@@ -159,7 +167,8 @@ def run(cfg: RenderConfig) -> dict:
     the run."""
     dev = _device(cfg.device)
     w, h = cfg.width, cfg.height
-    scene = load_scene(cfg.scene, dev)
+    scene = load_scene(cfg.scene, dev, kernel=cfg.kernel, incull=cfg.incull,
+                       brute_max=cfg.brute_max)
     cam = camera_mod.CameraController()
     state = pipeline.init_state(w, h, dev)
     frame_count = 0
@@ -169,27 +178,31 @@ def run(cfg: RenderConfig) -> dict:
     # On CUDA devices: the frame's CUDA graphs, whose static state it is.
     mesh = _tile_mesh(cfg.tiles, dev)
     graph = None
+    reuse, batch = cfg.gb_reuse, cfg.tap_batch
     if mesh is not None and dev.type == "cuda":
-        graph = tiles.TiledFrameGraph(mesh, scene, w, h, cfg.halo)
+        graph = tiles.TiledFrameGraph(mesh, scene, w, h, cfg.halo,
+                                      tap_batch=batch)
 
         def render_fn(camera, fc, state, static_ok):
-            return graph(camera, fc, static_ok, gb_reuse=True)
+            return graph(camera, fc, static_ok, gb_reuse=reuse)
     elif mesh is not None:
-        tiled = tiles.make_render_frame_tiled(mesh, w, h, cfg.halo)
+        tiled = tiles.make_render_frame_tiled(mesh, w, h, cfg.halo,
+                                              tap_batch=batch)
         scene_r = tiles.replicate(scene, mesh)
 
         def render_fn(camera, fc, state, static_ok):
             return tiled(scene_r, camera, fc, state, static_ok,
-                         gb_reuse=True)
+                         gb_reuse=reuse)
     elif dev.type == "cuda":
-        graph = FrameGraph(scene, w, h, dev)
+        graph = FrameGraph(scene, w, h, dev, tap_batch=batch)
 
         def render_fn(camera, fc, state, static_ok):
-            return graph(camera, fc, static_ok, gb_reuse=True)
+            return graph(camera, fc, static_ok, gb_reuse=reuse)
     else:
         def render_fn(camera, fc, state, static_ok):
             return pipeline.render_frame(scene, camera, fc, state, w, h,
-                                         static_ok=static_ok, gb_reuse=True)
+                                         static_ok=static_ok, gb_reuse=reuse,
+                                         tap_batch=batch)
 
     def whole(state):
         """The frame state as one dict on `dev`."""

@@ -20,12 +20,14 @@ PI = np.pi
 
 
 def create_cornell_box(device, kernel: str = "mxuf2", incull: bool = False,
-                       brute_max: int | None = None):
+                       brute_max: int | None = None,
+                       subdivide_max_diag: float | None = None):
     """scenes.rs:9-130: checker floor, colored walls, quad ceiling light,
     glass crystal with an internal blue sphere light, rough-metal tall
     box. 1,320 triangles in 11 chunks of 128. kernel, incull: the
-    trace-kernel mode; brute_max: the cap past which queries walk the BVH
-    (`SceneBuilder.build`)."""
+    trace-kernel mode; brute_max: the cap past which queries walk the BVH;
+    subdivide_max_diag: split triangles larger than this fraction of the
+    scene's diagonal (`SceneBuilder.build`)."""
     b = SceneBuilder()
 
     plane_id = b.add_mesh(create_plane())
@@ -72,13 +74,15 @@ def create_cornell_box(device, kernel: str = "mxuf2", incull: bool = False,
         translation([-0.35, -0.4 + 0.002, -0.3]) @ rotation_y(0.4)
         @ scale([0.6, 1.2, 0.6]))
 
-    return b.build(device, kernel=kernel, incull=incull, brute_max=brute_max)
+    return b.build(device, kernel=kernel, incull=incull, brute_max=brute_max,
+                   subdivide_max_diag=subdivide_max_diag)
 
 
-def create_cornell_box_diffuse(device):
+def create_cornell_box_diffuse(device, **build):
     """BASELINE config 1: the diffuse-only Cornell box (no glass, metal or
     sphere light): white, red and green walls, the quad ceiling light and
-    two white boxes."""
+    two white boxes. This builder and those below pass `build` (kernel,
+    incull, brute_max) on to `SceneBuilder.build`."""
     b = SceneBuilder()
     plane_id = b.add_mesh(create_plane())
     cube_id = b.add_mesh(create_cube())
@@ -105,10 +109,11 @@ def create_cornell_box_diffuse(device):
     b.add_instance(cube_id, mat_white,
                    translation([0.4, -0.7, 0.3]) @ rotation_y(-0.3)
                    @ scale([0.6, 0.6, 0.6]))
-    return b.build(device)
+    return b.build(device, **build)
 
 
-def create_instancing_gallery_scene(device, n: int = 100, subdiv: int = 4):
+def create_instancing_gallery_scene(device, n: int = 100, subdiv: int = 4,
+                                    **build):
     """`n` instances of one icosphere on a hsv-tinted grid over a floor,
     under a quad light, built instanced (bench.py config 7). At the
     defaults: 102 instances, 512,004 world triangles in 5,376 object
@@ -134,10 +139,10 @@ def create_instancing_gallery_scene(device, n: int = 100, subdiv: int = 4):
         x = (gx - (side - 1) / 2) * 1.5
         z = (gz - (side - 1) / 2) * 1.5
         b.add_instance(dense_id, mat, translation([x, -0.5, z]) @ scale(0.5))
-    return b.build(device, instancing="on")
+    return b.build(device, instancing="on", **build)
 
 
-def create_restir_scene(device):
+def create_restir_scene(device, **build):
     """scenes.rs:133-223: 100 colored sphere lights on a 10x10 grid over
     a floor, before a wall, around a metal cube. 32,016 triangles."""
     b = SceneBuilder()
@@ -173,10 +178,10 @@ def create_restir_scene(device):
                                [color[0], color[1], color[2], strength])
 
     b.add_instance(cube_id, mat_metal, translation([0, -0.5, 0]) @ scale(0.5))
-    return b.build(device)
+    return b.build(device, **build)
 
 
-def create_bunny_scene(device, subdiv_fallback: int = 4):
+def create_bunny_scene(device, subdiv_fallback: int = 4, **build):
     """BASELINE config 3: a dense mesh on a pedestal inside the Cornell
     shell. With no bunny asset, three instances of an icosphere of
     subdivision `subdiv_fallback` stand in (15,372 triangles at 4)."""
@@ -207,7 +212,7 @@ def create_bunny_scene(device, subdiv_fallback: int = 4):
                    translation([-0.55, -0.8, 0.4]) @ scale(0.4))
     b.add_instance(dense_id, mat_body,
                    translation([0.55, -0.8, -0.4]) @ scale(0.4))
-    return b.build(device)
+    return b.build(device, **build)
 
 
 def add_gltf_to_builder(b: SceneBuilder, meshes, materials, images,
@@ -251,7 +256,7 @@ def add_gltf_to_builder(b: SceneBuilder, meshes, materials, images,
 
 
 def create_gltf_scene(device, path: str, model_transform=None,
-                      light_transform=None):
+                      light_transform=None, **build):
     """scenes.rs:249-319: a glTF asset on a 10x floor under a quad light
     ([1, 1, 1] x 15). model_transform defaults to the reference's
     translation([0, -0.5, 0]) @ scale(1.0), light_transform to the light
@@ -275,7 +280,7 @@ def create_gltf_scene(device, path: str, model_transform=None,
                             model_transform)
     except Exception as e:  # noqa: BLE001 - the reference's fallback
         print(f"glTF load failed ({e}); rendering empty scene")
-    return b.build(device)
+    return b.build(device, **build)
 
 
 def _asset_path(canonical: str, procedural_name: str) -> str:
@@ -295,34 +300,35 @@ def _asset_path(canonical: str, procedural_name: str) -> str:
     return path
 
 
-def create_avocado_scene(device, path: str = None):
+def create_avocado_scene(device, path: str = None, **build):
     """scenes.rs:321-332: the Avocado glb at 20x on the floor. This and
     the next two wrappers take create_gltf_scene's default light, which is
     the one the reference passes."""
     if path is None:
         path = _asset_path("assets/models/Avocado.glb", "avocado")
     return create_gltf_scene(
-        device, path, model_transform=translation([0, 0, 0]) @ scale(20.0))
+        device, path, model_transform=translation([0, 0, 0]) @ scale(20.0),
+        **build)
 
 
-def create_damaged_helmet_scene(device, path: str = None):
+def create_damaged_helmet_scene(device, path: str = None, **build):
     """scenes.rs:334-347: DamagedHelmet rotated upright (Rx(pi/2))."""
     if path is None:
         path = _asset_path("assets/models/DamagedHelmet.glb", "helmet")
     return create_gltf_scene(
         device, path,
         model_transform=(translation([0, 0, 0]) @ rotation_x(PI / 2)
-                         @ scale(1.0)))
+                         @ scale(1.0)), **build)
 
 
-def create_multi_material_model_scene(device, path: str = None):
+def create_multi_material_model_scene(device, path: str = None, **build):
     """scenes.rs:349-365: VRM avatar at 0.5x facing the camera (Ry(pi))."""
     if path is None:
         path = _asset_path("assets/models/AliciaSolid.vrm", "figure")
     return create_gltf_scene(
         device, path,
         model_transform=(translation([0, 0, 0]) @ scale(0.5)
-                         @ rotation_y(PI)))
+                         @ rotation_y(PI)), **build)
 
 
 def truffle_material_rewrite(mat) -> None:
@@ -342,7 +348,7 @@ def truffle_material_rewrite(mat) -> None:
         mat.roughness_ = 0.25
 
 
-def create_chocolate_truffle_scene(device, path: str = None):
+def create_chocolate_truffle_scene(device, path: str = None, **build):
     """scenes.rs:367-504: the reference's showcase scene. An
     obsidian-table floor, the glTF materials through
     `truffle_material_rewrite`, and a studio of 3 sphere lights (warm key
@@ -357,7 +363,7 @@ def create_chocolate_truffle_scene(device, path: str = None):
         meshes, materials, images, mat_indices = load_gltf(path)
     except Exception as e:  # noqa: BLE001 - the reference's fallback
         print(f"Failed to load gift chocolate: {e}")
-        return create_avocado_scene(device)
+        return create_avocado_scene(device, **build)
 
     b = SceneBuilder()
     plane_id = b.add_mesh(create_plane())
@@ -385,10 +391,10 @@ def create_chocolate_truffle_scene(device, path: str = None):
     b.register_sphere_light(
         sphere_id, translation([-3.0, 1.0, 3.0]) @ scale(1.0),
         [0.01, 0.05, 0.2], 10.0)
-    return b.build(device)
+    return b.build(device, **build)
 
 
-def create_dense_knot_scene(device, path: str = None):
+def create_dense_knot_scene(device, path: str = None, **build):
     """bench.py config 6: the 100,800-triangle textured trefoil knot
     (base-color, normal and metallic-roughness textures) loaded through
     the glTF loader from the generated asset (models/dense_asset.py),
@@ -401,4 +407,4 @@ def create_dense_knot_scene(device, path: str = None):
         device, path,
         model_transform=translation([0, 1.2, 0]) @ scale(1.1),
         light_transform=(translation([0, 5.0, 0]) @ rotation_x(PI)
-                         @ scale(1.5)))
+                         @ scale(1.5)), **build)

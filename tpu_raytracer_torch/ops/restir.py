@@ -7,7 +7,9 @@ first-bounce vertex `s_path`; the final shade re-traces the winner from
 its seed. Candidate seeds are `pcg_hash(pixel + frame * 927163)`; reuse
 decisions draw from the separate raw-LCG stream. Spatial taps run in the
 reference's sequential order (tap i+1's draws depend on tap i's
-visibility result).
+visibility result), or with `make_ctx(tap_batch=True)` as the reference's
+batched taps: all five prepared first, their visibility in one any-hit
+call over a pixel-interleaved stream of 5R rays (`_tap_stream`).
 
 Seeds are int64 tensors holding uint32 values; in the packed [N, 12]
 reservoir rows the seed rides as the f32 bit pattern of its uint32, as in
@@ -30,6 +32,10 @@ MAX_M_TEMPORAL = 16   # restir.wgsl:851
 MAX_M_SPATIAL = 20    # restir_spatial.wgsl:893,989
 MAX_W = 20.0          # restir_spatial.wgsl:1005
 RES_COLS = 12
+# bands of more lanes keep the sequential taps under tap_batch (the
+# reference's gate, restir.py:428-431: 3840x2160 stays sequential)
+TAP_BATCH_MAX_LANES = 4 * 1024 * 1024
+TAPS = 5
 
 
 def _gb_head(c):
@@ -45,11 +51,22 @@ def _gb_head(c):
 
 
 def make_ctx(width: int, height: int, device, y0: int = 0,
-             band_h: int | None = None) -> dict:
-    """The band context: the full image's size, and the band of rows
-    [y0, y0 + band_h) this device renders (the whole image by default)."""
+             band_h: int | None = None, tap_batch: bool = False) -> dict:
+    """The band context: the full image's size, the band of rows
+    [y0, y0 + band_h) this device renders (the whole image by default),
+    and whether the spatial taps are batched (`tap_batch_on`; off by
+    default, as in the reference)."""
     return {"width": width, "height": height, "device": device, "y0": y0,
-            "band_h": height if band_h is None else band_h}
+            "band_h": height if band_h is None else band_h,
+            "tap_batch": bool(tap_batch)}
+
+
+def tap_batch_on(ctx) -> bool:
+    """The reference's gate (restir.py:428-431): batched taps when the
+    ctx asks for them and the band has at most TAP_BATCH_MAX_LANES
+    lanes."""
+    return (ctx.get("tap_batch", False)
+            and ctx["band_h"] * ctx["width"] <= TAP_BATCH_MAX_LANES)
 
 
 def _global_coords(ctx):
@@ -286,31 +303,129 @@ def _calculate_jacobian(curr_pos, curr_normal, curr_albedo, neighbor_v1,
     return torch.where(cos_neigh <= 1e-3, 0.0, jac)
 
 
-def restir_spatial(scene, gb, comb_view, in_reservoirs, camera,
-                   frame_count, ctx):
-    """Spatial reuse over up to 5 disk taps, each with an any-hit
-    visibility check, then the final seed replay + shade.
-
-    comb_view: view over this frame's packed G-buffer + temporal
-    reservoirs. Returns (out_reservoirs, hdr [n, 3], ray_count, diag)."""
+def _spatial_surface(scene, gb, camera, frame_count, ctx):
+    """What every spatial tap reads of this pixel: (surface dict, the
+    pixel's raw-LCG seed)."""
     gx, gy, gidx = _global_coords(ctx)
     local_seed = (gidx + (frame_count & 0xFFFFFFFF) * 0x12345678) \
         & 0xFFFFFFFF
-
-    valid = gb["valid"]
-    pos = vec3.of(gb["pos"])
-    normal = vec3.oct_decode(gb["oct_normal"][:, 0], gb["oct_normal"][:, 1])
     mat_id = gb["mat_id"]
-    albedo = vec3.of(gb["albedo"])
-    camera_pos = camera["view_pos"][:3]
-    cam3 = _cam_v3(camera_pos, gx.shape[0])
-
     rough, metal, trans = _mat_rmt(scene, torch.clamp(mat_id, min=0))
     is_specular = (rough < 0.1) | (metal > 0.9) | (trans > 0.1)
-    # neighbor-validity specular flag (other thresholds, :783-814)
-    valid_spec = (rough < 0.2) | (metal > 0.8) | (trans > 0.01)
-    num_neighbors = torch.where(is_specular, 3, 5)   # :901-910
-    radius = torch.where(is_specular, 4.0, 10.0)
+    return {
+        "gx": gx, "gy": gy, "valid": gb["valid"], "pos": vec3.of(gb["pos"]),
+        "normal": vec3.oct_decode(gb["oct_normal"][:, 0],
+                                  gb["oct_normal"][:, 1]),
+        "mat_id": mat_id, "albedo": vec3.of(gb["albedo"]),
+        "cam3": _cam_v3(camera["view_pos"][:3], gx.shape[0]),
+        "is_specular": is_specular,
+        # neighbor-validity specular flag (other thresholds, :783-814)
+        "valid_spec": (rough < 0.2) | (metal > 0.8) | (trans > 0.01),
+        "num_neighbors": torch.where(is_specular, 3, 5),   # :901-910
+        "radius": torch.where(is_specular, 4.0, 10.0),
+    }, local_seed
+
+
+def _tap_prep(i, local_seed, s, comb_view):
+    """Tap i's draws, neighbour read and every test before visibility
+    (the reference's `tap_prep`, restir.py:433-480): (seed, the tap's
+    merge operands and its shadow ray to the neighbour's v1, active
+    where `shadow_active`)."""
+    it_active = s["valid"] & (i < s["num_neighbors"])
+    local_seed, r1 = rng.rand_lcg_if(local_seed, it_active)
+    local_seed, r2 = rng.rand_lcg_if(local_seed, it_active)
+    angle = 2.0 * math.pi * r1
+    rad = torch.sqrt(r2) * s["radius"]
+    nx = s["gx"] + (torch.cos(angle) * rad).to(torch.int32)
+    ny = s["gy"] + (torch.sin(angle) * rad).to(torch.int32)
+
+    pos, normal = s["pos"], s["normal"]
+    comb_c, cov = comb_view.read_cols(ny, nx)
+    nh = _gb_head(comb_c)
+    ok = it_active & cov & nh["valid"]
+    ok = ok & _is_valid_neighbor_spatial(
+        s["valid_spec"], pos, normal, s["mat_id"], nh["pos"], nh["norm"],
+        nh["mat"], s["cam3"])
+
+    nbres = unpack_reservoir_cols(comb_c[GB_COLS:])
+    ok = ok & (nbres["p_hat"] > 0.0)
+    jac = _calculate_jacobian(pos, normal, s["albedo"], nbres["s_path"],
+                              nh["pos"], nh["norm"], nh["albedo"])
+    ok = ok & ~(s["is_specular"] & ((jac < 0.5) | (jac > 2.0)))
+
+    # visibility re-check to the neighbor's v1 (:965-984)
+    dir_to_v1 = nbres["s_path"] - pos
+    dist_to_v1 = vec3.length(dir_to_v1)
+    shadow_active = ok & (vec3.dot(normal, dir_to_v1) > 0.0) \
+        & (dist_to_v1 > 1e-3)
+    return local_seed, {
+        "nb_y": nbres["y"],
+        "m_new": torch.clamp(nbres["M"], max=MAX_M_SPATIAL),
+        "p_hat_corr": nbres["p_hat"] * jac,
+        "nb_w": nbres["W"],
+        "nb_spath": nbres["s_path"],
+        "shadow_active": shadow_active,
+        "dir": dir_to_v1 / torch.clamp(dist_to_v1, min=1e-12),
+        "t_max": torch.clamp(dist_to_v1 * 0.999, min=0.0),
+    }
+
+
+def _tap_stream(scene, gb, comb_view, camera, frame_count, ctx):
+    """The batched taps' preparation (the reference's `tap_prep` scan,
+    restir.py:433-500): the five taps' merge operands, each with its
+    reservoir-update draw `rnd` taken where the tap reaches its
+    visibility test (`shadow_active`), and their shadow rays as one
+    pixel-interleaved stream of 5R rays (pixel p's taps at 5p..5p+4):
+    {"o", "d": V3, "t_max", "active": [5R]}, traced with t_min 1e-3.
+
+    The sequential order draws `rnd` only after the test passes, so the
+    two RNG streams differ wherever a tap is blocked; every draw is an
+    independent uniform either way, so the image converges the same."""
+    s, local_seed = _spatial_surface(scene, gb, camera, frame_count, ctx)
+    taps = []
+    for i in range(TAPS):
+        local_seed, tap = _tap_prep(i, local_seed, s, comb_view)
+        local_seed, tap["rnd"] = rng.rand_lcg_if(local_seed,
+                                                 tap["shadow_active"])
+        taps.append(tap)
+    r = s["gx"].shape[0]
+
+    def inter(xs):                          # 5 x [R] -> [5R]
+        return torch.stack(xs).swapaxes(0, 1).reshape(-1)
+
+    def bcast(x):                           # [R] -> [5R]
+        return x[:, None].expand(r, TAPS).reshape(-1)
+
+    pos = s["pos"]
+    stream = {
+        "o": V3(bcast(pos.x), bcast(pos.y), bcast(pos.z)),
+        "d": V3(*(inter([t["dir"][k] for t in taps]) for k in range(3))),
+        "t_max": inter([t["t_max"] for t in taps]),
+        "active": inter([t["shadow_active"] for t in taps]),
+    }
+    return taps, stream
+
+
+def _merge_tap(res, tap, ok, rnd):
+    """A tap that passed its visibility test into the reservoir. A
+    neighbor's cached radiance was traced from the NEIGHBOR's surface,
+    so adopting its seed always drops the dedup cache."""
+    weight = tap["p_hat_corr"] * tap["nb_w"] * tap["m_new"].to(torch.float32)
+    return _update_reservoir(res, ok, tap["nb_y"], weight, rnd, tap["m_new"],
+                             tap["p_hat_corr"], tap["nb_spath"], 0.0, False)
+
+
+def restir_spatial(scene, gb, comb_view, in_reservoirs, camera,
+                   frame_count, ctx):
+    """Spatial reuse over up to 5 disk taps, each with an any-hit
+    visibility check, then the final seed replay + shade. Under
+    `tap_batch_on(ctx)` the taps' checks are one any-hit call over
+    `_tap_stream`'s 5R rays; otherwise each tap traces in turn.
+
+    comb_view: view over this frame's packed G-buffer + temporal
+    reservoirs. Returns (out_reservoirs, hdr [n, 3], ray_count, diag)."""
+    valid = gb["valid"]
+    camera_pos = camera["view_pos"][:3]
 
     # own reservoir, M-clamped with w_sum rescale (:892-896)
     res = dict(in_reservoirs)
@@ -320,49 +435,29 @@ def restir_spatial(scene, gb, comb_view, in_reservoirs, camera,
         res["w_sum"])
     res["M"] = torch.clamp(res["M"], max=MAX_M_SPATIAL)
 
+    if tap_batch_on(ctx):
+        taps, st = _tap_stream(scene, gb, comb_view, camera, frame_count,
+                               ctx)
+        blocked = scene_occluded(scene, st["o"], st["d"], 1e-3, st["t_max"],
+                                 active=st["active"]).reshape(-1, TAPS)
+        ray_count = st["active"].to(torch.float32).sum()
+        for i, tap in enumerate(taps):
+            res = _merge_tap(res, tap, tap["shadow_active"] & ~blocked[:, i],
+                             tap["rnd"])
+        return _spatial_finalize(scene, gb, res, camera_pos, valid,
+                                 ray_count)
+
+    s, local_seed = _spatial_surface(scene, gb, camera, frame_count, ctx)
     ray_count = torch.zeros((), dtype=torch.float32, device=ctx["device"])
-    for i in range(5):
-        it_active = valid & (i < num_neighbors)
-        local_seed, r1 = rng.rand_lcg_if(local_seed, it_active)
-        local_seed, r2 = rng.rand_lcg_if(local_seed, it_active)
-        angle = 2.0 * math.pi * r1
-        rad = torch.sqrt(r2) * radius
-        nx = gx + (torch.cos(angle) * rad).to(torch.int32)
-        ny = gy + (torch.sin(angle) * rad).to(torch.int32)
-
-        comb_c, cov = comb_view.read_cols(ny, nx)
-        nh = _gb_head(comb_c)
-        ok = it_active & cov & nh["valid"]
-        ok = ok & _is_valid_neighbor_spatial(
-            valid_spec, pos, normal, mat_id, nh["pos"], nh["norm"],
-            nh["mat"], cam3)
-
-        nbres = unpack_reservoir_cols(comb_c[GB_COLS:])
-        ok = ok & (nbres["p_hat"] > 0.0)
-        jac = _calculate_jacobian(pos, normal, albedo, nbres["s_path"],
-                                  nh["pos"], nh["norm"], nh["albedo"])
-        ok = ok & ~(is_specular & ((jac < 0.5) | (jac > 2.0)))
-
-        # visibility re-check to the neighbor's v1 (:965-984)
-        dir_to_v1 = nbres["s_path"] - pos
-        dist_to_v1 = vec3.length(dir_to_v1)
-        shadow_active = ok & (vec3.dot(normal, dir_to_v1) > 0.0) \
-            & (dist_to_v1 > 1e-3)
+    for i in range(TAPS):
+        local_seed, tap = _tap_prep(i, local_seed, s, comb_view)
+        shadow_active = tap["shadow_active"]
         ray_count = ray_count + shadow_active.to(torch.float32).sum()
-        blocked = scene_occluded(
-            scene, pos, dir_to_v1 / torch.clamp(dist_to_v1, min=1e-12),
-            1e-3, torch.clamp(dist_to_v1 * 0.999, min=0.0),
-            active=shadow_active)
+        blocked = scene_occluded(scene, s["pos"], tap["dir"], 1e-3,
+                                 tap["t_max"], active=shadow_active)
         ok = shadow_active & ~blocked
-
-        p_hat_corr = nbres["p_hat"] * jac
-        m_new = torch.clamp(nbres["M"], max=MAX_M_SPATIAL)
-        weight = p_hat_corr * nbres["W"] * m_new.to(torch.float32)
         local_seed, rnd = rng.rand_lcg_if(local_seed, ok)
-        # a neighbor's cached radiance was traced from the NEIGHBOR's
-        # surface, so adopting its seed always drops the dedup cache
-        res = _update_reservoir(res, ok, nbres["y"], weight, rnd, m_new,
-                                p_hat_corr, nbres["s_path"], 0.0, False)
+        res = _merge_tap(res, tap, ok, rnd)
     return _spatial_finalize(scene, gb, res, camera_pos, valid, ray_count)
 
 

@@ -266,7 +266,8 @@ def _gather(outs: list, dev0) -> tuple:
 
 
 def make_render_frame_tiled(mesh: Mesh, width: int, height: int,
-                            halo: int = DEFAULT_HALO):
+                            halo: int = DEFAULT_HALO,
+                            tap_batch: bool = False):
     """The frame over the mesh's row bands at a fixed resolution.
 
     Returns call(scene, camera, frame_count, state, static_ok=False,
@@ -279,7 +280,8 @@ def make_render_frame_tiled(mesh: Mesh, width: int, height: int,
     scene and camera may be `replicate`d; otherwise each band copies
     them to its device. The bands exchange halo rows through receive
     buffers kept across frames, filled by copies between exchanges, as
-    `TiledFrameGraph`'s replays do."""
+    `TiledFrameGraph`'s replays do. tap_batch: each band batches its
+    spatial taps (`restir.tap_batch_on`, gated on the band's lanes)."""
     band_h, halo = _bands(mesh, height, halo)
     links = _Links(mesh.size)
 
@@ -288,7 +290,7 @@ def make_render_frame_tiled(mesh: Mesh, width: int, height: int,
         def per_band(d, dev, exchange):
             y0 = d * band_h
             ctx = restir_ops.make_ctx(width, height, dev, y0=y0,
-                                      band_h=band_h)
+                                      band_h=band_h, tap_batch=tap_batch)
 
             def make_view(flat):
                 return views_mod.halo_exchange(flat, width, band_h, halo,
@@ -368,10 +370,12 @@ class TiledFrameGraph:
     reuse of the G-buffer), each captured on first use after one warm-up
     frame on a scratch state (its halos the receive buffers as they
     stand: it only initialises what must not initialise in a capture).
-    Nothing falls back: a capture error raises."""
+    tap_batch: each band batches its spatial taps, as
+    `make_render_frame_tiled(tap_batch=True)` does; one graph set holds
+    one mode. Nothing falls back: a capture error raises."""
 
     def __init__(self, mesh: Mesh, scene, width: int, height: int,
-                 halo: int = DEFAULT_HALO):
+                 halo: int = DEFAULT_HALO, tap_batch: bool = False):
         if any(dev.type != "cuda" for dev in mesh.devices):
             raise ValueError(f"TiledFrameGraph captures CUDA graphs; "
                              f"{mesh.devices} are not all CUDA devices")
@@ -387,7 +391,8 @@ class TiledFrameGraph:
         self.camera = None
         self._ctx = [restir_ops.make_ctx(width, height, dev,
                                          y0=d * self.band_h,
-                                         band_h=self.band_h)
+                                         band_h=self.band_h,
+                                         tap_batch=tap_batch)
                      for d, dev in enumerate(mesh.devices)]
         self._pools = []
         for dev in mesh.devices:

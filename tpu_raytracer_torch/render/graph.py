@@ -12,7 +12,9 @@ whole frame once and replays it: one host call a frame.
   - Donation: the captured frame ends by copying its new state into the
     static state, so the state is updated in place, as donation does.
   - One graph per (static_ok, reuse of the G-buffer, refit), each
-    captured on first use, all in one memory pool.
+    captured on first use, all in one memory pool. Batched spatial taps
+    (`tap_batch`) are the FrameGraph's, not a key: one graph holds one
+    mode.
   - The scene is read through the addresses captured: a new scene needs a
     new FrameGraph. Moving instances is config 4's refit, captured with
     the frame (`refit_changed`): the graph owns a copy of the scene's
@@ -48,10 +50,13 @@ class FrameGraph:
     refit_changed: the ids of the instances a frame may move (a tuple),
     or "all"; then `self.scene` is a copy of `scene` whose refit fields
     the graph owns, and a call with `transforms` refits them before its
-    frame (config 4). The changed ids resolve on the host here, once."""
+    frame (config 4). The changed ids resolve on the host here, once.
+    tap_batch: every ReSTIR frame batches its spatial taps, as
+    `pipeline.render_frame(tap_batch=True)` does."""
 
     def __init__(self, scene, width: int, height: int, device,
-                 progressive: bool = False, refit_changed=None):
+                 progressive: bool = False, refit_changed=None,
+                 tap_batch: bool = False):
         device = torch.device(device)
         if device.type != "cuda":
             raise ValueError(f"FrameGraph captures CUDA graphs; {device} is "
@@ -71,6 +76,7 @@ class FrameGraph:
                                                           self.changed)
         self.scene, self.width, self.height = scene, width, height
         self.device, self.progressive = device, progressive
+        self.tap_batch = tap_batch
         self.state = ({"accum": renderer.make_accum(width, height, device)}
                       if progressive
                       else pipeline.init_state(width, height, device))
@@ -98,7 +104,8 @@ class FrameGraph:
             return {"accum": accum}, (radiance,)
         ldr, hdr, new_state, aux = pipeline.render_frame(
             self.scene, self.camera, self.frame_count, state, self.width,
-            self.height, static_ok=static_ok, gb_reuse=reuse)
+            self.height, static_ok=static_ok, gb_reuse=reuse,
+            tap_batch=self.tap_batch)
         return new_state, (ldr, hdr, aux)
 
     def _capture(self, key):

@@ -101,7 +101,7 @@ def render_band(scene, camera, frame_count, state, ctx, make_view,
 
 def render_frame(scene, camera, frame_count, state, width: int,
                  height: int, static_ok: bool = False,
-                 gb_reuse: bool = False):
+                 gb_reuse: bool = False, tap_batch: bool = False):
     """One complete ReSTIR frame on one device.
 
     scene: CompiledScene; camera: device camera uniform
@@ -112,12 +112,15 @@ def render_frame(scene, camera, frame_count, state, width: int,
     scene) changed since the previous frame, which enables temporal
     replay dedup - False is always safe; gb_reuse: on a static_ok frame,
     reuse last frame's G-buffer instead of tracing the primary rays (off
-    by default, as in the reference; the app turns it on).
+    by default, as in the reference; the app turns it on); tap_batch:
+    the spatial taps' visibility as one any-hit call over 5R rays
+    (`restir.tap_batch_on`; off by default, as in the reference).
 
     Returns (ldr [n, 3] gamma-encoded, hdr [n, 3], new_state, aux) where
     aux["rays"] is the exact number of traversal queries (0-dim tensor).
     """
-    ctx = restir_ops.make_ctx(width, height, state["accum"].device)
+    ctx = restir_ops.make_ctx(width, height, state["accum"].device,
+                              tap_batch=tap_batch)
 
     def make_view(flat):
         return views_mod.trivial_view(flat, width, height)

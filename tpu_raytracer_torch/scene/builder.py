@@ -30,6 +30,90 @@ from .resources import CompiledScene
 
 TEXTURE_SIZE = 1024  # reference: scene/mod.rs TEXTURE_WIDTH/HEIGHT = 1024
 
+
+def _subdivide_world(bundle, scalars, max_diag):
+    """Longest-edge bisection of world triangles whose box diagonal
+    exceeds `max_diag`, repeated until none does (the reference's
+    builder.py:37-72).
+
+    bundle: [T, 3, 20] per vertex (world pos 3 | world n 3 | world t 3 |
+    uv 2 | local pos 3 | local n 3 | local t 3); scalars: [T, 4] per
+    triangle (tangent sign, material, instance, primitive). Every
+    per-vertex value interpolates linearly, so a midpoint split leaves
+    the rendered distribution unchanged; only per-ray rounding moves."""
+    while True:
+        pos = bundle[:, :, 0:3]
+        diag = np.linalg.norm(pos.max(axis=1) - pos.min(axis=1), axis=1)
+        big = diag > max_diag
+        if not big.any():
+            return bundle, scalars
+        b, s = bundle[big], scalars[big]
+        p = b[:, :, 0:3]
+        e_len = np.stack([
+            np.linalg.norm(p[:, 1] - p[:, 0], axis=1),
+            np.linalg.norm(p[:, 2] - p[:, 1], axis=1),
+            np.linalg.norm(p[:, 0] - p[:, 2], axis=1),
+        ], axis=1)
+        i = np.argmax(e_len, axis=1)          # split edge (i, i+1), keep i+2
+        j, k = (i + 1) % 3, (i + 2) % 3
+        r = np.arange(len(b))
+        vi, vj, vk = b[r, i], b[r, j], b[r, k]
+        m = (vi + vj) * 0.5
+        bundle = np.concatenate([bundle[~big],
+                                 np.stack([vi, m, vk], axis=1),  # CCW kept
+                                 np.stack([m, vj, vk], axis=1)], axis=0)
+        scalars = np.concatenate([scalars[~big], s, s], axis=0)
+
+
+def _subdivided(world_v0, world_e1, world_e2, local_v0, local_e1, local_e2,
+                tri_table, tri_table_local, tri_inst, tri_prim, tri_local,
+                max_diag_frac):
+    """The reference's build step 2c (builder.py:404-452): the flattened
+    soup's triangles split by `_subdivide_world` at `max_diag_frac` of
+    the scene's diagonal. Returns the same arrays for the split soup;
+    each triangle keeps its own object-space copy (tri_local = arange)."""
+    wv = (world_v0, world_v0 + world_e1, world_v0 + world_e2)
+    scene_diag = float(np.linalg.norm(
+        np.maximum.reduce(wv).max(axis=0) - np.minimum.reduce(wv).min(axis=0)))
+    lv0 = local_v0[tri_local]
+    lv = (lv0, lv0 + local_e1[tri_local], lv0 + local_e2[tri_local])
+    bundle = np.zeros((len(tri_inst), 3, 20), np.float32)
+    for k in range(3):
+        bundle[:, k, 0:3] = wv[k]
+        bundle[:, k, 3:6] = tri_table[:, k * 3:k * 3 + 3]
+        bundle[:, k, 6:9] = tri_table[:, 15 + k * 3:18 + k * 3]
+        bundle[:, k, 9:11] = tri_table[:, 9 + k * 2:11 + k * 2]
+        bundle[:, k, 11:14] = lv[k]
+        bundle[:, k, 14:17] = tri_table_local[:, k * 3:k * 3 + 3]
+        bundle[:, k, 17:20] = tri_table_local[:, 15 + k * 3:18 + k * 3]
+    scalars = np.stack([tri_table[:, 24], tri_table[:, 25],
+                        tri_inst.astype(np.float32),
+                        tri_prim.astype(np.float32)], axis=1)
+    bundle, scalars = _subdivide_world(bundle, scalars,
+                                       max_diag_frac * scene_diag)
+    t_total = len(bundle)
+    world_v0 = bundle[:, 0, 0:3].copy()
+    local_v0 = bundle[:, 0, 11:14].copy()
+    tri_table = np.zeros((t_total, 26), np.float32)
+    tri_table_local = np.zeros_like(tri_table)
+    for k in range(3):
+        tri_table[:, k * 3:k * 3 + 3] = bundle[:, k, 3:6]
+        tri_table[:, 15 + k * 3:18 + k * 3] = bundle[:, k, 6:9]
+        tri_table[:, 9 + k * 2:11 + k * 2] = bundle[:, k, 9:11]
+        tri_table_local[:, k * 3:k * 3 + 3] = bundle[:, k, 14:17]
+        tri_table_local[:, 15 + k * 3:18 + k * 3] = bundle[:, k, 17:20]
+        tri_table_local[:, 9 + k * 2:11 + k * 2] = bundle[:, k, 9:11]
+    tri_table[:, 24] = scalars[:, 0]
+    tri_table[:, 25] = scalars[:, 1]
+    tri_table_local[:, 24:26] = tri_table[:, 24:26]
+    return (world_v0, bundle[:, 1, 0:3] - world_v0,
+            bundle[:, 2, 0:3] - world_v0, local_v0,
+            bundle[:, 1, 11:14] - local_v0, bundle[:, 2, 11:14] - local_v0,
+            tri_table, tri_table_local, scalars[:, 2].astype(np.int32),
+            scalars[:, 3].astype(np.int32),
+            np.arange(t_total, dtype=np.int32))
+
+
 def _oct_decode_np(e: np.ndarray) -> np.ndarray:
     """Octahedral decode (host, matches gbuffer.wgsl:38-44)."""
     ex, ey = e[:, 0], e[:, 1]
@@ -213,8 +297,8 @@ class SceneBuilder:
                 mesh_tri_off)
 
     def build(self, device, instancing: str = "auto", kernel: str = "mxuf2",
-              incull: bool = False,
-              brute_max: int | None = None) -> CompiledScene:
+              incull: bool = False, brute_max: int | None = None,
+              subdivide_max_diag: float | None = None) -> CompiledScene:
         """Compile the scene onto `device` (builder.py:255-565 of the
         reference).
 
@@ -233,7 +317,13 @@ class SceneBuilder:
         queries take the BVH walk instead of a sweep under every mode
         (the reference's TPU_RT_BRUTE_MAX; None: BRUTE_FORCE_MAX_TRIS);
         such a scene builds no coefficient table. The instancing="auto"
-        rule reads BRUTE_FORCE_MAX_TRIS, as the reference's does."""
+        rule reads BRUTE_FORCE_MAX_TRIS, as the reference's does.
+        subdivide_max_diag: a fraction of the scene's box diagonal; world
+        triangles larger than it are split by longest-edge bisection
+        before the BVH order is taken (tighter chunk boxes for scenes of
+        giant triangles; off by default, as in the reference). The cap
+        and the coefficient table see the split scene's slots. An
+        instanced build refuses it."""
         if instancing not in ("auto", "on", "off"):
             raise ValueError(f"instancing={instancing!r}")
         brute_max = (BRUTE_FORCE_MAX_TRIS if brute_max is None
@@ -250,6 +340,9 @@ class SceneBuilder:
         if instancing == "on" or (
                 instancing == "auto" and t_world > BRUTE_FORCE_MAX_TRIS
                 and tp_obj <= MXUF_MAX_TP):
+            if subdivide_max_diag is not None:
+                raise ValueError(
+                    "subdivide_max_diag is a flattened-mode culling aid")
             return self._build_instanced(device, mode)
 
         # 1. per-mesh local triangles
@@ -310,6 +403,16 @@ class SceneBuilder:
             blk[:, 25] = mat_id
             blk_l[:, 24:26] = blk[:, 24:26]
             row += nt
+
+        # 2c. optional oversized-triangle subdivision (culling aid)
+        if subdivide_max_diag is not None and t_total > 0:
+            (world_v0, world_e1, world_e2, local_v0, local_e1, local_e2,
+             tri_table, tri_table_local, tri_inst, tri_prim,
+             tri_local) = _subdivided(
+                world_v0, world_e1, world_e2, local_v0, local_e1, local_e2,
+                tri_table, tri_table_local, tri_inst, tri_prim, tri_local,
+                subdivide_max_diag)
+            t_total = world_v0.shape[0]
 
         # 3. BVH over the soup; reorder every per-triangle array into its
         # DFS leaf order

@@ -5,12 +5,28 @@ The reference app's one flag, `--scale=WxH` (main.rs:107-122), parses as
 it does there; the rest is a dataclass and argparse. `--device` picks the
 torch device the app renders on: `cuda:0` unless the caller asks for the
 CPU.
+
+`python -m tpu_raytracer` also honours five TPU_RT_* environment
+variables, which have no flag there. They are read here and nowhere else
+in the package (`env_knobs`), and reach the scene build and the frame as
+plain arguments:
+
+  TPU_RT_GB_REUSE   "1" (the reference app's default): reuse the
+                    G-buffer on static frames; anything else traces it
+  TPU_RT_BRUTE_MAX  the triangle slots past which queries walk the BVH;
+                    "0" or unset: the default cap (2M)
+  TPU_RT_KERNEL     the trace-kernel mode, default mxuf2
+  TPU_RT_INCULL     not "0": the in-kernel cull
+  TPU_RT_TAP_BATCH  not "0": batched spatial-tap visibility
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
+
+from ..ops.trace_api import check_mode
 
 
 @dataclasses.dataclass
@@ -33,6 +49,28 @@ class RenderConfig:
                                     # off when stdout is not a tty)
     preview_cols: int = 100
     device: str = "cuda:0"          # torch device; "cpu" only when asked
+    # the reference app's environment knobs (`env_knobs`)
+    gb_reuse: bool = True           # TPU_RT_GB_REUSE
+    brute_max: int | None = None    # TPU_RT_BRUTE_MAX (None: the default)
+    kernel: str = "mxuf2"           # TPU_RT_KERNEL
+    incull: bool = False            # TPU_RT_INCULL
+    tap_batch: bool = False         # TPU_RT_TAP_BATCH
+
+
+def env_knobs(environ=None) -> dict:
+    """The reference app's TPU_RT_* knobs from `environ` (os.environ by
+    default), as RenderConfig fields, read as `python -m tpu_raytracer`
+    reads them: the G-buffer reuse set unless TPU_RT_GB_REUSE is another
+    value than "1" (its __main__'s setdefault, pipeline.py:67); a bad
+    kernel mode raises ValueError (`trace_api.check_mode`)."""
+    env = os.environ if environ is None else environ
+    return {
+        "gb_reuse": env.get("TPU_RT_GB_REUSE", "1") == "1",
+        "brute_max": int(env.get("TPU_RT_BRUTE_MAX", "0")) or None,
+        "kernel": check_mode(env.get("TPU_RT_KERNEL", "mxuf2")),
+        "incull": env.get("TPU_RT_INCULL", "0") != "0",
+        "tap_batch": env.get("TPU_RT_TAP_BATCH", "0") != "0",
+    }
 
 
 def parse_args(argv=None) -> RenderConfig:
@@ -75,4 +113,6 @@ def parse_args(argv=None) -> RenderConfig:
                  "debug_mode", "tiles", "halo", "checkpoint", "out_dir",
                  "max_frames", "preview", "preview_cols", "device"):
         setattr(cfg, name, getattr(args, name))
+    for name, value in env_knobs().items():
+        setattr(cfg, name, value)
     return cfg
