@@ -176,8 +176,9 @@ is non-zero):
                 subprocess: exit code 0, K1, K2 and K7 in its launches.
                 Prints the phase's wall time.
  23. walk     - the BVH walk K8 (the route past a scene's brute_max
-                triangle slots). The big scene, built here as
-                scripts/ucb_bigscene.py builds its own: the floor, the
+                triangle slots). The big scene, built
+                (bigscene.big_scene) as scripts/ucb_bigscene.py
+                builds its own: the floor, the
                 quad light and two create_sphere(8) bodies at x = +-0.3,
                 2,621,444 triangles, past the 2M cap; its host build time,
                 bvh_rec's records and bytes. K8 closest- and any-hit
@@ -187,7 +188,11 @@ is non-zero):
                 bit-equal. Timed by CUDA events beside the plain walk
                 (timed once, counting its steps), K3 on the same scene and
                 rays, and the bound from the plain walk's steps and
-                touched records; then K8 and K3 on ucb_bigscene.py's own
+                touched records, each time beside the walk's steps per
+                ray (mean, p99, max), its warps' longest lane over the
+                mean lane (32 lanes in call order) and its box misses
+                (bigscene.step_stats); then K8 and K3 on
+                ucb_bigscene.py's own
                 983,044-triangle scene (three create_sphere(7)) forced
                 through the walk with brute_max=1. The big scene's ReSTIR
                 frame at 512^2: 2 warm-up + 4 timed frames, K8 and K7
@@ -1375,54 +1380,6 @@ def _standins_phase(torch, root, dev, card, kernels):
     return out
 
 
-def _big_scene(dev, subdiv, xs, brute_max=None):
-    """scripts/ucb_bigscene.py:30-48's scene: the floor, the quad light and
-    an icosphere of subdivision `subdiv` (20 x 4^subdiv triangles) at each
-    x of `xs`, flattened (instancing off), with the cap `brute_max`."""
-    from tpu_raytracer_torch.models.scenes import PI
-    from tpu_raytracer_torch.scene.builder import SceneBuilder
-    from tpu_raytracer_torch.scene.geometry import create_plane, create_sphere
-    from tpu_raytracer_torch.scene.material import Material
-    from tpu_raytracer_torch.utils.math3d import rotation_x, scale, translation
-
-    b = SceneBuilder()
-    plane_id = b.add_mesh(create_plane())
-    mat = b.add_material(Material((0.73, 0.73, 0.73, 1.0)))
-    body = b.add_material(Material((0.8, 0.7, 0.5, 1.0)).roughness(0.4))
-    b.add_instance(plane_id, mat, translation([0, -1, 0]) @ scale(2.0))
-    b.register_quad_light(
-        plane_id, translation([0, 0.99, 0]) @ rotation_x(PI) @ scale(0.5),
-        [1.0, 1.0, 1.0], 10.0)
-    sphere = b.add_mesh(create_sphere(subdiv))
-    for tx in xs:
-        b.add_instance(sphere, body,
-                       translation([tx, -0.5, 0.0]) @ scale(0.42))
-    return b.build(dev, instancing="off", brute_max=brute_max)
-
-
-def _walk_rays(torch, dev, n):
-    """scripts/ucb_bigscene.py:64-75's ray sets of n rays (seed 0):
-    incoherent, from uniform points in [-0.9, 0.9]^3 in normal
-    directions, and coherent, from (0, 0.2, 2.5) through a jittered grid
-    toward -z; each ([3, n] o, [3, n] d, t_min 1e-3, t_max 100)."""
-    rng = np.random.default_rng(0)
-    ro_i = rng.uniform(-0.9, 0.9, (n, 3)).astype(np.float32)
-    rd_i = rng.standard_normal((n, 3)).astype(np.float32)
-    px = rng.uniform(-0.5, 0.5, (n, 2)).astype(np.float32)
-    rd_c = np.stack([px[:, 0], px[:, 1] - 0.3, np.full(n, -1.0, np.float32)],
-                    axis=1)
-    ro_c = np.broadcast_to(np.float32([0.0, 0.2, 2.5]), (n, 3))
-    t_min = torch.full((n,), 1e-3, device=dev)
-    t_max = torch.full((n,), 100.0, device=dev)
-    out = {}
-    for name, o, d in (("incoherent", ro_i, rd_i), ("coherent", ro_c, rd_c)):
-        d = d / np.linalg.norm(d, axis=1, keepdims=True)
-        o, d = (torch.from_numpy(np.ascontiguousarray(x.T, np.float32))
-                .to(dev) for x in (o, d))
-        out[name] = (o, d, t_min, t_max)
-    return out
-
-
 def _walk_check(torch, scene, what, o, d, t_min, t_max):
     """K8 closest- and any-hit against the plain walk (with its step
     counts) on these rays: tri equal on every lane and t bit-equal, or
@@ -1473,8 +1430,10 @@ def _walk_phase(torch, dev, card, every, c_first, ptxas):
     cap, on ucb_bigscene.py's own 983,044-triangle scene forced through
     it, and on the Cornell box built with brute_max=1 (its frames against
     `c_first`, phase 5's). Returns (K8's {(ray set, any_hit): (ms, plain
-    ms, bound)}, the big scene's launches and frames, the walked Cornell
-    frames' launches and frames)."""
+    ms, bound, the plain walk's step_stats)}, the big scene's launches and
+    frames, the walked Cornell frames' launches and frames)."""
+    from tpu_raytracer_torch.bigscene import (big_scene, stats_text,
+                                              step_stats, walk_rays)
     from tpu_raytracer_torch.models import scenes
     from tpu_raytracer_torch.ops import gbuffer, trace_api, traversal
     from tpu_raytracer_torch.ops.trace_stream import trace_stream_kernel
@@ -1485,7 +1444,7 @@ def _walk_phase(torch, dev, card, every, c_first, ptxas):
     others = [k for k in every if k not in walk]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    big = _big_scene(dev, BIG_SUBDIV, (-0.3, 0.3))
+    big = big_scene(dev, BIG_SUBDIV, (-0.3, 0.3))
     torch.cuda.synchronize()
     build_s = time.time() - t0
     tp = big.tri_planes.shape[2]
@@ -1512,7 +1471,7 @@ def _walk_phase(torch, dev, card, every, c_first, ptxas):
                                    any_hit=any_hit)
 
     # K8 against the plain walk, and timed beside K3, on both ray sets
-    rays = _walk_rays(torch, dev, WALK_RAYS)
+    rays = walk_rays(dev, WALK_RAYS)
     out = {}
     for name, r in rays.items():
         checked = _walk_check(torch, big, f"big scene {name}", *r)
@@ -1521,14 +1480,15 @@ def _walk_phase(torch, dev, card, every, c_first, ptxas):
             ms = _time_ms(torch, lambda: k8(big, r, any_hit), WALK_REPS)
             k3_ms = _time_ms(torch, lambda: k3(big, r, any_hit), 1)
             bound, box, tri, touched = _walk_bound(want, WALK_RAYS)
-            out[(name, any_hit)] = (ms, plain_ms, bound)
+            steps = step_stats(want)
+            out[(name, any_hit)] = (ms, plain_ms, bound, steps)
             query = "any" if any_hit else "closest"
             print(f"timing big scene {name} {WALK_RAYS} rays, {query}: K8 "
                   f"{ms:.4f} ms, plain walk {plain_ms:.2f} ms, K3 "
                   f"{k3_ms:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}) "
-                  f"from {box} box and {tri} triangle steps "
-                  f"({(box + tri) / WALK_RAYS:.1f} a ray) over {touched} of "
-                  f"{s} records [{card}]", flush=True)
+                  f"from {box} box and {tri} triangle steps over "
+                  f"{touched} of {s} records; {stats_text(steps)} "
+                  f"[{card}]", flush=True)
         k3_res, want = k3(big, r, False), checked[False][0]
         same_tri = float((k3_res["tri"] == want["tri"]).float().mean())
         same_t = float((k3_res["t"] == want["t"]).float().mean())
@@ -1538,7 +1498,7 @@ def _walk_phase(torch, dev, card, every, c_first, ptxas):
 
     # ucb_bigscene.py's own scene, forced through the walk
     t0 = time.time()
-    ucb = _big_scene(dev, 7, (-0.6, 0.0, 0.6), brute_max=1)
+    ucb = big_scene(dev, 7, (-0.6, 0.0, 0.6), brute_max=1)
     torch.cuda.synchronize()
     print(f"walk: ucb_bigscene.py's scene {ucb.num_triangles} triangles, "
           f"{ucb.bvh_rec.shape[0]} records, built in {time.time() - t0:.2f} "
@@ -1587,12 +1547,14 @@ def _walk_phase(torch, dev, card, every, c_first, ptxas):
         k1_ms = _time_ms(torch, lambda: trace_api.trace_kernel(
             cornell.tri_planes, cornell.chunk_aabb, *rnd, any_hit), 20)
         bound = _walk_bound(c_checked[any_hit][0], WALK_RAYS)[0]
-        out[("cornell", any_hit)] = (ms, c_checked[any_hit][1], bound)
+        steps = step_stats(c_checked[any_hit][0])
+        out[("cornell", any_hit)] = (ms, c_checked[any_hit][1], bound, steps)
         print(f"timing Cornell {WALK_RAYS} random rays, "
               f"{'any' if any_hit else 'closest'}: K8 {ms:.4f} ms, "
               f"{'K2' if any_hit else 'K1'} {k1_ms:.4f} ms on the same rays, "
               f"plain walk {c_checked[any_hit][1]:.2f} ms, bound "
-              f"{bound[0]:.4f} ms ({bound[1]}) [{card}]", flush=True)
+              f"{bound[0]:.4f} ms ({bound[1]}); {stats_text(steps)} "
+              f"[{card}]", flush=True)
     ldrs, c_launches = _first_frames(cornell, dev, len(c_first))
     if (min(c_launches[k] for k in walk) <= 0
             or any(c_launches[k] for k in others)):
@@ -3432,6 +3394,7 @@ def main() -> int:
            "plain_ms": k8[("incoherent", a)][1],
            "bound_ms": k8[("incoherent", a)][2][0],
            "bound_by": k8[("incoherent", a)][2][1], "library_ms": None,
+           "walk_steps": k8[("incoherent", a)][3],
            "launches_per_frame": {
                "big scene": w_launches[f"bvh_{q}_hit"] / w_frames,
                "Cornell brute_max=1": cw_launches[f"bvh_{q}_hit"]

@@ -15,10 +15,13 @@ in f64 and rounds once, as K6's plain version does). K7, the table
 gather, copies words: its output equals the plain version bit for bit.
 K8, the BVH walk, equals the plain walk (`traversal.trace_plain`) in
 every word of t and tri, closest- and any-hit, on the Cornell box's
-stream and on a random-triangle tree.
+stream and on a random-triangle tree, at each of its windows of 1-8
+records, with the stream's arrays ending at an unreadable page so that
+a read past its last record faults.
 """
 
 import ctypes
+import mmap
 import os
 import re
 import shutil
@@ -751,7 +754,31 @@ def _bvh_stream(table):
             torch.from_numpy(tree.tri_id), _rays(5, -2.0, 2.0, 12.0))
 
 
+PAGE = mmap.PAGESIZE
+_LIBC = ctypes.CDLL(None, use_errno=True)
+_LIBC.mprotect.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int]
+
+
+def _guarded(x):
+    """A copy of tensor x that ends where an unreadable page begins, so a
+    read past its last element faults; the mapping lives as long as the
+    returned tensor."""
+    a = np.ascontiguousarray(x.numpy())
+    size = -(-a.nbytes // PAGE) * PAGE
+    mm = mmap.mmap(-1, size + PAGE)
+    addr = ctypes.addressof(ctypes.c_char.from_buffer(mm))
+    assert _LIBC.mprotect(addr + size, PAGE, 0) == 0    # PROT_NONE
+    view = np.frombuffer(mm, a.dtype, a.size, size - a.nbytes)
+    view[...] = a.reshape(-1)
+    out = torch.from_numpy(view.reshape(a.shape))
+    out._guard = mm
+    return out
+
+
 def _run_bvh(fn, rec, skip, tri, o, d, t_min, t_max):
+    """K8 on these rays, its stream's three arrays each ending at an
+    unreadable page (a read past record S - 1 faults)."""
+    rec, skip, tri = map(_guarded, (rec, skip, tri))
     n = o.shape[1]
     t = torch.full((n,), 7.0)
     out = torch.full((n,), 7, dtype=torch.int32)
@@ -766,9 +793,9 @@ def _run_bvh(fn, rec, skip, tri, o, d, t_min, t_max):
 @pytest.mark.parametrize("case", ["all", "r300", "one-live", "r0"])
 @pytest.mark.parametrize("table", ["cornell", "random"])
 def test_bvh_kernel_matches_plain(lib, table, case, any_hit):
-    """K8 against the plain walk: every word of t and tri equal, on all
-    the rays (30% dead), on 300 (a ragged last block), with one live
-    lane, and with none (R = 0, nothing written)."""
+    """K8 (the default build) against the plain walk: every word of t and
+    tri equal, on all the rays (30% dead), on 300 (a ragged last block),
+    with one live lane, and with none (R = 0, nothing written)."""
     rec, skip, tri, (o, d, t_min, t_max) = _bvh_stream(table)
     if case == "r300":
         o, d, t_min, t_max = (x[..., :300].contiguous()
@@ -787,3 +814,122 @@ def test_bvh_kernel_matches_plain(lib, table, case, any_hit):
     assert torch.equal(got["tri"], want["tri"])
     if case in ("all", "r300"):
         assert 0.05 < float((want["tri"] >= 0).float().mean()) < 0.95
+
+
+# K8's windows (TPURT_BVH_WINDOW), bvh_variants.py's builds
+BVH_WINDOWS = (1, 2, 3, 4, 8)
+
+
+@pytest.fixture(scope="module")
+def bvh_build(tmp_path_factory):
+    """window -> K8's library built with it, each built once."""
+    built = {}
+
+    def get(w):
+        if w not in built:
+            built[w] = _build(tmp_path_factory.mktemp(f"bvh-w{w}"),
+                              ("trace_bvh",), (f"TPURT_BVH_WINDOW={w}",))
+        return built[w]
+    return get
+
+
+def _check_bvh(lib, any_hit, rec, skip, tri, o, d, t_min, t_max):
+    want = traversal.trace_plain(rec, skip, tri, V3(*o), V3(*d), t_min,
+                                 t_max, any_hit=any_hit)
+    fn = lib.tpurt_bvh_any_hit if any_hit else lib.tpurt_bvh_closest_hit
+    got = _run_bvh(fn, rec, skip, tri, o, d, t_min, t_max)
+    assert np.array_equal(got["t"].numpy().view(np.int32),
+                          want["t"].numpy().view(np.int32))
+    assert torch.equal(got["tri"], want["tri"])
+    return want
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("table", ["cornell", "random"])
+@pytest.mark.parametrize("w", BVH_WINDOWS)
+def test_bvh_builds_match_plain(bvh_build, w, table, any_hit):
+    """K8 at every window against the plain walk on all 1,024 rays (30%
+    dead), every word of t and tri."""
+    rec, skip, tri, rays = _bvh_stream(table)
+    _check_bvh(bvh_build(w), any_hit, rec, skip, tri, *rays)
+
+
+def _windows(path, w, s):
+    """The windows a lane of window w loads along one ray's walk (path:
+    test_torch_traversal.walk_path's): [(base, records in it, the steps
+    taken inside it)]."""
+    out = []
+    for step in path:
+        ptr = step[0]
+        if not out or not out[-1][0] <= ptr < out[-1][0] + out[-1][1]:
+            out.append((ptr, min(w, s - ptr), []))
+        out[-1][2].append(step)
+    return out
+
+
+@pytest.fixture(scope="module")
+def bvh_paths():
+    """{(case, any_hit): (rec, skip, tri, rays, each live ray's walk
+    taken a record at a time)}, made once: "stream-end" aims 48 rays at
+    the centroids of the stream's last leaf's triangles, the other cases
+    take the first 48 of the random tree's rays."""
+    from test_torch_traversal import walk_path
+
+    rec, skip, tri, (o, d, t_min, t_max) = _bvh_stream("random")
+    s = rec.shape[0]
+    last = [i for i in range(s - 1, -1, -1) if int(skip[i]) >= 0][0]
+    v0 = rec[last + 1:, 0:3]
+    centroid = v0 + (rec[last + 1:, 3:6] + rec[last + 1:, 6:9]) / 3.0
+    g = np.random.default_rng(6)
+    n = 48
+    ao = torch.from_numpy(g.uniform(-2.0, 2.0, (3, n)).astype(np.float32))
+    aim = centroid[torch.arange(n) % centroid.shape[0]].T
+    ad = aim - ao
+    ad = (ad / torch.linalg.vector_norm(ad, dim=0)).contiguous()
+    rays = {"stream-end": (ao, ad, torch.full((n,), 1e-3),
+                           torch.full((n,), 12.0)),
+            "random": tuple(x[..., :n].contiguous()
+                            for x in (o, d, t_min, t_max))}
+    out = {}
+    for name, (ro, rd, rt_min, rt_max) in rays.items():
+        for any_hit in (False, True):
+            paths = [walk_path(rec.numpy(), skip.numpy(), ro[:, i].numpy(),
+                               rd[:, i].numpy(), float(rt_min[i]),
+                               float(rt_max[i]), any_hit)
+                     for i in range(n)]
+            out[(name, any_hit)] = (rec, skip, tri,
+                                    (ro, rd, rt_min, rt_max), paths)
+    return out
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("case", ["stream-end", "skips", "mid-window"])
+@pytest.mark.parametrize("w", [2, 3, 8])
+def test_bvh_window_cases(bvh_build, bvh_paths, w, case, any_hit):
+    """What the windows must get right, each shown to occur in the build's
+    windows along the rays' own walks (taken a record at a time) and K8
+    equal to the plain walk there: walks that load a window clamped at
+    the stream's end (the arrays end at an unreadable page); skips that
+    land inside the window (past a window of 2) and outside it; a hit
+    with records left in its window (any-hit stops there, closest-hit
+    goes on)."""
+    lib = bvh_build(w)
+    rays_of = "stream-end" if case == "stream-end" else "random"
+    rec, skip, tri, rays, paths = bvh_paths[(rays_of, any_hit)]
+    s = rec.shape[0]
+    windows = [x for p in paths for x in _windows(p, w, s)]
+    if case == "stream-end":
+        assert any(n < w for _, n, _ in windows)
+    elif case == "skips":
+        jumps = [(base, n, nxt) for base, n, steps in windows
+                 for ptr, nxt, _ in steps if nxt != ptr + 1 and nxt < s]
+        # a box's skip passes at least its first child: a window of 2
+        # holds no skip's target
+        assert any(base <= nxt < base + n
+                   for base, n, nxt in jumps) == (w > 2)
+        assert any(not base <= nxt < base + n for base, n, nxt in jumps)
+    else:
+        assert any(hit and int(skip[ptr]) < 0 and ptr < base + n - 1
+                   for base, n, steps in windows
+                   for ptr, _, hit in steps)
+    _check_bvh(lib, any_hit, rec, skip, tri, *rays)

@@ -224,9 +224,9 @@ def test_walk_equals_reference(walk_cases, case, any_hit):
 
 
 def test_walk_counts_its_steps(walk_cases):
-    """`count` adds each lane's box and triangle records read and the
-    records touched, and changes no answer; dead lanes read none, a live
-    lane at least the root box."""
+    """`count` adds each lane's box and triangle records read, the boxes
+    it missed and the records touched, and changes no answer; dead lanes
+    read none, a live lane at least the root box."""
     rec, skip, tri, o, d, t_max = walk_cases["cornell"]
     args = (*map(torch.from_numpy, (rec, skip, tri)), _v3(o), _v3(d), 1e-3,
             torch.from_numpy(t_max))
@@ -242,6 +242,147 @@ def test_walk_counts_its_steps(walk_cases):
     touched = counted["touched"].numpy()
     assert touched[0] and touched.sum() <= rec.shape[0]
     assert (tri_steps.sum() > 0) and not touched[skip < 0].all()
+    jumps = counted["jumps"].numpy()
+    assert (jumps <= box).all() and (jumps[t_max <= 0] == 0).all()
+
+
+def walk_path(rec, skip, o, d, t_min, t_max, any_hit=False):
+    """One ray's walk taken a record at a time in Python, with the plain
+    walk's own tests (`aabb_slab`, `moller_trumbore` on one-lane
+    tensors): [(ptr, next, hit)] for each record it reads, in order;
+    `next` is the record it reads after (len(rec) at the end), `hit`
+    whether a box or triangle test passed. o, d: [3] f32 arrays."""
+    from tpu_raytracer_torch.ops.intersect import (aabb_slab,
+                                                   moller_trumbore,
+                                                   safe_inv_dir)
+    s = rec.shape[0]
+    lo = V3(*(torch.tensor([x], dtype=torch.float32) for x in o))
+    ld = V3(*(torch.tensor([x], dtype=torch.float32) for x in d))
+    inv = safe_inv_dir(ld)
+    lt = torch.tensor([t_min], dtype=torch.float32)
+    best = torch.tensor([t_max], dtype=torch.float32)
+    row = torch.from_numpy(rec)
+    path, ptr = [], 0 if t_max > 0 else s
+    while ptr < s:
+        r = row[ptr:ptr + 1]
+        if skip[ptr] >= 0:
+            hit = bool(aabb_slab(lo, inv, r[:, 0:3].T, r[:, 3:6].T, lt,
+                                 best)[0])
+            nxt = ptr + 1 if hit else int(skip[ptr])
+        else:
+            won, t = moller_trumbore(lo, ld, r[:, 0:3].T, r[:, 3:6].T,
+                                     r[:, 6:9].T, lt, best)[:2]
+            hit = bool(won[0])
+            if hit:
+                best = t
+            nxt = s if hit and any_hit else ptr + 1
+        path.append((ptr, nxt, hit))
+        ptr = nxt
+    return path
+
+
+def test_walk_counts_its_jumps():
+    """`count`'s jumps, box steps and triangle steps equal a count of each
+    lane's records taken one ray at a time (`walk_path`) on the
+    300-triangle tree, closest- and any-hit; jumps are the boxes missed."""
+    v0, e1, e2 = _random_tris(300, seed=2)
+    tree = _build(v0, e1, e2)
+    o, d = _random_rays(96, seed=11, spread=4.0)
+    t_max = np.random.default_rng(12).uniform(0.01, 12.0, 96).astype(
+        np.float32)
+    t_max[::7] = 0.0
+    for any_hit in (False, True):
+        counted = _walk(tree, o, d, 1e-3, torch.from_numpy(t_max),
+                        any_hit=any_hit, count=True)
+        jumps, boxes, tris = [], [], []
+        for i in range(96):
+            path = walk_path(tree.rec, tree.skip, o[i], d[i], 1e-3,
+                             float(t_max[i]), any_hit)
+            box = [(p, hit) for p, _, hit in path if tree.skip[p] >= 0]
+            jumps.append(sum(not hit for _, hit in box))
+            boxes.append(len(box))
+            tris.append(len(path) - len(box))
+        assert counted["jumps"].tolist() == jumps
+        assert counted["box_steps"].tolist() == boxes
+        assert counted["tri_steps"].tolist() == tris
+        assert 0 < sum(jumps) < sum(boxes)
+        assert all(j == 0 for j, t in zip(jumps, t_max) if t <= 0)
+
+
+def test_step_stats(walk_cases):
+    """bigscene.step_stats (phase 23's and the variant runs' step
+    statistics) against numpy on the plain walk's counts of the Cornell
+    rays: steps per ray mean, p99 and max, warps of 32 lanes in call
+    order (the last one padded with idle lanes), jumps."""
+    from tpu_raytracer_torch import bigscene
+
+    rec, skip, tri, o, d, t_max = walk_cases["cornell"]
+    counted = traversal.trace_plain(
+        *map(torch.from_numpy, (rec, skip, tri)), _v3(o), _v3(d), 1e-3,
+        torch.from_numpy(t_max), count=True)
+    got = bigscene.step_stats(counted)
+    steps = (counted["box_steps"] + counted["tri_steps"]).numpy()
+    jumps = counted["jumps"].numpy()
+    assert steps.shape[0] % 32 == 0
+    warp_max = steps.reshape(-1, 32).max(1)
+    assert got["mean"] == pytest.approx(steps.mean(), rel=1e-12)
+    assert got["p99"] == pytest.approx(np.quantile(steps, 0.99), rel=1e-12)
+    assert got["max"] == steps.max()
+    assert got["warp_max_over_mean"] == pytest.approx(
+        warp_max.mean() / steps.mean(), rel=1e-12)
+    assert got["jumps_mean"] == pytest.approx(jumps.mean(), rel=1e-12)
+    assert got["jumps_max"] == jumps.max() > 0
+    assert got["warp_max_over_mean"] > 1.0
+    short = bigscene.step_stats({k: v[:40] for k, v in counted.items()})
+    padded = np.concatenate([steps[:40], np.zeros(24, steps.dtype)])
+    assert short["warp_max_over_mean"] == pytest.approx(
+        padded.reshape(-1, 32).max(1).mean() / steps[:40].mean(), rel=1e-12)
+
+
+def test_big_scene_and_walk_rays_small():
+    """bigscene.big_scene (phase 23's scene, and profile_frame.py's
+    `big`) at subdivision 1 with the cap at 1: 2 x 80 + 4 triangles, every
+    query routed to the walk; walk_rays' two sets with unit directions."""
+    from tpu_raytracer_torch import bigscene
+
+    scene = bigscene.big_scene("cpu", 1, (-0.3, 0.3), brute_max=1)
+    assert scene.num_triangles == 2 * 20 * 4 + 4
+    tp = scene.tri_planes.shape[2]
+    for any_hit in (False, True):
+        route = trace_api.trace_route(scene.kernel, scene.incull, tp,
+                                      any_hit, scene.brute_max)
+        assert route[0] == "bvh"
+    rays = bigscene.walk_rays("cpu", 64)
+    assert sorted(rays) == ["coherent", "incoherent"]
+    for o, d, t_min, t_max in rays.values():
+        assert o.shape == d.shape == (3, 64)
+        assert torch.allclose(torch.linalg.vector_norm(d, dim=0),
+                              torch.ones(64), atol=1e-6)
+        assert (t_min == 1e-3).all() and (t_max == 100.0).all()
+    res = traversal.trace_plain(scene.bvh_rec, scene.bvh_skip,
+                                scene.bvh_tri, V3(*rays["coherent"][0]),
+                                V3(*rays["coherent"][1]), 1e-3, 100.0)
+    assert (res["tri"] >= 0).any()
+
+
+def test_profile_frame_names_k8():
+    """profile_frame.py lists K8's two entries among the port's kernels,
+    and builds its two walked scenes: the big scene at phase 23's
+    arguments, and the Cornell box with the cap at 1."""
+    from tpu_raytracer_torch import bigscene, profile_frame
+
+    for flag in ("false", "true"):
+        name = (f"void (anonymous namespace)::bvh_kernel<{flag}>(float "
+                f"const*, float const*, int, int, float*, int*, int*)")
+        m = profile_frame.PORT_KERNEL.match(name)
+        assert m and m.group(1) == f"bvh_kernel<{flag}>"
+    assert all(map(callable, profile_frame.SCENES.values()))
+    big = profile_frame.SCENES["big"]
+    assert big.func is bigscene.big_scene
+    assert big.keywords == {"subdiv": 8, "xs": (-0.3, 0.3)}
+    walked = profile_frame.SCENES["cornell-walk"]
+    assert walked.func is scenes.create_cornell_box
+    assert walked.keywords == {"brute_max": 1}
 
 
 # --- the route ----------------------------------------------------------------

@@ -18,7 +18,7 @@ and misses.
     and front equal its `traversal.trace` on the CPU;
   - kernel K8 (`csrc/trace_bvh.cu`, `tpurt_bvh_closest_hit` and
     `tpurt_bvh_any_hit`), launched by `trace_bvh_kernel`, the same walk
-    with one thread per ray.
+    with one thread per ray, loading windows of consecutive records.
 The reference's walk is an XLA `while_loop`, not a Pallas kernel. It
 gets a kernel written by hand all the same: an eager PyTorch loop would
 read the host at every step of every trace call (whether any lane is
@@ -41,8 +41,9 @@ def trace_plain(bvh_rec, bvh_skip, bvh_tri, o: V3, d: V3, t_min, t_max,
     or [R]. Returns the reference's {"t": [R] f32 (INF on a miss), "tri":
     [R] i32 (-1 on a miss), "u", "v": [R] f32, "front": [R] bool}; with
     `count`, also "box_steps" and "tri_steps" [R] i32 (the box and the
-    triangle records each lane read) and "touched" [S] bool (the records
-    any lane read)."""
+    triangle records each lane read), "jumps" [R] i32 (the boxes each
+    lane missed: the steps that move the pointer to a skip, not to the
+    next record) and "touched" [S] bool (the records any lane read)."""
     r = o.x.shape[0]
     s = bvh_rec.shape[0]
     device = o.x.device
@@ -55,6 +56,7 @@ def trace_plain(bvh_rec, bvh_skip, bvh_tri, o: V3, d: V3, t_min, t_max,
     front = torch.zeros((r,), dtype=torch.bool, device=device)
     box_steps = torch.zeros((r,), dtype=torch.int32, device=device)
     tri_steps = torch.zeros_like(box_steps)
+    jumps = torch.zeros_like(box_steps)
     touched = torch.zeros((s,), dtype=torch.bool, device=device)
     lanes = torch.nonzero(t_best > 0.0).squeeze(1)
     ptr = torch.zeros_like(lanes)
@@ -77,6 +79,7 @@ def trace_plain(bvh_rec, bvh_skip, bvh_tri, o: V3, d: V3, t_min, t_max,
         if count:
             tri_steps[lanes] += is_tri.int()
             box_steps[lanes] += (~is_tri).int()
+            jumps[lanes] += (~is_tri & ~box_hit).int()
             touched[ptr] = True
         nxt = torch.where(is_tri | box_hit, ptr + 1, skip)
         live = nxt < s
@@ -86,7 +89,7 @@ def trace_plain(bvh_rec, bvh_skip, bvh_tri, o: V3, d: V3, t_min, t_max,
     out = {"t": torch.where(tri < 0, INF, t_best), "tri": tri, "u": u,
            "v": v, "front": front}
     if count:
-        out.update(box_steps=box_steps, tri_steps=tri_steps,
+        out.update(box_steps=box_steps, tri_steps=tri_steps, jumps=jumps,
                    touched=touched)
     return out
 

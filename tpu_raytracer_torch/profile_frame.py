@@ -1,5 +1,5 @@
 """Where a frame's time goes on the card: wall time per frame, device
-kernel time by name (the port's own kernels K1-K7, listed apart, and
+kernel time by name (the port's own kernels K1-K8, listed apart, and
 the table gather K7's), the device's busy share and the kernel launches
 the host issues.
 
@@ -7,6 +7,12 @@ the host issues.
     python -m tpu_raytracer_torch.profile_frame --scene cornell --kernel vpu
     python -m tpu_raytracer_torch.profile_frame --scene cornell \
         --size 3840x2160
+    python -m tpu_raytracer_torch.profile_frame --scene big
+
+`big` is the 2,621,444-triangle scene past the walk's cap
+(`bigscene.big_scene(dev, 8, (-0.3, 0.3))`, chip_smoke.py phase
+23's), `cornell-walk` the Cornell box built with brute_max=1: both take
+K8, the BVH walk, for every query.
 
 Renders WARMUP frames at `--size` (SIZE² unless given), times
 `--frames` frames between
@@ -18,6 +24,7 @@ profiled kernel time over the unprofiled wall time. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import re
 import subprocess
@@ -25,6 +32,7 @@ import time
 
 import torch
 
+from .bigscene import big_scene
 from .models import scenes
 from .ops import trace_api
 from .render import camera, pipeline, renderer
@@ -32,16 +40,19 @@ from .render import camera, pipeline, renderer
 SIZE = 512        # the frame's width and height
 WARMUP = 3
 TOP = 8           # kernels listed, by device time
-# the port's hand-written kernels K1-K7 (csrc/*.cu), by their names
+# the port's hand-written kernels K1-K8 (csrc/*.cu), by their names
 PORT_KERNEL = re.compile(
     r"^(?:void )?\(anonymous namespace\)::((?:closest_hit|any_hit|stream"
-    r"|inst|vpu|mxu|gather)_kernel(?:<[^>]*>)?)\(")
+    r"|inst|vpu|mxu|gather|bvh)_kernel(?:<[^>]*>)?)\(")
 
-# scene name -> builder in models/scenes.py, looked up when used
-SCENES = {"bunny": "create_bunny_scene",
-          "cornell": "create_cornell_box",
-          "gallery": "create_instancing_gallery_scene",
-          "knot": "create_dense_knot_scene"}
+# scene name -> its builder, called with the device
+SCENES = {"big": functools.partial(big_scene, subdiv=8, xs=(-0.3, 0.3)),
+          "bunny": scenes.create_bunny_scene,
+          "cornell": scenes.create_cornell_box,
+          "cornell-walk": functools.partial(scenes.create_cornell_box,
+                                            brute_max=1),
+          "gallery": scenes.create_instancing_gallery_scene,
+          "knot": scenes.create_dense_knot_scene}
 
 
 def _device_us(evt) -> float:
@@ -78,8 +89,8 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     dev = torch.device("cuda:0")
-    scene = getattr(scenes, SCENES[args.scene])(
-        dev, **(mode if args.scene == "cornell" else {}))
+    scene = SCENES[args.scene](dev,
+                               **(mode if args.scene == "cornell" else {}))
     cam = camera.CameraController()
     state = pipeline.init_state(w, h, dev)
     frame = 0
@@ -121,6 +132,8 @@ def main(argv=None) -> int:
             port[m.group(1)] = {"ms": ms, "launches": count}
     # the row fetches' table gather (K7), which is rarely among the TOP
     k7 = port.get("gather_kernel", {"ms": 0.0, "launches": 0.0})
+    # the BVH walk (K8), closest- and any-hit, on a scene past its cap
+    k8 = [v for k, v in port.items() if k.startswith("bvh_kernel")]
     launches = sum(e.count for e in avgs
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                 "cudaLaunchKernelExC")) / args.frames
@@ -137,6 +150,8 @@ def main(argv=None) -> int:
             for k in kernels[:TOP]],
         "k7_ms_per_frame": k7["ms"],
         "k7_launches_per_frame": k7["launches"],
+        "k8_ms_per_frame": sum(v["ms"] for v in k8),
+        "k8_launches_per_frame": sum(v["launches"] for v in k8),
         "port_kernels_ms_per_frame": port,
     }))
     return 0
