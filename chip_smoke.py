@@ -288,8 +288,31 @@ is non-zero):
                 rays, SUBDIV_WARMUP + SUBDIV_TIMED replayed frames (K1,
                 K2 and K7 only; fps, Mrays/s). Prints the phase's wall
                 time.
+ 28. reorder  - the ray-stream reorder (ops/compaction.py): the Cornell
+                box at 512^2 through render_band with
+                restir.make_ctx(reorder=m) for m in REORDER_MODES,
+                REORDER_WARMUP + REORDER_TIMED eager frames a mode (fps,
+                K1/K2/K7 launches a frame, no other kernel), every word of
+                "live" and "bins" equal to "none"; one frame a mode under
+                `vpu` (K5) and on the knot (K3), every word equal; under
+                `mxu3` (K6) the words and pixels that differ from "none"
+                counted. The streams one Cornell frame hands its queries
+                (spied at trace_api._route): the temporal path's closest-hit
+                calls 1, 4 and 7 (of 7), its last depth's any-hit and the
+                first spatial tap's; on each, a mode's permuted stream
+                through K1 (or K2), K5 and K6 (mxu3, closest streams),
+                each restored result against "none" (K1/K2/K5 every word
+                equal, K6's differing lanes counted, at most PLAIN_DIFF),
+                timed with CUDA events over REORDER_REPS launches, and the
+                permutation (partition, gathers and restore) timed apart,
+                eager and replayed from a CUDA graph (its device time).
+                The device ms of an eager frame a mode under
+                torch.profiler, K1/K2 apart. One render_band call with a
+                "bins" ctx captured in a CUDA graph under
+                set_sync_debug_mode("error"), its replay every word equal
+                to the eager frame. Prints the phase's wall time.
 Every frame phase (5, 6, 8, 10, 11, 14, 15, 18, 19, 20, 22, 23, 24, 25,
-26, 27) also
+26, 27, 28) also
 checks that K7 launched and prints its launches a frame. Then one JSON
 line of per-kernel results (K1-K6: time, plain time and bound at 524,288
 random rays; K7: at 524,288 rows of Cornell's tri_table; K8: at the big
@@ -402,9 +425,9 @@ TILE_MOTION_FRAMES, TILE_MOVE_AT = 4, 2
 GATHER_RAYS = (262144, 524288, APP_W * APP_H, FLY_W * FLY_H, 3840 * 2160)
 # the frame as CUDA graphs (phase 25): G-buffer reuse against the traced
 # G-buffer within the reference test's bound (tests/test_dedup.py:49-69);
-# 2 frames of each other route; 2 replayed frames under torch.profiler
+# 2 frames of each other route; 1 frame under torch.profiler
 GRAPH_REUSE_ATOL = 2e-5
-GRAPH_ROUTE_FRAMES, GRAPH_PROFILED = 2, 2
+GRAPH_ROUTE_FRAMES, GRAPH_PROFILED = 2, 1
 # config 4 and the row bands replayed (phase 26): host launches a
 # replayed config-4 frame (the graph and its input copies), and a
 # replayed tiled frame's launches besides its bands x segments graphs
@@ -415,6 +438,15 @@ GRAPH_FLY_LAUNCHES, GRAPH_TILE_OTHER = 20, 4 * TILE_BANDS + 8
 # (subdivide_max_diag) and frames
 TAP_WARMUP, TAP_TIMED, TAP_BAND_FRAMES = 2, 6, 2
 SUBDIV_DIAG, SUBDIV_WARMUP, SUBDIV_TIMED = 0.1, 2, 4
+# the ray-stream reorder (phase 28): the modes of make_ctx(reorder=), the
+# eager Cornell frames a mode, launches a timing, and the streams of one
+# frame's queries timed: (label, index in the frame's order of queries:
+# 0 the G-buffer, 1-7 the temporal path's closest hits, 8 its last
+# depth's any hit, 9-13 the spatial taps')
+REORDER_MODES = ("none", "live", "bins")
+REORDER_WARMUP, REORDER_TIMED, REORDER_REPS = 2, 2, 20
+REORDER_STREAMS = (("closest 1", 1), ("closest 4", 4), ("closest 7", 7),
+                   ("any, last depth", 8), ("tap 1", 9))
 
 
 def _card() -> str:
@@ -2580,6 +2612,387 @@ def _tap_batch_phase(torch, dev, card, every):
     return b_launches, frames, k2_stream, sub_launches, s_frames
 
 
+def _band(scene, dev, width, height, reorder):
+    """render(uniform, fc, static_ok): render_band's eager frames with
+    restir.make_ctx(reorder=), from a fresh state, each frame's state
+    carried to the next: the way a caller reaches the knob."""
+    from tpu_raytracer_torch.ops import restir
+    from tpu_raytracer_torch.parallel import views
+    from tpu_raytracer_torch.render import pipeline
+
+    ctx = restir.make_ctx(width, height, dev, reorder=reorder)
+    state = pipeline.init_state(width, height, dev)
+
+    def view(flat):
+        return views.trivial_view(flat, width, height)
+
+    def render(uniform, fc, static_ok):
+        nonlocal state
+        out = pipeline.render_band(scene, uniform, fc, state, ctx, view,
+                                   static_ok=static_ok)
+        state = out[2]
+        return out
+
+    return render
+
+
+def _word_diff(torch, got, want):
+    """(words that differ, max abs gap) of two frames' _words."""
+    diff, gap = 0, 0.0
+    for (name, a), (_, b) in zip(_words(got), _words(want)):
+        g, _ = _word_gap(torch, a, b)
+        gap = max(gap, g)
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        diff += int((a != b).sum())
+    return diff, gap
+
+
+def _mode_frames(torch, scene, dev, seq, what, on, every):
+    """seq's frames through _band under each of REORDER_MODES: per mode
+    (seconds of the frames after REORDER_WARMUP or None, launches, the
+    frames' words); raises where a mode launches a kernel outside `on`
+    or leaves one of `on` out."""
+    from tpu_raytracer_torch.ops import trace_api
+
+    runs = {}
+    for m in REORDER_MODES:
+        render = _band(scene, dev, WIDTH, HEIGHT, m)
+        trace_api.reset_launch_counts()
+        frames, t0 = [], None
+        for i, inputs in enumerate(seq):
+            if i == REORDER_WARMUP:
+                torch.cuda.synchronize()
+                t0 = time.time()
+            frames.append(render(*inputs))
+        torch.cuda.synchronize()
+        dt = time.time() - t0 if t0 is not None else None
+        launched = dict(trace_api.LAUNCHES)
+        if min(launched[k] for k in on) <= 0 or any(
+                launched[k] for k in every if k not in on):
+            raise AssertionError(f"{what} reorder={m}: want {on} launched "
+                                 f"and no other kernel: {launched}")
+        runs[m] = (dt, launched, frames)
+    return runs
+
+
+def _recorded_streams(torch, scene, dev, seq):
+    """The streams the eager Cornell frame seq[1] (after seq[0]) hands
+    its queries, in order, spied where scene_trace hands them to their
+    route: per query (route, any_hit, o [3, R], d [3, R], t_min, t_max
+    with the dead lanes at 0)."""
+    from tpu_raytracer_torch.ops import trace_api
+
+    render = _band(scene, dev, WIDTH, HEIGHT, "none")
+    render(*seq[0])
+    seen = []
+    orig = trace_api._route
+
+    def spy(sc, name, grp, passes, any_hit, o, d, t_min, t_max):
+        seen.append((name, any_hit, torch.stack(list(o)).contiguous(),
+                     torch.stack(list(d)).contiguous(), t_min.contiguous(),
+                     t_max.contiguous()))
+        return orig(sc, name, grp, passes, any_hit, o, d, t_min, t_max)
+    trace_api._route = spy
+    try:
+        render(*seq[1])
+    finally:
+        trace_api._route = orig
+    if [q[1] for q in seen[:10]] != [False] * 8 + [True] * 2:
+        raise AssertionError(f"the frame's queries: "
+                             f"{[(q[0], q[1]) for q in seen]}")
+    return seen
+
+
+def _stream_times(torch, scene, mxu_scene, streams, card):
+    """REORDER_STREAMS through K1/K2, K5 and K6 under each mode, each
+    restored result held to "none", each timed, and the permutation timed
+    apart. Returns {(label, mode): {"lanes", "live", "k", "perm", "k5",
+    "k6", "k6_diff"}}."""
+    from tpu_raytracer_torch.ops import compaction, trace_api, trace_mxu
+    from tpu_raytracer_torch.ops import trace_vpu
+
+    planes, boxes = scene.tri_planes, scene.chunk_aabb
+    out = {}
+    for label, i in REORDER_STREAMS:
+        _, any_hit, o, d, t_min, t_max = streams[i]
+        n = t_max.shape[0]
+        live = float((t_max > 0).float().mean())
+        base = {}
+        for m in REORDER_MODES:
+            if m == "none":
+                src = dest = torch.arange(n, device=o.device)
+            else:
+                src, dest = compaction.permutation(m, tuple(d), t_max)
+            po, pd = o[:, src].contiguous(), d[:, src].contiguous()
+            p0, p1 = t_min[src].contiguous(), t_max[src].contiguous()
+
+            def k(po=po, pd=pd, p0=p0, p1=p1):
+                return trace_api.trace_kernel(planes, boxes, po, pd, p0, p1,
+                                              any_hit=any_hit)
+
+            def k5(po=po, pd=pd, p0=p0, p1=p1):
+                return trace_vpu.vpu_kernel(planes, boxes, po, pd, p0, p1)
+
+            def k6(po=po, pd=pd, p0=p0, p1=p1):
+                return trace_mxu.mxu_kernel(mxu_scene.coef48_t, boxes, po,
+                                            pd, p0, p1, 1, 3, False, False)
+
+            def perm(m=m, k_out=None):
+                s, dst = compaction.permutation(m, tuple(d), t_max)
+                ys = [x[s] for x in (*o, *d, t_min, t_max)]
+                return ys, [y[dst] for y in k_out]
+
+            got = {"k": k(), "k5": k5()}
+            if not any_hit:
+                got["k6"] = k6()
+            got = {key: {f: v[dest] for f, v in r.items()}
+                   for key, r in got.items()}
+            row = {"lanes": n, "live": live}
+            if m == "none":
+                base = got
+            for key, r in got.items():
+                if key == "k6":
+                    row["k6_diff"] = int(
+                        ((r["tri"] >= 0) != (base[key]["tri"] >= 0)).sum()
+                        + (r["tri"] != base[key]["tri"]).sum()
+                        + (r["t"].view(torch.int32)
+                           != base[key]["t"].view(torch.int32)).sum())
+                    if row["k6_diff"] > 2 * PLAIN_DIFF:
+                        raise AssertionError(f"K6 on {label} reorder={m}: "
+                                             f"{row['k6_diff']} words differ"
+                                             f" from none")
+                    continue
+                want = base["k"]
+                if key == "k5" and any_hit:
+                    same = torch.equal(r["tri"] >= 0, want["tri"] >= 0)
+                else:
+                    same = torch.equal(r["tri"], want["tri"]) and \
+                        torch.equal(r["t"].view(torch.int32),
+                                    want["t"].view(torch.int32))
+                if not same:
+                    raise AssertionError(f"{key} on {label} reorder={m}: "
+                                         f"the restored result differs from "
+                                         f"K1/K2's in order")
+            row["k"] = _time_ms(torch, k, REORDER_REPS)
+            row["k5"] = _time_ms(torch, k5, REORDER_REPS)
+            if not any_hit:
+                row["k6"] = _time_ms(torch, k6, REORDER_REPS)
+            if m != "none":
+                sample = (got["k"]["t"], got["k"]["tri"])
+                row["perm"] = _time_ms(
+                    torch, lambda m=m: perm(m, sample), REORDER_REPS)
+                row["perm_graph"] = _replayed_ms(
+                    torch, lambda m=m: perm(m, sample), REORDER_REPS)
+            out[(label, m)] = row
+            print(f"reorder: {label} ({n} rays, {live:.4f} live, "
+                  f"{'any' if any_hit else 'closest'} hit) {m}: "
+                  f"K{'2' if any_hit else '1'} {row['k']:.4f} ms, K5 "
+                  f"{row['k5']:.4f} ms"
+                  + (f", K6 {row['k6']:.4f} ms ({row['k6_diff']} words "
+                     f"differ from none)" if not any_hit else "")
+                  + (f", permutation {row['perm']:.4f} ms eager, "
+                     f"{row['perm_graph']:.4f} ms replayed" if m != "none"
+                     else "") + f"; restored results equal [{card}]",
+                  flush=True)
+    return out
+
+
+def _replayed_ms(torch, fn, reps):
+    """fn's device time: fn captured once in a CUDA graph, the graph
+    replayed `reps` times between CUDA events (no host launch between
+    its kernels)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = _time_ms(torch, graph.replay, reps)
+    del graph
+    return ms
+
+
+def _profiled_modes(torch, scene, dev, seq):
+    """Per mode of REORDER_MODES: (device ms a frame, K1 + K2 device ms a
+    frame) of the eager frames of seq[1:] under torch.profiler, after
+    seq[0] unprofiled."""
+    import re
+
+    from tpu_raytracer_torch.profile_frame import _device_us
+
+    sweep = re.compile(r"^(?:void )?\(anonymous namespace\)::"
+                       r"(?:closest_hit|any_hit)_kernel")
+    cuda = torch.autograd.DeviceType.CUDA
+    out = {}
+    for m in REORDER_MODES:
+        render = _band(scene, dev, WIDTH, HEIGHT, m)
+        render(*seq[0])
+        torch.cuda.synchronize()
+        # the device's activity alone: its kernels' times are all this
+        # reads, and the host's 30k ops a frame cost seconds to record
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for inputs in seq[1:]:
+                render(*inputs)
+            torch.cuda.synchronize()
+        avgs = [e for e in prof.key_averages() if e.device_type == cuda]
+        n = len(seq) - 1
+        out[m] = (sum(_device_us(e) for e in avgs) / 1e3 / n,
+                  sum(_device_us(e) for e in avgs if sweep.match(e.key))
+                  / 1e3 / n)
+        if not out[m][1] > 0.0:
+            raise AssertionError(f"torch.profiler shows no K1/K2 time in "
+                                 f"the reorder={m} frame: {out[m]}")
+    return out
+
+
+def _captured_band(torch, scene, dev, seq):
+    """One render_band call with a "bins" ctx captured in a CUDA graph:
+    the eager call and the capture under set_sync_debug_mode("error"),
+    the replay held to the eager call word for word. Returns (the
+    capture's launches, max abs gap)."""
+    from tpu_raytracer_torch.ops import restir, trace_api
+    from tpu_raytracer_torch.parallel import views
+    from tpu_raytracer_torch.render import pipeline
+
+    ctx = restir.make_ctx(WIDTH, HEIGHT, dev, reorder="bins")
+    render = _band(scene, dev, WIDTH, HEIGHT, "bins")
+    state0 = {k: v.clone() for k, v in render(*seq[0])[2].items()}
+    u = seq[1][0]
+    fc = torch.tensor(seq[1][1], dtype=torch.int64, device=dev)
+
+    def view(flat):
+        return views.trivial_view(flat, WIDTH, HEIGHT)
+
+    def call(state):
+        return pipeline.render_band(scene, u, fc, state, ctx, view,
+                                    static_ok=True)
+
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        call({k: v.clone() for k, v in state0.items()})
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.synchronize()
+    static = {k: v.clone() for k, v in state0.items()}
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        want = call({k: v.clone() for k, v in state0.items()})
+        with trace_api.captured_launches() as launched:
+            with torch.cuda.graph(graph):
+                got = call(static)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launched = dict(launched)
+    graph.replay()
+    torch.cuda.synchronize()
+    diff, gap = _word_diff(torch, got, want)
+    if diff:
+        raise AssertionError(f"the captured bins frame differs from the "
+                             f"eager one in {diff} words (max abs {gap:.3g})")
+    del graph
+    return launched, gap
+
+
+def _reorder_phase(torch, dev, card, every):
+    """28. the ray-stream reorder: make_ctx(reorder=) through render_band
+    on the Cornell box (K1, K2), under vpu (K5) and mxu3 (K6), on the
+    knot (K3); one frame's streams through K1/K2, K5 and K6 under each
+    mode beside the permutation's own time; the device time of a frame
+    a mode; a captured "bins" frame. Returns (the Cornell frames'
+    launches a mode, their frames)."""
+    from tpu_raytracer_torch.models import scenes
+
+    t_phase = time.time()
+    scene = scenes.create_cornell_box(dev)
+    frames = REORDER_WARMUP + REORDER_TIMED
+    seq = _camera_seq(dev, frames, scene.num_lights)
+    on = ["closest_hit", "any_hit", "table_gather"]
+    runs = _mode_frames(torch, scene, dev, seq, "Cornell", on, every)
+    for m in REORDER_MODES:
+        dt, launched, got = runs[m]
+        for i, (g, w) in enumerate(zip(got, runs["none"][2])):
+            diff, gap = _word_diff(torch, g, w)
+            if diff:
+                raise AssertionError(f"Cornell reorder={m} frame {i}: {diff} "
+                                     f"words differ from none (max abs "
+                                     f"{gap:.3g})")
+        rays = sum(float(out[3]["rays"]) for out in got[REORDER_WARMUP:])
+        print(f"reorder: Cornell {WIDTH}x{HEIGHT} through render_band with "
+              f"make_ctx(reorder={m!r}), {frames} eager frames: every word "
+              f"equal to none's; {REORDER_TIMED} timed: "
+              f"{REORDER_TIMED / dt:.4f} fps, {rays / dt / 1e6:.4f} Mrays/s; "
+              f"K1/K2/K7 launches a frame "
+              f"{launched['closest_hit'] / frames:.2f} / "
+              f"{launched['any_hit'] / frames:.2f} / "
+              f"{launched['table_gather'] / frames:.2f} [{card}]",
+              flush=True)
+    c_launches = {m: runs[m][1] for m in REORDER_MODES}
+    del runs
+    print(f"reorder: the Cornell frames took {time.time() - t_phase:.1f} s",
+          flush=True)
+
+    # one frame a mode on K5 (vpu), K3 (the knot) and K6 (mxu3)
+    mxu_scene = scenes.create_cornell_box(dev, kernel="mxu3")
+    for what, build, kernels, exact in (
+            ("Cornell vpu (K5)",
+             lambda: scenes.create_cornell_box(dev, kernel="vpu"),
+             ["vpu_closest_hit", "table_gather"], True),
+            ("knot (K3)", lambda: scenes.create_dense_knot_scene(dev),
+             ["stream_closest_hit", "stream_any_hit", "table_gather"], True),
+            ("Cornell mxu3 (K6)", lambda: mxu_scene,
+             ["mxu_closest_hit", "any_hit", "table_gather"], False)):
+        t0 = time.time()
+        s = build()
+        one = _camera_seq(dev, 1, s.num_lights)
+        runs = _mode_frames(torch, s, dev, one, what, kernels, every)
+        notes = []
+        for m in ("live", "bins"):
+            diff, gap = _word_diff(torch, runs[m][2][0], runs["none"][2][0])
+            ldr_px = int((runs[m][2][0][0] != runs["none"][2][0][0])
+                         .any(dim=-1).sum())
+            if exact and diff:
+                raise AssertionError(f"{what} reorder={m}: {diff} words "
+                                     f"differ from none (max abs {gap:.3g})")
+            notes.append(f"{m}: {diff} words, {ldr_px} LDR pixels differ "
+                         f"(max abs {gap:.3g})")
+        print(f"reorder: {what} {WIDTH}x{HEIGHT}, 1 eager frame a mode "
+              f"(launches {kernels} only) against none: "
+              f"{'; '.join(notes)} ({time.time() - t0:.1f} s with the "
+              f"build) [{card}]", flush=True)
+        del s, runs
+
+    # one frame's streams: the kernels a mode, the permutation apart
+    t0 = time.time()
+    streams = _recorded_streams(torch, scene, dev, seq)
+    times = _stream_times(torch, scene, mxu_scene, streams, card)
+    del streams
+    print(f"reorder: the streams took {time.time() - t0:.1f} s", flush=True)
+
+    # device time a frame a mode, and the captured bins frame
+    t0 = time.time()
+    prof = _profiled_modes(torch, scene, dev, _camera_seq(
+        dev, 2, scene.num_lights))
+    for m, (dev_ms, sweep_ms) in prof.items():
+        print(f"reorder: Cornell {WIDTH}x{HEIGHT} reorder={m}, 1 eager "
+              f"frame under torch.profiler: device {dev_ms:.4f} ms/frame, "
+              f"K1 + K2 {sweep_ms:.4f} ms/frame [{card}]", flush=True)
+    print(f"reorder: the profiled frames took {time.time() - t0:.1f} s",
+          flush=True)
+    launched, gap = _captured_band(torch, scene, dev, seq)
+    print(f"reorder: one render_band call with make_ctx(reorder='bins') "
+          f"captured in a CUDA graph under set_sync_debug_mode('error') "
+          f"(launches recorded {launched['closest_hit']} K1, "
+          f"{launched['any_hit']} K2, {launched['table_gather']} K7); its "
+          f"replay equals the eager call in every word (max abs {gap:.3g})",
+          flush=True)
+    print(f"reorder: phase 28 took {time.time() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return c_launches, frames, times, prof
+
+
 def main() -> int:
     import torch
 
@@ -3306,6 +3719,9 @@ def main() -> int:
     tb_launches, tb_frames, k2_stream, sd_launches, sd_frames = \
         _tap_batch_phase(torch, dev, card, every)
 
+    # 28. the ray-stream reorder through render_band's ctx
+    ro_launches, ro_frames, _, _ = _reorder_phase(torch, dev, card, every)
+
     n = TIMED_RAYS[-1]
 
     def entry(name, src, line, launched, err, times, bound):
@@ -3337,7 +3753,9 @@ def main() -> int:
         "replayed config 4": (gf_launches, gf_frames),
         "replayed tiled Cornell (4 bands)": (gt_launches, gt_frames),
         "replayed Cornell, tap_batch": (tb_launches, tb_frames),
-        "replayed subdivided Cornell": (sd_launches, sd_frames)}
+        "replayed subdivided Cornell": (sd_launches, sd_frames),
+        **{f"Cornell reorder={m}": (ro_launches[m], ro_frames)
+           for m in REORDER_MODES}}
     per_frame = {k: {"config 4": f_launches[k] / f_frames,
                      **{f"stand-in {n}": v[k] / f
                         for n, (v, f) in standins.items()},
@@ -3351,7 +3769,9 @@ def main() -> int:
                      "replayed Cornell, tap_batch": tb_launches[k]
                      / tb_frames,
                      "replayed subdivided Cornell": sd_launches[k]
-                     / sd_frames}
+                     / sd_frames,
+                     **{f"Cornell reorder={m}": ro_launches[m][k] / ro_frames
+                        for m in REORDER_MODES}}
                  for k in ("closest_hit", "any_hit")}
     print(json.dumps({"kernels": [
         {**entry("closest_hit", "trace.cu", 392, launches["closest_hit"],

@@ -173,16 +173,27 @@ def _truncated_progressive() -> bytes:
 
 
 @pytest.mark.parametrize("data,words", [
-    (_ycck, "YCCK"),
-    (_truncated_progressive, "incomplete progressive"),
-    (lambda: _patched(0xC9), "arithmetic"),
+    (lambda: _patched(0xCB), "arithmetic"),
     (lambda: _patched(0xC3), "lossless"),
     (lambda: _patched(0xC1, precision=12), "12-bit"),
-], ids=["ycck", "incomplete-progressive", "arithmetic", "lossless",
-        "12-bit"])
+], ids=["arithmetic", "lossless", "12-bit"])
 def test_unsupported_modes_raise_naming_them(data, words):
+    """Streams Pillow refuses too: arithmetic-coded lossless (SOF11), a
+    lossless frame over 2x2-sampled DCT data, 12-bit samples
+    (tests/test_torch_jpeg_modes.py holds the rest to Pillow)."""
+    with pytest.raises(OSError):
+        _pillow(data())
     with pytest.raises(ValueError, match=words):
         jpeg.decode(data())
+
+
+@pytest.mark.parametrize("data", [_ycck, _truncated_progressive],
+                         ids=["ycck", "incomplete-progressive"])
+def test_former_gaps_equal_pillow(data):
+    """Pillow's own streams of two modes the decoder once refused: a
+    CMYK stream relabelled YCCK, a progressive stream cut after its first
+    scan (libjpeg smooths its blocks)."""
+    _assert_decodes_like_pillow(data())
 
 
 def test_decode_image_chooses_by_magic_bytes():

@@ -128,6 +128,7 @@ def test_import_leaves_jax_out():
             "tpu_raytracer_torch.profile_refit, "
             "tpu_raytracer_torch.ops.intersect, "
             "tpu_raytracer_torch.ops.traversal, "
+            "tpu_raytracer_torch.ops.compaction, "
             "tpu_raytracer_torch.utils.jpeg, "
             "tpu_raytracer_torch.parallel.tiles, "
             "tpu_raytracer_torch.parallel.views, "

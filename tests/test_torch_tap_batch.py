@@ -198,9 +198,10 @@ def test_tap_stream_is_pixel_interleaved(scenes, cornell_runs, monkeypatch):
         return out
     orig_occ = restir.scene_occluded
 
-    def occ(scene, o, d, t_min, t_max, active=None):
+    def occ(scene, o, d, t_min, t_max, active=None, reorder="none"):
         calls.append((o, d, t_min, t_max, active))
-        return orig_occ(scene, o, d, t_min, t_max, active=active)
+        return orig_occ(scene, o, d, t_min, t_max, active=active,
+                        reorder=reorder)
     monkeypatch.setattr(restir, "_tap_stream", spy)
     monkeypatch.setattr(restir, "scene_occluded", occ)
     frame = _port_frames(port, W, H, 2, tap_batch=True)

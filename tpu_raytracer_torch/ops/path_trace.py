@@ -99,25 +99,27 @@ def _nee_apply(pre, blocked):
 
 
 def _dual_trace(scene, s_ray, b_origin: V3, b_dir: V3, b_active,
-                num_lights: int):
+                num_lights: int, reorder: str = "none"):
     """ONE closest-hit query for [this depth's shadow rays | the next
     depth's bounce rays] (a windowed closest hit answers occlusion
     exactly). Returns (blocked [R], bounce result)."""
     r = b_active.shape[0]
     if num_lights == 0:
         res = scene_trace(scene, b_origin, b_dir, T_MIN, T_MAX,
-                          active=b_active)
+                          active=b_active, reorder=reorder)
         return torch.zeros_like(b_active), res
     t_max = torch.cat([s_ray["t_max"], torch.full_like(s_ray["t_max"],
                                                        T_MAX)])
     res = scene_trace(scene, vec3.cat(s_ray["origin"], b_origin),
                       vec3.cat(s_ray["dir"], b_dir), T_MIN, t_max,
-                      active=torch.cat([s_ray["active"], b_active]))
+                      active=torch.cat([s_ray["active"], b_active]),
+                      reorder=reorder)
     blocked = res["tri"][:r] >= 0
     return blocked, {k: v[r:] for k, v in res.items()}
 
 
-def _shadow_only(scene, s_ray, r: int, device, num_lights: int):
+def _shadow_only(scene, s_ray, r: int, device, num_lights: int,
+                 reorder: str = "none"):
     """Last depth: the shadow rays alone, as an any-hit query; the bounce
     result is a miss nobody reads."""
     if num_lights == 0:
@@ -125,7 +127,7 @@ def _shadow_only(scene, s_ray, r: int, device, num_lights: int):
     else:
         blocked = scene_occluded(scene, s_ray["origin"], s_ray["dir"],
                                  T_MIN, s_ray["t_max"],
-                                 active=s_ray["active"])
+                                 active=s_ray["active"], reorder=reorder)
     miss = torch.full((r,), -1, dtype=torch.int32, device=device)
     res = {"t": torch.zeros((r,), dtype=torch.float32, device=device),
            "tri": miss}
@@ -145,13 +147,16 @@ def _surface_color(scene, mat, uv_u, uv_v) -> V3:
     return base_color
 
 
-def trace_path(scene, gb, view_pos, seed, active=None):
+def trace_path(scene, gb, view_pos, seed, active=None,
+               reorder: str = "none"):
     """Trace one candidate path per lane from the G-buffer surface.
 
     gb: flat G-buffer dict (valid, pos [R,3], oct_normal, uv, albedo,
     mat_id); view_pos: [3] camera position; seed: [R] int64 path seeds
     (uint32 values); active: optional [R] bool ANDed with gb validity
-    (masked lanes return zeros).
+    (masked lanes return zeros); reorder: the ray-stream permutation of
+    every trace of the path (`trace_api.scene_trace`), which changes no
+    result.
 
     Returns dict: radiance [R,3], valid_v1 [R], v1_pos [R,3], v1_normal
     [R,3] (the reconnection vertex, restir.wgsl:624-629), rays, the exact
@@ -219,7 +224,7 @@ def trace_path(scene, gb, view_pos, seed, active=None):
 
     origin = pos + ffnormal * torch.sign(vec3.dot(ffnormal, next_dir)) * 1e-3
     blocked, res = _dual_trace(scene, s_ray, origin, next_dir, active,
-                               num_lights)
+                               num_lights, reorder)
     accumulated = accumulated + vec3.where(
         nee_mask, _nee_apply(s_pre, blocked), 0.0) * thr_pre
 
@@ -313,10 +318,11 @@ def trace_path(scene, gb, view_pos, seed, active=None):
         next_dir = sc["wi"]
         last_bsdf_pdf = sc["pdf"]
         if depth + 1 >= MAX_DEPTH:
-            blocked, res = _shadow_only(scene, s_ray, r, device, num_lights)
+            blocked, res = _shadow_only(scene, s_ray, r, device, num_lights,
+                                        reorder)
         else:
             blocked, res = _dual_trace(scene, s_ray, origin, next_dir,
-                                       active, num_lights)
+                                       active, num_lights, reorder)
         accumulated = accumulated + vec3.where(
             nee_mask, _nee_apply(s_pre, blocked), 0.0) * thr_pre
 

@@ -26,7 +26,7 @@ from ..utils import rng, vec3
 from ..utils.vec3 import V3
 from . import path_trace
 from .gbuffer import GB_ALBEDO, GB_COLS, GB_MAT, GB_OCT, GB_POS, GB_VALID
-from .trace_api import scene_occluded
+from .trace_api import REORDERS, scene_occluded
 
 MAX_M_TEMPORAL = 16   # restir.wgsl:851
 MAX_M_SPATIAL = 20    # restir_spatial.wgsl:893,989
@@ -51,14 +51,20 @@ def _gb_head(c):
 
 
 def make_ctx(width: int, height: int, device, y0: int = 0,
-             band_h: int | None = None, tap_batch: bool = False) -> dict:
+             band_h: int | None = None, tap_batch: bool = False,
+             reorder: str = "none") -> dict:
     """The band context: the full image's size, the band of rows
     [y0, y0 + band_h) this device renders (the whole image by default),
-    and whether the spatial taps are batched (`tap_batch_on`; off by
-    default, as in the reference)."""
+    whether the spatial taps are batched (`tap_batch_on`; off by
+    default, as in the reference), and the ray-stream permutation of
+    every secondary trace (`trace_api.scene_trace(reorder=)`: "none", the
+    default as in the reference, "live" or "bins"; the G-buffer's primary
+    rays stay in order). A permutation changes no result."""
+    if reorder not in REORDERS:
+        raise ValueError(f"reorder={reorder!r}: want one of {REORDERS}")
     return {"width": width, "height": height, "device": device, "y0": y0,
             "band_h": height if band_h is None else band_h,
-            "tap_batch": bool(tap_batch)}
+            "tap_batch": bool(tap_batch), "reorder": reorder}
 
 
 def tap_batch_on(ctx) -> bool:
@@ -216,7 +222,8 @@ def restir_temporal(scene, gb, prev_view, camera, frame_count, ctx,
     # phase 1: candidate path (restir.wgsl:826-841); its cache is valid
     # unconditionally - the final replay traces exactly (gb, seed)
     pr = path_trace.trace_path(scene, gb, camera["view_pos"][:3],
-                               seed_candidate)
+                               seed_candidate,
+                               reorder=ctx.get("reorder", "none"))
     pr_rad = vec3.of(pr["radiance"])
     p_hat = vec3.luminance(pr_rad)
     res = _update_reservoir(res, valid, seed_candidate, p_hat, 0.5, 1,
@@ -426,6 +433,7 @@ def restir_spatial(scene, gb, comb_view, in_reservoirs, camera,
     reservoirs. Returns (out_reservoirs, hdr [n, 3], ray_count, diag)."""
     valid = gb["valid"]
     camera_pos = camera["view_pos"][:3]
+    reorder = ctx.get("reorder", "none")
 
     # own reservoir, M-clamped with w_sum rescale (:892-896)
     res = dict(in_reservoirs)
@@ -439,13 +447,14 @@ def restir_spatial(scene, gb, comb_view, in_reservoirs, camera,
         taps, st = _tap_stream(scene, gb, comb_view, camera, frame_count,
                                ctx)
         blocked = scene_occluded(scene, st["o"], st["d"], 1e-3, st["t_max"],
-                                 active=st["active"]).reshape(-1, TAPS)
+                                 active=st["active"],
+                                 reorder=reorder).reshape(-1, TAPS)
         ray_count = st["active"].to(torch.float32).sum()
         for i, tap in enumerate(taps):
             res = _merge_tap(res, tap, tap["shadow_active"] & ~blocked[:, i],
                              tap["rnd"])
         return _spatial_finalize(scene, gb, res, camera_pos, valid,
-                                 ray_count)
+                                 ray_count, reorder)
 
     s, local_seed = _spatial_surface(scene, gb, camera, frame_count, ctx)
     ray_count = torch.zeros((), dtype=torch.float32, device=ctx["device"])
@@ -454,20 +463,23 @@ def restir_spatial(scene, gb, comb_view, in_reservoirs, camera,
         shadow_active = tap["shadow_active"]
         ray_count = ray_count + shadow_active.to(torch.float32).sum()
         blocked = scene_occluded(scene, s["pos"], tap["dir"], 1e-3,
-                                 tap["t_max"], active=shadow_active)
+                                 tap["t_max"], active=shadow_active,
+                                 reorder=reorder)
         ok = shadow_active & ~blocked
         local_seed, rnd = rng.rand_lcg_if(local_seed, ok)
         res = _merge_tap(res, tap, ok, rnd)
-    return _spatial_finalize(scene, gb, res, camera_pos, valid, ray_count)
+    return _spatial_finalize(scene, gb, res, camera_pos, valid, ray_count,
+                             reorder)
 
 
-def _spatial_finalize(scene, gb, res, camera_pos, valid, ray_count):
+def _spatial_finalize(scene, gb, res, camera_pos, valid, ray_count,
+                      reorder: str = "none"):
     """Replay the winning seed + shade (restir_spatial.wgsl:996-1015).
     Lanes whose winner carries a valid cache skip the replay: it is
     deterministic in (gb, seed)."""
     cached = res["rad_ok"]
     final = path_trace.trace_path(scene, gb, camera_pos, res["y"],
-                                  active=~cached)
+                                  active=~cached, reorder=reorder)
     radiance = vec3.where(cached, res["rad"], vec3.of(final["radiance"]))
     p_hat_final = vec3.luminance(radiance)
     res["s_path"] = vec3.where(cached, res["s_path"],

@@ -153,10 +153,14 @@ def check_mode(kernel: str) -> str:
 
 
 def trace_route(kernel: str, incull: bool, tp: int, any_hit: bool,
-                brute_max: int = BRUTE_FORCE_MAX_TRIS):
+                brute_max: int = BRUTE_FORCE_MAX_TRIS,
+                permuted: bool = False):
     """(route, grp, passes) of a flattened scene's query under mode
     `kernel` (with the in-kernel cull if `incull`) at `tp` triangle
-    slots. Past `brute_max` slots every mode and query takes "bvh", the
+    slots, its rays `permuted` or not (`scene_trace(reorder=)`: a
+    permuted stream never takes "incull", as the reference takes its cull
+    only without a permutation, pallas_trace.py:1485, and falls through
+    its chain). Past `brute_max` slots every mode and query takes "bvh", the
     walk (ops/traversal.py, K8), as the reference reaches its mode chain
     only under its cap (trace_api.py:141-150). Under it, the reference's
     mode chain (pallas_trace.py:1485-1565) in its order, less its TPU
@@ -175,8 +179,8 @@ def trace_route(kernel: str, incull: bool, tp: int, any_hit: bool,
     if tp > brute_max:
         return "bvh", 1, 0
     nc = tp // CT
-    if (incull and kernel.startswith("mxuf") and nc <= INCULL_MAX_CHUNKS
-            and tp <= MXUF_MAX_TP):
+    if (incull and not permuted and kernel.startswith("mxuf")
+            and nc <= INCULL_MAX_CHUNKS and tp <= MXUF_MAX_TP):
         return "incull", 2 if nc <= 48 else 4, 3
     mode = "any" if any_hit and kernel != "vpu" else kernel
     if mode.startswith("mxuw") and tp > MXUW_MAX_TP:
@@ -445,23 +449,53 @@ def _lanes(x, r, device):
     return torch.full((r,), float(x), dtype=torch.float32, device=device)
 
 
+REORDERS = ("none", "live", "bins")
+# the routes whose streams `reorder` permutes: the sweeps of the
+# reference's trace_brute_pallas (K1/K2, K3, K5, K6), not the instanced
+# kernel K4 nor the walk K8, which the reference leaves in order
+PERMUTED_ROUTES = ("swept", "stream", "vpu", "mxu")
+
+
 def scene_trace(scene, ray_o: V3, ray_d: V3, t_min, t_max, any_hit=False,
-                active=None):
+                active=None, reorder: str = "none"):
     """Closest-hit (or, with `any_hit`, occlusion) query.
 
     ray_o/ray_d: V3s of [R] components; t_min/t_max: scalars or [R];
-    active: optional [R] bool (inactive lanes are dead: t_max = 0)."""
+    active: optional [R] bool (inactive lanes are dead: t_max = 0).
+    reorder: "none" keeps the caller's order; "live" and "bins" permute
+    the stream of a route in PERMUTED_ROUTES before the trace and restore
+    the results after it (ops/compaction.py), the plain versions' too.
+    Every lane's answer is the same in every mode: the routes keep each
+    lane's (t, triangle id) minimum, whatever the lanes beside it."""
+    if reorder not in REORDERS:
+        raise ValueError(f"reorder={reorder!r}: want one of {REORDERS}")
     device = ray_o.x.device
     r = ray_o.x.shape[0]
     t_min = _lanes(t_min, r, device)
     t_max = _lanes(t_max, r, device)
     if active is not None:
         t_max = torch.where(active, t_max, 0.0)
-    # imported here: these modules build on this one
-    from . import trace_inst, trace_mxu, trace_vpu, traversal
+    from . import compaction
     name, grp, passes = ("instanced", 1, 0) if scene.instanced else \
         trace_route(scene.kernel, scene.incull, scene.tri_planes.shape[2],
-                    any_hit, scene.brute_max)
+                    any_hit, scene.brute_max, permuted=reorder != "none")
+    if reorder != "none" and name in PERMUTED_ROUTES and r:
+        src, dest = compaction.permutation(reorder, ray_d, t_max)
+        res = _route(scene, name, grp, passes, any_hit,
+                     V3(*(x[src] for x in ray_o)),
+                     V3(*(x[src] for x in ray_d)), t_min[src], t_max[src])
+        return {k: v[dest] for k, v in res.items()}
+    return _route(scene, name, grp, passes, any_hit, ray_o, ray_d, t_min,
+                  t_max)
+
+
+def _route(scene, name, grp, passes, any_hit, ray_o: V3, ray_d: V3, t_min,
+           t_max):
+    """The query on route `name` (trace_route's, or "instanced") with the
+    window (t_min, t_max) as [R] tensors."""
+    # imported here: these modules build on this one
+    from . import trace_inst, trace_mxu, trace_vpu, traversal
+    device = ray_o.x.device
     if name == "bvh":
         bvh = (scene.bvh_rec, scene.bvh_skip, scene.bvh_tri)
         if device.type == "cpu":
@@ -502,7 +536,8 @@ def scene_trace(scene, ray_o: V3, ray_d: V3, t_min, t_max, any_hit=False,
                         t_max, any_hit=any_hit)
 
 
-def scene_occluded(scene, ray_o: V3, ray_d: V3, t_min, t_max, active=None):
+def scene_occluded(scene, ray_o: V3, ray_d: V3, t_min, t_max, active=None,
+                   reorder: str = "none"):
     res = scene_trace(scene, ray_o, ray_d, t_min, t_max, any_hit=True,
-                      active=active)
+                      active=active, reorder=reorder)
     return res["tri"] >= 0
