@@ -42,6 +42,7 @@ from tpu_raytracer_torch.runtime.build import CSRC_DIR
 from tpu_raytracer_torch.scene.builder import SceneBuilder
 from tpu_raytracer_torch.scene.geometry import create_plane, create_sphere
 from tpu_raytracer_torch.scene.material import Material
+from tpu_raytracer_torch.utils import profiling
 from tpu_raytracer_torch.utils.math3d import scale, translation
 from tpu_raytracer_torch.utils.vec3 import V3
 
@@ -89,6 +90,7 @@ def _build(out, names, defines=()):
         "tpurt_table_gather": [ptr] * 2 + [i32] * 3 + [ptr] * 2,
         "tpurt_bvh_closest_hit": [ptr] * 7 + [i32] * 2 + [ptr] * 3,
         "tpurt_bvh_any_hit": [ptr] * 7 + [i32] * 2 + [ptr] * 3,
+        "tpurt_mark": [i32, ptr, i32, ptr],
     }
     for name, argtypes in signatures.items():
         if hasattr(lib, name):
@@ -102,7 +104,7 @@ def _build(out, names, defines=()):
 def lib(tmp_path_factory):
     return _build(tmp_path_factory.mktemp("emulated"),
                   ("trace", "trace_stream", "trace_inst", "trace_vpu",
-                   "trace_mxu", "gather", "trace_bvh"))
+                   "trace_mxu", "gather", "trace_bvh", "marks"))
 
 
 def _rays(seed, lo, hi, t_far):
@@ -733,6 +735,30 @@ def test_table_gather_kernel_matches_plain(lib, c, r):
     assert err == 0
     assert np.array_equal(got.numpy().view(np.uint32),
                           want.numpy().view(np.uint32))
+
+
+def test_mark_kernels_write_their_stamps(lib):
+    """The stage marks (csrc/marks.cu), one a stage in
+    `profiling.STAGES`' order: each writes the global timer into its
+    slot of the stamp row, so a frame's stamps come out in slot order
+    and non-decreasing; none writes through a null row; an unknown stage
+    launches nothing and returns cudaErrorInvalidValue (1)."""
+    with open(os.path.join(CSRC_DIR, "marks.cu")) as f:
+        src = f.read()
+    table = re.search(r"MARKS\[\] = \{(.*?)\};", src, re.S).group(1)
+    assert re.findall(r"tpurt_mark_(\w+)", table) == list(profiling.STAGES)
+    n = len(profiling.STAGES)
+    stamps = torch.zeros(n + 2, dtype=torch.int64)
+    for slot in range(n):
+        assert lib.tpurt_mark(slot, stamps.data_ptr(), slot, None) == 0
+        assert lib.tpurt_mark(slot, None, slot, None) == 0
+    t = stamps[:n]
+    assert (t > 0).all() and (t[1:] >= t[:-1]).all()
+    assert not stamps[n:].any()
+    before = stamps.clone()
+    for stage in (-1, n):
+        assert lib.tpurt_mark(stage, stamps.data_ptr(), n, None) == 1
+    assert torch.equal(stamps, before)
 
 
 def _bvh_stream(table):

@@ -125,7 +125,6 @@ def test_import_leaves_jax_out():
             "tpu_raytracer_torch.utils.resample, "
             "tpu_raytracer_torch.models.glb_writer, "
             "tpu_raytracer_torch.models.procedural_assets, "
-            "tpu_raytracer_torch.profile_refit, "
             "tpu_raytracer_torch.ops.intersect, "
             "tpu_raytracer_torch.ops.traversal, "
             "tpu_raytracer_torch.ops.compaction, "

@@ -11,7 +11,9 @@ of winit):
     visualization (renderer.rs:407-508),
   - camera motion resets the accumulation counter (state.rs:151-152),
   - fps / resolution / accumulated-sample telemetry, printed where the
-    reference updates the window title (main.rs:81-95),
+    reference updates the window title (main.rs:81-95); on CUDA devices
+    also the last frame's device ms by stage, from its graph's stamps
+    (`stage_line`),
   - auto-screenshot when the accumulation counter reaches target_spp
     (state.rs:206-215), via the async saver thread,
   - checkpoint save on exit and resume on start (--checkpoint).
@@ -48,7 +50,7 @@ from ..render import camera as camera_mod
 from ..render import checkpoint, pipeline, renderer
 from ..render.graph import FrameGraph
 from ..utils.config import RenderConfig
-from ..utils.profiling import FrameStats
+from ..utils.profiling import STAGES, FrameStats
 from ..utils.resample import resize_u8
 from .screenshot import ScreenshotSaver, denoised_screenshot
 
@@ -310,6 +312,8 @@ def run(cfg: RenderConfig) -> dict:
                 line = (f"FPS {stats.fps:6.2f} | {w}x{h} | samples "
                         f"{frame_count} | {stats.mrays_per_s:.1f} Mrays/s"
                         f" | mode {debug_mode}{' | PAUSED' if paused else ''}")
+                if graph is not None:
+                    line += stage_line(graph.stage_ms(), stats.fps)
                 status_line = line
                 if presenter is None:
                     print(line, flush=True)
@@ -324,6 +328,23 @@ def run(cfg: RenderConfig) -> dict:
     return {"fps": stats.fps, "mrays_per_s": stats.mrays_per_s,
             "res": f"{w}x{h}", "samples": frame_count,
             "frames": total_frames, "launches": dict(trace_api.LAUNCHES)}
+
+
+def stage_line(stage_ms: list, fps: float) -> str:
+    """The status line's device part, from a frame graph's `stage_ms()`
+    (one dict a card): the last frame's device ms of each stage, summed
+    over the cards, and with several cards each card's busy share of a
+    frame, its stages' ms over the frame time that fps gives."""
+    if not stage_ms:
+        return ""
+    total = {k: sum(c.get(k, 0.0) for c in stage_ms) for k in STAGES
+             if any(k in c for c in stage_ms)}
+    line = " | device ms " + " ".join(f"{k} {v:.1f}"
+                                      for k, v in total.items())
+    if len(stage_ms) > 1 and fps > 0:
+        line += " | busy " + " ".join(
+            f"{100.0 * sum(c.values()) * fps / 1e3:.0f}%" for c in stage_ms)
+    return line
 
 
 def letterbox(img: np.ndarray, out_w: int, out_h: int,

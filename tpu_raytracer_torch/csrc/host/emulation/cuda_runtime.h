@@ -20,6 +20,8 @@
 //     the fragments through a static buffer between two warp barriers and
 //     sums each output's exact products in f64, rounding once to f32;
 //     every thread of a warp must call it the same number of times;
+//   - the global nanosecond timer (%globaltimer, csrc/marks.cu) is the
+//     host's steady clock, `emu_globaltimer`;
 //   - a launch `k<<<grid, block, 0, stream>>>(args)` must be rewritten
 //     to `emu_launch(k, grid, block)(args)` before compiling.
 // Build with -std=c++20 -ffp-contract=off (as nvcc's -fmad=false).
@@ -27,6 +29,7 @@
 
 #include <atomic>
 #include <barrier>
+#include <chrono>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
@@ -64,6 +67,11 @@ inline float __uint_as_float(unsigned u) {
     float x;
     std::memcpy(&x, &u, sizeof x);
     return x;
+}
+inline int64_t emu_globaltimer() {
+    return std::chrono::duration_cast<std::chrono::nanoseconds>(
+               std::chrono::steady_clock::now().time_since_epoch())
+        .count();
 }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }

@@ -31,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from ..scene.material import NO_TEXTURE
-from ..utils import rng, vec3
+from ..utils import profiling, rng, vec3
 from ..utils.vec3 import V3
 from . import bsdf as bsdf_ops
 from . import lights as light_ops
@@ -149,7 +149,9 @@ def _surface_color(scene, mat, uv_u, uv_v) -> V3:
 
 def trace_path(scene, gb, view_pos, seed, active=None,
                reorder: str = "none"):
-    """Trace one candidate path per lane from the G-buffer surface.
+    """Trace one candidate path per lane from the G-buffer surface, as
+    the frame's stage "path_trace" (`utils/profiling.py:stage`), which
+    nests in its caller's.
 
     gb: flat G-buffer dict (valid, pos [R,3], oct_normal, uv, albedo,
     mat_id); view_pos: [3] camera position; seed: [R] int64 path seeds
@@ -163,6 +165,11 @@ def trace_path(scene, gb, view_pos, seed, active=None,
     number of traversal queries (a 0-dim f32 tensor), and state, each
     lane's final RNG state.
     """
+    with profiling.stage("path_trace"):
+        return _trace_path(scene, gb, view_pos, seed, active, reorder)
+
+
+def _trace_path(scene, gb, view_pos, seed, active, reorder: str):
     r = gb["pos"].shape[0]
     device = gb["pos"].device
     num_lights = scene.num_lights

@@ -327,7 +327,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-Xptxas", "-v"]
 KERNEL_SOURCES = ("trace.cu", "trace_stream.cu", "trace_inst.cu",
                   "trace_vpu.cu", "trace_mxu.cu", "gather.cu",
-                  "trace_bvh.cu")
+                  "trace_bvh.cu", "marks.cu")
 
 
 def _nvcc() -> str:
@@ -344,11 +344,13 @@ def load_kernels() -> ctypes.CDLL:
     (`csrc/trace_stream.cu`), K4 (`csrc/trace_inst.cu`), K5
     (`csrc/trace_vpu.cu`), K6 (`csrc/trace_mxu.cu`) and K8 (the BVH walk,
     `csrc/trace_bvh.cu`, wrapped by `ops/traversal.py`) and the table
-    gather K7 (`csrc/gather.cu`, wrapped by `ops/table_gather.py`) into
-    one library with one nvcc call for sm_90a (at first use, cached by
-    source hash) and bind them. Once per process: every wrapper calls
-    this before each launch, and finding nvcc and binding again cost
-    more host time than a small launch takes on the card."""
+    gather K7 (`csrc/gather.cu`, wrapped by `ops/table_gather.py`), with
+    the frame's stage marks (`csrc/marks.cu`, launched by
+    `utils/profiling.py:stage`), into one library with one nvcc call for
+    sm_90a (at first use, cached by source hash) and bind them. Once per
+    process: every wrapper calls this before each launch, and finding
+    nvcc and binding again cost more host time than a small launch takes
+    on the card."""
     lib = load_library(
         "trace_kernels", [os.path.join(CSRC_DIR, f) for f in KERNEL_SOURCES],
         [_nvcc(), *NVCC_FLAGS],
@@ -373,6 +375,8 @@ def load_kernels() -> ctypes.CDLL:
     for fn in (lib.tpurt_bvh_closest_hit, lib.tpurt_bvh_any_hit):
         fn.restype = i32
         fn.argtypes = [ptr] * 7 + [i32] * 2 + [ptr] * 3
+    lib.tpurt_mark.restype = i32
+    lib.tpurt_mark.argtypes = [i32, ptr, i32, ptr]
     return lib
 
 

@@ -42,6 +42,7 @@ import torch
 from ..ops import restir as restir_ops
 from ..ops import trace_api
 from ..render import pipeline as pipeline_mod
+from ..utils import profiling
 from . import views as views_mod
 
 # Halo must cover the spatial-ReSTIR disk radius (10 px) and post stencils
@@ -372,7 +373,10 @@ class TiledFrameGraph:
     stand: it only initialises what must not initialise in a capture).
     tap_batch: each band batches its spatial taps, as
     `make_render_frame_tiled(tap_batch=True)` does; one graph set holds
-    one mode. Nothing falls back: a capture error raises."""
+    one mode. Each band's frame captures its stage marks
+    (`utils/profiling.py:stage`) into its segments, with a stamp row of
+    its own: `stage_ms` reads the last replay's. Nothing falls back: a
+    capture error raises."""
 
     def __init__(self, mesh: Mesh, scene, width: int, height: int,
                  halo: int = DEFAULT_HALO, tap_batch: bool = False):
@@ -399,8 +403,9 @@ class TiledFrameGraph:
             with torch.cuda.device(dev):
                 self._pools.append(torch.cuda.graph_pool_handle())
         # (static_ok, reuse) -> (segments a band, links, outputs a band,
-        # launches a band)
+        # launches a band, stamps a band)
         self._graphs = {}
+        self._last = None       # the key of the last replay
         self.segments = None    # a band's segments, once captured
 
     def load_state(self, state) -> None:
@@ -431,7 +436,7 @@ class TiledFrameGraph:
     def _capture(self, key):
         trace_api.load_kernels()
         links = _Links(self.mesh.size)
-        segments, outs, launches = [], [], []
+        segments, outs, launches, stamps = [], [], [], []
         for d, dev in enumerate(self.mesh.devices):
             with torch.cuda.device(dev):
                 side = torch.cuda.Stream(dev)
@@ -440,16 +445,20 @@ class TiledFrameGraph:
                     # the warm-up launches for real, so it renders a
                     # scratch copy of the state
                     scratch = {k: v.clone() for k, v in self.state[d].items()}
-                    self._band(d, scratch, key, _Segments(links, d))
+                    with profiling.marking(dev):
+                        self._band(d, scratch, key, _Segments(links, d))
                     del scratch
                     torch.cuda.synchronize(dev)
+                    stamps.append(profiling.Stamps(dev))
                     seg = _Segments(links, d, self._pools[d])
                     try:
-                        with trace_api.captured_launches() as launched:
+                        with trace_api.captured_launches() as launched, \
+                                profiling.marking(dev, stamps[-1]):
                             ldr, hdr, new_state, aux = self._band(
                                 d, self.state[d], key, seg)
-                            for k, v in self.state[d].items():
-                                v.copy_(new_state[k])
+                            with profiling.stage("state_copy"):
+                                for k, v in self.state[d].items():
+                                    v.copy_(new_state[k])
                     except BaseException:
                         seg.end()     # leave capture mode, then re-raise
                         raise
@@ -463,7 +472,7 @@ class TiledFrameGraph:
                                f"{[len(g) for g in segments]} segments: "
                                f"every band must reach each exchange")
         self.segments = len(segments[0])
-        self._graphs[key] = (segments, links, outs, launches)
+        self._graphs[key] = (segments, links, outs, launches, stamps)
 
     def __call__(self, camera: dict, frame_count, static_ok: bool = False,
                  gb_reuse: bool = False):
@@ -472,33 +481,53 @@ class TiledFrameGraph:
         gb_reuse as `make_render_frame_tiled`'s call takes them. Returns
         (ldr, hdr, state, aux) as that call does; `state` is the static
         band states, ldr, hdr and aux are new tensors."""
-        if self.camera is None:
-            self.camera = {dev: {k: v.to(dev, copy=True)
-                                 for k, v in _on(camera, dev).items()}
-                           for dev in self.scene}
-        else:
-            for dev, cam in self.camera.items():
-                src = camera[dev] if isinstance(camera, Replicated) \
-                    else camera
-                for k, v in cam.items():
-                    v.copy_(src[k])
-        for fc in self.frame_count:
-            if isinstance(frame_count, torch.Tensor):
-                fc.copy_(frame_count)
+        with profiling.span("frame.call"):
+            return self._call(camera, frame_count, static_ok, gb_reuse)
+
+    def _call(self, camera, frame_count, static_ok, gb_reuse):
+        with profiling.span("frame.inputs"):
+            if self.camera is None:
+                self.camera = {dev: {k: v.to(dev, copy=True)
+                                     for k, v in _on(camera, dev).items()}
+                               for dev in self.scene}
             else:
-                fc.fill_(frame_count)
+                for dev, cam in self.camera.items():
+                    src = camera[dev] if isinstance(camera, Replicated) \
+                        else camera
+                    for k, v in cam.items():
+                        v.copy_(src[k])
+            for fc in self.frame_count:
+                if isinstance(frame_count, torch.Tensor):
+                    fc.copy_(frame_count)
+                else:
+                    fc.fill_(frame_count)
         key = (bool(static_ok), bool(gb_reuse and static_ok))
         if key not in self._graphs:
             self._capture(key)
-        segments, links, outs, launches = self._graphs[key]
+        segments, links, outs, launches, _ = self._graphs[key]
         for k in range(self.segments):
             for d, dev in enumerate(self.mesh.devices):
-                with torch.cuda.device(dev):
+                with profiling.span("frame.replay", card=d, segment=k), \
+                        torch.cuda.device(dev):
                     segments[d][k].replay()
             if k + 1 < self.segments:
-                links.fill(k)
+                with profiling.span("band.fill", segment=k):
+                    links.fill(k)
+        self._last = key
         for counts in launches:
             trace_api.add_launches(counts)
-        ldr, hdr, aux = _gather(outs, self.mesh.devices[0])
+        with profiling.span("frame.outputs"):
+            ldr, hdr, aux = _gather(outs, self.mesh.devices[0])
         aux["band_launches"] = [dict(c) for c in launches]
         return ldr, hdr, self.state, aux
+
+    def stage_ms(self) -> list:
+        """The last replay's device ms of each stage, from each band's
+        stamps (`profiling.Stamps.ms`): one dict a band, in band order;
+        [] before the first replay. A stage's time runs from its mark to
+        the next, so it holds the band's waits for its neighbours inside
+        the stage. Reads the devices: call it once the frame has been
+        waited for."""
+        if self._last is None:
+            return []
+        return [s.ms() for s in self._graphs[self._last][4]]

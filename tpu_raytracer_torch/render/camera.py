@@ -17,7 +17,7 @@ import dataclasses
 
 import numpy as np
 
-from ..utils import math3d, rng
+from ..utils import math3d, profiling, rng
 
 
 def get_halton_jitter(index: int, width: int, height: int) -> tuple:
@@ -93,7 +93,12 @@ class CameraController:
 
     def update(self, dt: float) -> bool:
         """Advance by dt seconds; returns `moved` (resets accumulation,
-        state.rs:151-152)."""
+        state.rs:151-152). A host span, "camera.update"
+        (`utils/profiling.py:span`)."""
+        with profiling.span("camera.update"):
+            return self._update(dt)
+
+    def _update(self, dt: float) -> bool:
         speed = self.SPEED * dt
         rot = self.ROTATE_SPEED * dt
         moved = False

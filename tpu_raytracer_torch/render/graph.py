@@ -21,6 +21,9 @@ whole frame once and replays it: one host call a frame.
     refit fields and writes the refit into them in place
     (`ops/refit.py:update_instances_`), from a static transforms buffer,
     before the frame reads them; the caller's scene is never written.
+  - Stage marks (`utils/profiling.py:stage`): each graph captures its
+    frame's marks with a stamp row of its own, which every replay
+    overwrites; `stage_ms` reads the last replay's.
 
 Nothing falls back: a frame that reads the device from the host, or any
 other capture error, raises.
@@ -33,6 +36,7 @@ import dataclasses
 import torch
 
 from ..ops import refit, trace_api
+from ..utils import profiling
 from . import pipeline, renderer
 
 # eager frames on a side stream before a capture, as torch.cuda.graph
@@ -83,8 +87,10 @@ class FrameGraph:
         self.frame_count = torch.zeros((), dtype=torch.int64, device=device)
         self.camera = None
         self._pool = torch.cuda.graph_pool_handle()
-        # (static_ok, reuse, refit) -> (graph, its outputs, its launches)
+        # (static_ok, reuse, refit) -> (graph, its outputs, its launches,
+        # its stamps)
         self._graphs = {}
+        self._last = None       # the key of the last replay
 
     def load_state(self, state: dict) -> None:
         """Copy `state` (keys of `self.state`) into the static state."""
@@ -95,8 +101,9 @@ class FrameGraph:
         """One frame from the static inputs, the refit first where
         `moved`: (new state, outputs)."""
         if moved:
-            refit.update_instances_(self.scene, self.transforms,
-                                    self.changed)
+            with profiling.stage("refit"):
+                refit.update_instances_(self.scene, self.transforms,
+                                        self.changed)
         if self.progressive:
             accum, radiance = renderer.render_progressive(
                 self.scene, self.camera, self.frame_count, state["accum"],
@@ -115,18 +122,21 @@ class FrameGraph:
         scratch = {k: v.clone() for k, v in self.state.items()}
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), profiling.marking(self.device):
             for _ in range(WARMUP_ITERS):
                 self._render(scratch, *key)
         torch.cuda.current_stream(self.device).wait_stream(side)
         del scratch
         graph = torch.cuda.CUDAGraph()
-        with trace_api.captured_launches() as launches:
+        stamps = profiling.Stamps(self.device)
+        with trace_api.captured_launches() as launches, \
+                profiling.marking(self.device, stamps):
             with torch.cuda.graph(graph, pool=self._pool):
                 new_state, outs = self._render(self.state, *key)
-                for k, v in self.state.items():
-                    v.copy_(new_state[k])
-        self._graphs[key] = (graph, outs, dict(launches))
+                with profiling.stage("state_copy"):
+                    for k, v in self.state.items():
+                        v.copy_(new_state[k])
+        self._graphs[key] = (graph, outs, dict(launches), stamps)
 
     def __call__(self, camera: dict, frame_count, static_ok: bool = False,
                  gb_reuse: bool = False, transforms=None):
@@ -146,28 +156,42 @@ class FrameGraph:
         if moved and self.transforms is None:
             raise ValueError("transforms given to a FrameGraph made without "
                              "refit_changed")
-        with torch.cuda.device(self.device):
-            if moved:
-                self.transforms.copy_(torch.as_tensor(
-                    transforms, dtype=torch.float32)[:, :3, :4])
-            if self.camera is None:
-                self.camera = {k: v.clone() for k, v in camera.items()}
-            else:
-                for k, v in self.camera.items():
-                    v.copy_(camera[k])
-            if isinstance(frame_count, torch.Tensor):
-                self.frame_count.copy_(frame_count)
-            else:
-                self.frame_count.fill_(frame_count)
+        with profiling.span("frame.call"), torch.cuda.device(self.device):
+            with profiling.span("frame.inputs"):
+                if moved:
+                    self.transforms.copy_(torch.as_tensor(
+                        transforms, dtype=torch.float32)[:, :3, :4])
+                if self.camera is None:
+                    self.camera = {k: v.clone() for k, v in camera.items()}
+                else:
+                    for k, v in self.camera.items():
+                        v.copy_(camera[k])
+                if isinstance(frame_count, torch.Tensor):
+                    self.frame_count.copy_(frame_count)
+                else:
+                    self.frame_count.fill_(frame_count)
             key = ((False, False, moved) if self.progressive
                    else (bool(static_ok), bool(gb_reuse and static_ok),
                          moved))
             if key not in self._graphs:
                 self._capture(key)
-            graph, outs, launches = self._graphs[key]
-            graph.replay()
-        trace_api.add_launches(launches)
-        if self.progressive:
-            return self.state["accum"], outs[0]
-        ldr, hdr, aux = outs
-        return ldr, hdr, self.state, {k: v.clone() for k, v in aux.items()}
+            graph, outs, launches, _ = self._graphs[key]
+            with profiling.span("frame.replay"):
+                graph.replay()
+            self._last = key
+            trace_api.add_launches(launches)
+            if self.progressive:
+                return self.state["accum"], outs[0]
+            ldr, hdr, aux = outs
+            with profiling.span("frame.outputs"):
+                aux = {k: v.clone() for k, v in aux.items()}
+        return ldr, hdr, self.state, aux
+
+    def stage_ms(self) -> list:
+        """The last replay's device ms of each stage, from its stamps
+        (`profiling.Stamps.ms`): one dict a card, so one here; [] before
+        the first replay. Reads the device: call it once the frame has
+        been waited for."""
+        if self._last is None:
+            return []
+        return [self._graphs[self._last][3].ms()]

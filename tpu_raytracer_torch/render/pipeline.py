@@ -18,6 +18,7 @@ from ..ops import gbuffer as gbuffer_ops
 from ..ops import post as post_ops
 from ..ops import restir as restir_ops
 from ..parallel import views as views_mod
+from ..utils import profiling
 
 # frames above this many pixels read G-buffer + reservoir rows through a
 # pair view instead of materializing their concatenation
@@ -72,30 +73,36 @@ def render_band(scene, camera, frame_count, state, ctx, make_view,
             return make_view2(a, b)
         return make_view(torch.cat([a, b], dim=-1))
 
-    gb = _gb_for_band(scene, camera, state["gb"], ctx, reuse)
+    # every device operation of the band's frame lies in a stage
+    # (utils/profiling.py:stage), the halo exchanges of its views too
+    with profiling.stage("gbuffer"):
+        gb = _gb_for_band(scene, camera, state["gb"], ctx, reuse)
     # G-buffer and reservoir rows ride one view, so every neighbour tap
     # is a single row gather
-    reservoirs_t, rays_t = restir_ops.restir_temporal(
-        scene, gb, comb(state["gb"], state["res"]), camera, frame_count,
-        ctx, static_ok=static_ok)
+    with profiling.stage("restir_temporal"):
+        reservoirs_t, rays_t = restir_ops.restir_temporal(
+            scene, gb, comb(state["gb"], state["res"]), camera, frame_count,
+            ctx, static_ok=static_ok)
 
-    gb_packed = gbuffer_ops.pack_gb(gb)
-    res_t_packed = restir_ops.pack_reservoirs(reservoirs_t)
-    reservoirs_s, hdr, rays_s, diag = restir_ops.restir_spatial(
-        scene, gb, comb(gb_packed, res_t_packed), reservoirs_t, camera,
-        frame_count, ctx)
+    with profiling.stage("restir_spatial"):
+        gb_packed = gbuffer_ops.pack_gb(gb)
+        res_t_packed = restir_ops.pack_reservoirs(reservoirs_t)
+        reservoirs_s, hdr, rays_s, diag = restir_ops.restir_spatial(
+            scene, gb, comb(gb_packed, res_t_packed), reservoirs_t, camera,
+            frame_count, ctx)
 
-    ldr, accum = post_ops.post_process(
-        make_view(hdr), gb, make_view(gb_packed), make_view(state["accum"]),
-        frame_count, ctx)
-    new_state = {"gb": gb_packed,
-                 "res": restir_ops.pack_reservoirs(reservoirs_s),
-                 "accum": accum}
-    # the exact traversal-query count: primary rays (none when the
-    # G-buffer is reused) + both path traces + every shadow and
-    # visibility ray
-    aux = {"rays": (0.0 if reuse else float(n_primary)) + rays_t + rays_s,
-           **diag}
+    with profiling.stage("post"):
+        ldr, accum = post_ops.post_process(
+            make_view(hdr), gb, make_view(gb_packed),
+            make_view(state["accum"]), frame_count, ctx)
+        new_state = {"gb": gb_packed,
+                     "res": restir_ops.pack_reservoirs(reservoirs_s),
+                     "accum": accum}
+        # the exact traversal-query count: primary rays (none when the
+        # G-buffer is reused) + both path traces + every shadow and
+        # visibility ray
+        aux = {"rays": (0.0 if reuse else float(n_primary)) + rays_t
+               + rays_s, **diag}
     return ldr, hdr, new_state, aux
 
 

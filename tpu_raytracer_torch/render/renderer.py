@@ -10,18 +10,20 @@ import torch
 from ..ops import gbuffer as gbuffer_ops
 from ..ops import path_trace
 from ..ops import post as post_ops
-from ..utils import rng
+from ..utils import profiling, rng
 
 
 def camera_to_device(camera: dict, device) -> dict:
     """Camera uniform (render/camera.py) -> dict of tensors on `device`;
-    uint32 scalars become int64."""
+    uint32 scalars become int64. A host span, "camera.to_device"
+    (`utils/profiling.py:span`)."""
     out = {}
-    for k, v in camera.items():
-        v = np.asarray(v)
-        if v.dtype == np.uint32:
-            v = v.astype(np.int64)
-        out[k] = torch.as_tensor(v, device=device)
+    with profiling.span("camera.to_device"):
+        for k, v in camera.items():
+            v = np.asarray(v)
+            if v.dtype == np.uint32:
+                v = v.astype(np.int64)
+            out[k] = torch.as_tensor(v, device=device)
     return out
 
 
