@@ -11,10 +11,11 @@ is non-zero):
                 (streamed closest- and any-hit), K4 (instanced closest-
                 and any-hit), K5 (the vpu sweep), K6 (the tensor-core
                 test), K7 (the table gather of the row fetches) and K8
-                (the BVH walk, closest- and any-hit) from
+                (the BVH walk, closest- and any-hit), with K9 (the path
+                tracer's shading) and the stage marks, from
                 tpu_raytracer_torch/csrc/{trace,trace_stream,trace_inst,
-                trace_vpu,trace_mxu,gather,trace_bvh}.cu for sm_90a with
-                one nvcc call.
+                trace_vpu,trace_mxu,gather,trace_bvh,marks,path_trace}.cu
+                for sm_90a with one nvcc call.
   3. K1       - against its plain PyTorch version on the card: Cornell
                 512^2 primary rays and 524,288 random rays (random t_max,
                 30% dead lanes). tri equal on every lane, t bit-equal.
@@ -135,7 +136,7 @@ is non-zero):
                 fps_1080p_flythrough_refit, Mrays/s, the refit's time a
                 frame (on the host in the frame loop, and its device time
                 and kernel launches under torch.profiler over REFIT_REPS
-                refits), launches a frame (K1, K2 and K7;
+                refits), launches a frame (K1, K2, K7 and K9;
                 nothing else), peak memory. Checks:
                 the last refit against a full refit (changed=None) of the
                 same transforms within REFIT_ATOL on tri_planes,
@@ -311,16 +312,36 @@ is non-zero):
                 "bins" ctx captured in a CUDA graph under
                 set_sync_debug_mode("error"), its replay every word equal
                 to the eager frame. Prints the phase's wall time.
+ 29. K9       - run right after the build: the path tracer's shading
+                (csrc/path_trace.cu) against the eager route: both
+                trace_path calls (the temporal candidates and the spatial
+                replay) of the second of two eager ReSTIR frames of the
+                Cornell box and of the knot at PATH_SIZES, spied, each
+                through trace_path_kernel and trace_path_plain on the same
+                CUDA inputs: state and valid_v1 equal on every lane, rays
+                equal, radiance, v1_pos and v1_normal bit-equal on every
+                lane (max abs and ulps printed); K9 launches a frame (2
+                prime, 14 bounce, 2 finish); one call under torch.profiler
+                holds K9_CALL's launches (a session that drops events
+                fails here) and only K9, the trace kernels and the stage
+                mark; K9's device ms a call by launch kind, no less than
+                its bytes bound (K9_*_B a lane, from the queries' live
+                rays, at HBM_PEAK), and the eager route's ms; ptxas's
+                registers and spills for K9's entries. Prints the phase's
+                wall time.
 Every frame phase (5, 6, 8, 10, 11, 14, 15, 18, 19, 20, 22, 23, 24, 25,
 26, 27, 28) also
-checks that K7 launched and prints its launches a frame. Then one JSON
+checks that K7 and K9 launched and prints K7's launches a frame; phase 25
+checks K9's launches a replayed Cornell frame (2 x K9_CALL). Then one JSON
 line of per-kernel results (K1-K6: time, plain time and bound at 524,288
 random rays; K7: at 524,288 rows of Cornell's tri_table; K8: at the big
 scene's 262,144 incoherent rays; launches on each kernel's frames; K1,
 K2 and K7 also their launches a frame on config 4's, each stand-in's,
 the 4-band Cornell and the replayed Cornell frames, and on the replayed
 config 4, 4-band, batched-tap and subdivided Cornell frames, K8 on the
-big scene's and the walked Cornell frames, `launches_per_frame`; K2
+big scene's and the walked Cornell frames, K9 (`path_shade`) by launch
+kind on the replayed Cornell, config 4 and 4-band frames,
+`launches_per_frame`; K2
 also its time, plain time and bound on phase 27's tap stream,
 `tap_stream`), and last the device line {"ok": true, "device":
 {...}}. Without a CUDA device it exits with 1 and prints no result.
@@ -646,7 +667,7 @@ def _run_frames(torch, scene, dev, warmup, timed, name, on, off):
     torch.cuda.synchronize()
     dt = time.time() - t0
     launches = dict(trace_api.LAUNCHES)
-    on = [*on, "table_gather"]
+    on = [*on, "table_gather", *PATH_K9]
     if min(launches[k] for k in on) <= 0 or any(launches[k] for k in off):
         raise AssertionError(f"the {name} frame must launch {on} and none "
                              f"of {off}: {launches}")
@@ -1158,7 +1179,7 @@ def _flythrough_phase(torch, dev, card):
     peak = torch.cuda.max_memory_allocated()
     launches = dict(trace_api.LAUNCHES)
     rays = [float(r) for r in rays]
-    on = ["closest_hit", "any_hit", "table_gather"]
+    on = ["closest_hit", "any_hit", "table_gather", *PATH_K9]
     if min(launches[k] for k in on) <= 0 or any(
             v for k, v in launches.items() if k not in on):
         raise AssertionError(f"config 4 must launch {on} and nothing else: "
@@ -1319,7 +1340,7 @@ def _app_phase(torch, root, dev, card):
             raise AssertionError(f"the app's PNG decodes to {shape}")
         frame_count = checkpoint.load(ck)[1]
         launches = tel["launches"]
-        on = ("closest_hit", "any_hit", "table_gather")
+        on = ("closest_hit", "any_hit", "table_gather", *PATH_K9)
         if not (frame_count == APP_FRAMES == tel["frames"]
                 and min(launches[k] for k in on) > 0 and "fps" in tel):
             raise AssertionError(f"the app: checkpoint frame_count "
@@ -1400,7 +1421,8 @@ def _standins_phase(torch, root, dev, card, kernels):
     tel = json.loads(proc.stdout.strip().splitlines()[-1])
     launches = tel["launches"]
     if not (tel["frames"] == STANDIN_APP_FRAMES
-            and min(launches[k] for k in (*flat, "table_gather")) > 0
+            and min(launches[k]
+                    for k in (*flat, "table_gather", *PATH_K9)) > 0
             and not any(launches[k] for k in others)):
         raise AssertionError(f"the truffle app: telemetry {tel}")
     print(f"stand-in app: python -m tpu_raytracer_torch --scene truffle "
@@ -1473,7 +1495,7 @@ def _walk_phase(torch, dev, card, every, c_first, ptxas):
 
     t_phase = time.time()
     walk = ["bvh_closest_hit", "bvh_any_hit"]
-    others = [k for k in every if k not in walk]
+    others = [k for k in every if k not in (*walk, *PATH_K9)]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     big = big_scene(dev, BIG_SUBDIV, (-0.3, 0.3))
@@ -1588,10 +1610,10 @@ def _walk_phase(torch, dev, card, every, c_first, ptxas):
               f"{bound[0]:.4f} ms ({bound[1]}); {stats_text(steps)} "
               f"[{card}]", flush=True)
     ldrs, c_launches = _first_frames(cornell, dev, len(c_first))
-    if (min(c_launches[k] for k in walk) <= 0
+    if (min(c_launches[k] for k in (*walk, *PATH_K9)) <= 0
             or any(c_launches[k] for k in others)):
         raise AssertionError(f"the walked Cornell frames must launch K8 and "
-                             f"no other trace kernel: {c_launches}")
+                             f"K9 and no other kernel: {c_launches}")
     psnr = min(_psnr(a.numpy(), b.numpy()) for a, b in zip(ldrs, c_first))
     if not psnr >= VPU_DB:
         raise AssertionError(f"walked Cornell frames: PSNR {psnr:.2f} dB "
@@ -1644,7 +1666,7 @@ def _tiles_phase(torch, dev, card, every, c_fps, c_launches):
 
     t_phase = time.time()
     scene = scenes.create_cornell_box(dev)
-    on = ["closest_hit", "any_hit", "table_gather"]
+    on = ["closest_hit", "any_hit", "table_gather", *PATH_K9]
     off = [k for k in every if k not in on]
     frames = WARMUP + TIMED
 
@@ -1937,12 +1959,16 @@ def _graph_phase(torch, dev, card, every):
         raise AssertionError(f"replayed frames launch {g_launches} and count "
                              f"{g_rays} rays; the eager frames {e_launches} "
                              f"and {e_rays}")
-    on = ["closest_hit", "any_hit", "table_gather"]
+    on = ["closest_hit", "any_hit", "table_gather", *PATH_K9]
     if min(g_launches[k] for k in on) <= 0 or any(
             g_launches[k] for k in every if k not in on):
         raise AssertionError(f"the replayed Cornell frames must launch {on} "
                              f"and no other kernel: {g_launches}")
     per_frame = {k: g_launches[k] / frames for k in on}
+    if any(per_frame[k] != 2 * n for k, n in K9_CALL.items()):
+        raise AssertionError(f"the replayed Cornell frames launch K9 "
+                             f"{per_frame}: want 2 trace_path calls of "
+                             f"{K9_CALL} a frame")
     tail = _camera_seq(dev, 2 * GRAPH_PROFILED, scene.num_lights,
                        start=frames)
     profiled = []
@@ -2034,7 +2060,7 @@ def _graph_phase(torch, dev, card, every):
         for u, fc, static_ok in r_seq:
             render(u, fc, static_ok)
         launched = dict(trace_api.LAUNCHES)
-        on = [*on, "table_gather"]
+        on = [*on, "table_gather", *PATH_K9]
         if min(launched[k] for k in on) <= 0 or any(
                 launched[k] for k in every if k not in on):
             raise AssertionError(f"the replayed {what} frames must launch "
@@ -2128,7 +2154,7 @@ def _refit_graph(torch, dev, card, every):
           f"set_sync_debug_mode('error'): no host sync; the caller's scene "
           f"unwritten", flush=True)
 
-    on = ["closest_hit", "any_hit", "table_gather"]
+    on = ["closest_hit", "any_hit", "table_gather", *PATH_K9]
     readings = {}
     for what in ("eager", "replayed"):
         if what == "eager":
@@ -2217,7 +2243,7 @@ def _bands_replayed(torch, dev, card, every, scene, what, devices):
             ("moving camera", _camera_seq(dev, TILE_MOTION_FRAMES,
                                           scene.num_lights,
                                           move_at=TILE_MOVE_AT)))
-    on = ["closest_hit", "any_hit", "table_gather"]
+    on = ["closest_hit", "any_hit", "table_gather", *PATH_K9]
     mesh = tiles.make_mesh(devices)
     scene_r = tiles.replicate(scene, mesh)
     tiled = tiles.make_render_frame_tiled(mesh, WIDTH, HEIGHT)
@@ -2320,7 +2346,7 @@ def _tiled_app(root, card):
                              f"{proc.returncode}: {proc.stderr[-3000:]}")
     tel = json.loads(proc.stdout.strip().splitlines()[-1])
     if min(tel["launches"][k] for k in ("closest_hit", "any_hit",
-                                        "table_gather")) <= 0:
+                                        "table_gather", *PATH_K9)) <= 0:
         raise AssertionError(f"the app with --tiles {TILE_BANDS}: {tel}")
     print(f"graph II: python -m tpu_raytracer_torch --tiles {TILE_BANDS} "
           f"--scale={APP_W}x{APP_H}, {tel['frames']} frames on "
@@ -2443,7 +2469,7 @@ def _tap_batch_phase(torch, dev, card, every):
         runs[what] = (dt, rays, dict(trace_api.LAUNCHES))
     b_launches, s_launches = (runs[k][2] for k in ("batched, replayed",
                                                    "sequential, replayed"))
-    on = ["closest_hit", "any_hit", "table_gather"]
+    on = ["closest_hit", "any_hit", "table_gather", *PATH_K9]
     if min(b_launches[k] for k in on) <= 0 or any(
             b_launches[k] for k in every if k not in on):
         raise AssertionError(f"the batched Cornell frames must launch {on} "
@@ -2655,7 +2681,7 @@ def _mode_frames(torch, scene, dev, seq, what, on, every):
     or leaves one of `on` out."""
     from tpu_raytracer_torch.ops import trace_api
 
-    runs = {}
+    runs, on = {}, [*on, *PATH_K9]
     for m in REORDER_MODES:
         render = _band(scene, dev, WIDTH, HEIGHT, m)
         trace_api.reset_launch_counts()
@@ -2993,6 +3019,262 @@ def _reorder_phase(torch, dev, card, every):
     return c_launches, frames, times, prof
 
 
+PATH_K9 = ("path_prime", "path_bounce", "path_finish")
+# K9's bytes a lane at the least (csrc/path_trace.cu; table rows and
+# texels come from L2 and are not counted): prime, every lane (the
+# G-buffer row and seed in, the lane state, two rays with t_min, the last
+# depth's zeroed shadow ray and the reconnection vertex out); a bounce, a
+# live lane (flags, radiance, RNG, throughput, pdf, its ray and hit, its
+# shadow answer in; its state, NEE term and two rays out), a lane with
+# only a shadow answer pending, and an idle one (its flags); finish, every
+# lane (flags, radiance, RNG in; radiance and state out) and a shadow lane
+# (its NEE term and answer)
+K9_PRIME_B, K9_LIVE_B, K9_SHADOW_B, K9_IDLE_B = 219, 176, 52, 4
+K9_FINISH_B, K9_FINISH_SHADOW_B = 40, 16
+PATH_SIZES = ((1280, 720),)
+# K9's launches a trace_path call, by kind
+K9_CALL = {"path_prime": 1, "path_bounce": 7, "path_finish": 1}
+
+
+def _spied_path_calls(torch, scene, dev, width, height, frames):
+    """The trace_path calls (the temporal candidates, then the spatial
+    replay) of the last of `frames` eager ReSTIR frames of `scene` at
+    width x height (static_ok from the second frame on), each as
+    (gb, view_pos, seed, active, reorder) with its tensors cloned."""
+    from tpu_raytracer_torch.ops import path_trace
+    from tpu_raytracer_torch.render import camera, pipeline, renderer
+
+    real, calls = path_trace.trace_path, []
+
+    def spy(scene_, gb, view_pos, seed, active=None, reorder="none"):
+        calls.append(({k: v.clone() for k, v in gb.items()},
+                      view_pos.clone(), seed.clone(),
+                      None if active is None else active.clone(), reorder))
+        return real(scene_, gb, view_pos, seed, active, reorder)
+
+    cam = camera.CameraController()
+    state = pipeline.init_state(width, height, dev)
+    path_trace.trace_path = spy
+    try:
+        for i in range(frames):
+            calls.clear()
+            uniform = renderer.camera_to_device(
+                cam.uniform(width / height, i, scene.num_lights), dev)
+            _, _, state, _ = pipeline.render_frame(
+                scene, uniform, i, state, width, height, static_ok=i > 0)
+    finally:
+        path_trace.trace_path = real
+    torch.cuda.synchronize()
+    return calls
+
+
+def _k9_queries(torch, scene, call):
+    """K9's call with its queries spied: (outputs, [(live rays of the
+    query's first half, of its second half)] in order; a query of one
+    half gives (its live rays, 0))."""
+    from tpu_raytracer_torch.ops import path_trace
+
+    real, live = path_trace.scene_trace, []
+
+    def spy(scene_, o, d, t_min, t_max, any_hit=False, **kw):
+        r = call[2].shape[0]
+        lv = t_max > 0
+        live.append((int(lv[:r].sum()), int(lv[r:].sum())))
+        return real(scene_, o, d, t_min, t_max, any_hit=any_hit, **kw)
+
+    path_trace.scene_trace = spy
+    try:
+        out = path_trace.trace_path_kernel(scene, *call)
+        torch.cuda.synchronize()
+    finally:
+        path_trace.scene_trace = real
+    return out, live
+
+
+def _k9_bound_ms(r, live, lights):
+    """K9's bytes for one call at HBM_PEAK, from its queries' live rays:
+    bounce d reads what query d - 1 left (live bounce lanes, pending
+    shadow answers)."""
+    nbytes = r * (K9_PRIME_B + K9_FINISH_B)
+    for first, second in live[:-1] if lights else live:
+        shadow, bounce = (first, second) if lights else (0, first)
+        pending = max(shadow - bounce, 0)      # at the least
+        nbytes += bounce * K9_LIVE_B + pending * K9_SHADOW_B \
+            + (r - bounce - pending) * K9_IDLE_B
+    nbytes += (live[-1][0] if lights else 0) * K9_FINISH_SHADOW_B
+    return nbytes / HBM_PEAK * 1e3, nbytes
+
+
+def _k9_diff(torch, got, want):
+    """Per output: (lanes equal in every word, lanes, max abs difference,
+    max ulps)."""
+    out = {}
+    for k in ("radiance", "v1_pos", "v1_normal", "state", "valid_v1"):
+        a, b = got[k], want[k]
+        if a.dtype == torch.float32:
+            bits_a, bits_b = a.view(torch.int32), b.view(torch.int32)
+            same = (bits_a == bits_b) | (a == b)
+            lanes = same.reshape(a.shape[0], -1).all(-1)
+            err = float((a - b).abs().max()) if a.numel() else 0.0
+            ulps = _ulps(a.cpu().numpy(), b.cpu().numpy())
+            ulps = int(np.abs(ulps).max()) if ulps.size else 0
+        else:
+            lanes, err, ulps = a == b, 0.0, 0
+        out[k] = (int(lanes.sum()), a.shape[0], err, ulps)
+    return out
+
+
+def _k9_ptxas():
+    """{kernel: (registers, spill stores, spill loads)} of K9's entries
+    from the build's ptxas lines, when this process built the library."""
+    import re
+
+    from tpu_raytracer_torch.runtime.build import BUILD_LOGS
+
+    out, entry = {}, None
+    for ln in BUILD_LOGS.get("trace_kernels", "").splitlines():
+        if "Compiling entry" in ln:
+            entry = next((k for k in PATH_K9 if k in ln), None)
+        elif entry and "spill stores" in ln:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)
+            out[entry] = (out.get(entry, (0,))[0], int(st), int(ld))
+        elif entry and "registers" in ln:
+            regs = int(re.search(r"Used (\d+) registers", ln).group(1))
+            out[entry] = (regs, *out.get(entry, (0, 0, 0))[1:])
+    return out
+
+
+def _path_kernel_phase(torch, dev, card):
+    """29. K9, the path tracer's shading (csrc/path_trace.cu), against the
+    eager route on the card: both trace_path calls of a Cornell and a
+    knot ReSTIR frame at 1280x720 (spied, the second frame's), through
+    trace_path_kernel and trace_path_plain on the same CUDA inputs;
+    launches a frame, only K9, the trace kernels and the stage mark in a
+    call's device trace, K9 ms a launch beside its bytes bound, the eager
+    route's ms, ptxas."""
+    from tpu_raytracer_torch.models import scenes
+    from tpu_raytracer_torch.ops import path_trace, trace_api
+    from tpu_raytracer_torch.profile_frame import _device_us
+    from tpu_raytracer_torch.render import camera, pipeline, renderer
+    import re
+
+    t_phase = time.time()
+    trace_names = re.compile(r"\b(closest_hit|any_hit|stream|inst|vpu|mxu|"
+                             r"bvh)_kernel\b")
+    ptx = _k9_ptxas()
+    for k, (regs, st, ld) in ptx.items():
+        blocks = 65536 // (((regs * 32 + 255) // 256) * 256 * 4)
+        print(f"K9 ptxas {k}: {regs} registers, {st} B spill stores, {ld} B "
+              f"spill loads; {min(blocks, 16)} blocks of 128 an SM by "
+              f"registers [{card}]", flush=True)
+    results = {}
+    for what, make in (("Cornell", lambda: scenes.create_cornell_box(dev)),
+                       ("knot", lambda: scenes.create_dense_knot_scene(dev))):
+        scene = make()
+        for width, height in PATH_SIZES:
+            r = width * height
+            calls = _spied_path_calls(torch, scene, dev, width, height, 2)
+            if len(calls) != 2:
+                raise AssertionError(f"{what}: {len(calls)} trace_path "
+                                     f"calls in a frame, want 2")
+            for name, call in zip(("candidates", "spatial replay"), calls):
+                got, live = _k9_queries(torch, scene, call)
+                want = path_trace.trace_path_plain(scene, *call)
+                torch.cuda.synchronize()
+                diff = _k9_diff(torch, got, want)
+                if diff["state"][0] != r or diff["valid_v1"][0] != r:
+                    raise AssertionError(f"K9 {what} {name}: state / "
+                                         f"valid_v1 differ: {diff}")
+                if float(got["rays"]) != float(want["rays"]):
+                    raise AssertionError(f"K9 {what} {name}: rays "
+                                         f"{float(got['rays'])} against "
+                                         f"{float(want['rays'])}")
+                for k in ("radiance", "v1_pos", "v1_normal"):
+                    if diff[k][0] != r:
+                        raise AssertionError(f"K9 {what} {name}: {k} "
+                                             f"bit-equal on {diff[k][0]} of "
+                                             f"{r} lanes (max abs "
+                                             f"{diff[k][2]:.3g}, "
+                                             f"{diff[k][3]} ulps)")
+                if len(live) != path_trace.MAX_DEPTH - (
+                        scene.num_lights == 0):
+                    raise AssertionError(f"K9 made {len(live)} queries")
+                bound_ms, nbytes = _k9_bound_ms(r, live,
+                                                scene.num_lights > 0)
+
+                # one call under the profiler: only K9, the trace kernels
+                # and the stage mark, and K9's device time by launch kind
+                acts = [torch.profiler.ProfilerActivity.CUDA]
+                path_trace.trace_path(scene, *call)
+                torch.cuda.synchronize()
+                with torch.profiler.profile(activities=acts) as prof:
+                    path_trace.trace_path(scene, *call)
+                    torch.cuda.synchronize()
+                cuda = torch.autograd.DeviceType.CUDA
+                ms, other = dict.fromkeys(PATH_K9, 0.0), []
+                seen = dict.fromkeys(PATH_K9, 0)
+                for e in prof.key_averages():
+                    if e.device_type != cuda or _device_us(e) <= 0:
+                        continue
+                    kind = next((k for k in PATH_K9 if k in e.key), None)
+                    if kind:
+                        ms[kind] += _device_us(e) / 1e3
+                        seen[kind] += e.count
+                    elif not (trace_names.search(e.key)
+                              or "tpurt_mark_" in e.key):
+                        other.append(e.key)
+                if other:
+                    raise AssertionError(f"K9 {what} {name}: a trace_path "
+                                         f"call ran other device work: "
+                                         f"{other}")
+                k9_ms = sum(ms.values())
+                # a session that drops events reads too few launches, or
+                # less time than the bytes take
+                if seen != K9_CALL or k9_ms < bound_ms:
+                    raise AssertionError(
+                        f"K9 {what} {name}: the profile holds {seen} "
+                        f"launches in {k9_ms:.4f} ms, want {K9_CALL} in "
+                        f"{bound_ms:.4f} ms (the bytes bound) at the least")
+                _, plain_ms = _time_once(torch, lambda: path_trace
+                                         .trace_path_plain(scene, *call))
+                err = max(diff[k][2] for k in ("radiance", "v1_pos",
+                                               "v1_normal"))
+                results[(what, name)] = (k9_ms, bound_ms, plain_ms, err)
+                print(f"K9 {what} {width}x{height} {name}: state and "
+                      f"valid_v1 equal on {r} of {r} lanes, rays "
+                      f"{float(got['rays']):.0f} equal; bit-equal lanes "
+                      + ", ".join(f"{k} {diff[k][0]} (max abs "
+                                  f"{diff[k][2]:.3g}, {diff[k][3]} ulps)"
+                                  for k in ("radiance", "v1_pos",
+                                            "v1_normal"))
+                      + f"; K9 {k9_ms:.3f} ms a call (prime "
+                      f"{ms['path_prime']:.3f}, bounces "
+                      f"{ms['path_bounce']:.3f} over 7, finish "
+                      f"{ms['path_finish']:.3f}), bound {bound_ms:.3f} ms "
+                      f"({nbytes / 1e6:.1f} MB at HBM_PEAK); queries' live "
+                      f"rays {live}; eager route {plain_ms:.2f} ms a call; "
+                      f"no other device work [{card}]", flush=True)
+
+        # launches a frame of the eager frames
+        cam = camera.CameraController()
+        state = pipeline.init_state(*PATH_SIZES[0], dev)
+        trace_api.reset_launch_counts()
+        for i in range(2):
+            uniform = renderer.camera_to_device(
+                cam.uniform(PATH_SIZES[0][0] / PATH_SIZES[0][1], i,
+                            scene.num_lights), dev)
+            _, _, state, _ = pipeline.render_frame(
+                scene, uniform, i, state, *PATH_SIZES[0], static_ok=i > 0)
+        torch.cuda.synchronize()
+        per_frame = {k: trace_api.LAUNCHES[k] / 2 for k in PATH_K9}
+        if per_frame != {k: 2 * n for k, n in K9_CALL.items()}:
+            raise AssertionError(f"K9 launches a {what} frame: {per_frame}")
+        print(f"K9 {what}: {sum(per_frame.values()):.0f} launches a frame "
+              f"{per_frame} [{card}]", flush=True)
+    print(f"phase 29 (K9) took {time.time() - t_phase:.1f} s", flush=True)
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -3022,7 +3304,7 @@ def main() -> int:
     mxu_kernels = ["mxu_closest_hit", "mxu_any_hit"]
     bvh_kernels = ["bvh_closest_hit", "bvh_any_hit"]
     every = (flat_kernels + stream_kernels + inst_kernels + vpu_kernels
-             + mxu_kernels + bvh_kernels)
+             + mxu_kernels + bvh_kernels + list(PATH_K9))
 
     # 2. build
     t0 = time.time()
@@ -3051,6 +3333,11 @@ def main() -> int:
     def plain(o, d, t_min, t_max):
         return trace_api.trace_plain(scene.tri_planes, scene.chunk_aabb,
                                      V3(*o), V3(*d), t_min, t_max)
+
+    # 29. K9, the path tracer's shading, against the eager route: first,
+    # as a process's later torch.profiler sessions can drop events (the
+    # phase checks its launch count and fails on such a session)
+    k9 = _path_kernel_phase(torch, dev, card)
 
     # 3. K1 against plain
     primary = primary_rays(scene)
@@ -3098,7 +3385,7 @@ def main() -> int:
     # 5. frame: the Cornell path
     dt, rays, launches, c_ldrs = _run_frames(
         torch, scene, dev, WARMUP, TIMED, "Cornell", on=flat_kernels,
-        off=[k for k in every if k not in flat_kernels])
+        off=[k for k in every if k not in (*flat_kernels, *PATH_K9)])
     c_fps = TIMED / dt                            # for phase 24
     print("frame: " + _frame_line("Cornell ReSTIR", TIMED, dt, rays,
                                   launches, card, WARMUP + TIMED),
@@ -3648,7 +3935,7 @@ def main() -> int:
         s = scenes.create_cornell_box(dev, kernel=kernel, incull=incull)
         dt, rays, m_launches, ldrs = _run_frames(
             torch, s, dev, MODE_WARMUP, MODE_TIMED, f"Cornell {mode}", on=on,
-            off=[k for k in every if k not in on])
+            off=[k for k in every if k not in (*on, *PATH_K9)])
         p = _psnr(ldrs[-1].cpu().numpy(), ldr_default)
         if not p >= floor:
             raise AssertionError(f"Cornell {mode} frame: PSNR {p:.2f} dB "
@@ -3699,7 +3986,8 @@ def main() -> int:
     # 22. the procedural glTF stand-ins and the truffle app
     standins = _standins_phase(
         torch, root, dev, card,
-        (flat_kernels, [k for k in every if k not in flat_kernels]))
+        (flat_kernels, [k for k in every if k not in (*flat_kernels,
+                                                      *PATH_K9)]))
 
     # 23. the BVH walk: K8 past the cap and on the Cornell box forced to it
     k8, w_launches, w_frames, cw_launches, cw_frames = _walk_phase(
@@ -3721,6 +4009,7 @@ def main() -> int:
 
     # 28. the ray-stream reorder through render_band's ctx
     ro_launches, ro_frames, _, _ = _reorder_phase(torch, dev, card, every)
+
 
     n = TIMED_RAYS[-1]
 
@@ -3820,6 +4109,25 @@ def main() -> int:
                "Cornell brute_max=1": cw_launches[f"bvh_{q}_hit"]
                / cw_frames}}
           for q, a in (("closest", False), ("any", True))),
+        {"name": "path_shade", "route": "cuda",
+         "source": "tpu_raytracer_torch/csrc/path_trace.cu",
+         "replaces": None,
+         "note": "K9 replaces no TPU kernel: the reference's path tracer "
+                 "is XLA elementwise code; plain_ms is the port's eager "
+                 "route, trace_path_plain, on the card",
+         "launches": sum(launches[k] for k in PATH_K9),
+         "launches_per_frame": {
+             what: {k: v[k] / f for k in PATH_K9}
+             for what, (v, f) in (
+                 ("replayed Cornell (CUDA graph)", (gr_launches, gr_frames)),
+                 ("replayed config 4", (gf_launches, gf_frames)),
+                 ("replayed tiled Cornell (4 bands)",
+                  (gt_launches, gt_frames)))},
+         "max_abs_err": max(v[3] for v in k9.values()),
+         "ms": k9[("Cornell", "candidates")][0],
+         "plain_ms": k9[("Cornell", "candidates")][2],
+         "bound_ms": k9[("Cornell", "candidates")][1], "bound_by": "bytes",
+         "library_ms": None},
         {"name": "table_gather", "route": "cuda",
          "source": "tpu_raytracer_torch/csrc/gather.cu",
          "replaces": "tpu_raytracer/ops/pallas_gather.py:51",

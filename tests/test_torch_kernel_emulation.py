@@ -91,6 +91,9 @@ def _build(out, names, defines=()):
         "tpurt_bvh_closest_hit": [ptr] * 7 + [i32] * 2 + [ptr] * 3,
         "tpurt_bvh_any_hit": [ptr] * 7 + [i32] * 2 + [ptr] * 3,
         "tpurt_mark": [i32, ptr, i32, ptr],
+        "tpurt_path_prime": [ptr] * 2,
+        "tpurt_path_bounce": [ptr, i32, ptr],
+        "tpurt_path_finish": [ptr] * 2,
     }
     for name, argtypes in signatures.items():
         if hasattr(lib, name):

@@ -16,6 +16,21 @@ CUDA graph (`render/graph.py`); the reference leaves its loop once every
 lane is dead, which changes no result (dead lanes draw no RNG and add
 nothing).
 
+Route by device, as every kernel of the port:
+  - CPU tensors: `trace_path_plain`, the eager PyTorch version below;
+  - CUDA tensors: kernel K9 (`csrc/path_trace.cu`, `trace_path_kernel`),
+    or the call raises. The same queries go through `scene_trace` (the
+    trace kernels); K9 does all the shading around them, in 9 launches a
+    call: `prime` (depth 0), `bounce` after each of the 7 queries of
+    depths 1-7, and `finish` after the last depth's any-hit query. The
+    launches are counted in `trace_api.LAUNCHES` ("path_prime",
+    "path_bounce", "path_finish").
+K9 reproduces the eager version's arithmetic on the card op for op (f32,
+the same order and constants, a tensor over a Python float as PyTorch's
+CUDA kernel computes it, a product with the f32 reciprocal), the RNG
+draws in its order and count, the zero terms it adds to dead lanes, and
+`rays` as its f32 sum of exact per-depth counts.
+
 Reference quirks kept (they define the target radiance):
   * the bounce loop's `is_specular` reuses the PRIMARY surface's glass
     flag (restir.wgsl:705 uses `is_glass` from :554);
@@ -28,6 +43,8 @@ Reference quirks kept (they define the target radiance):
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..scene.material import NO_TEXTURE
@@ -38,7 +55,7 @@ from . import lights as light_ops
 from . import textures
 from .hit import (apply_normal_map, gather_light, gather_material,
                   reconstruct_hit)
-from .trace_api import scene_occluded, scene_trace
+from .trace_api import count_launch, load_kernels, scene_occluded, scene_trace
 
 MAX_DEPTH = 8          # restir.wgsl:5
 RR_START_DEPTH = 3     # restir.wgsl:593
@@ -151,7 +168,8 @@ def trace_path(scene, gb, view_pos, seed, active=None,
                reorder: str = "none"):
     """Trace one candidate path per lane from the G-buffer surface, as
     the frame's stage "path_trace" (`utils/profiling.py:stage`), which
-    nests in its caller's.
+    nests in its caller's: `trace_path_plain` on CPU tensors, K9
+    (`trace_path_kernel`) on CUDA tensors.
 
     gb: flat G-buffer dict (valid, pos [R,3], oct_normal, uv, albedo,
     mat_id); view_pos: [3] camera position; seed: [R] int64 path seeds
@@ -166,10 +184,16 @@ def trace_path(scene, gb, view_pos, seed, active=None,
     lane's final RNG state.
     """
     with profiling.stage("path_trace"):
-        return _trace_path(scene, gb, view_pos, seed, active, reorder)
+        if gb["pos"].device.type == "cpu":
+            return trace_path_plain(scene, gb, view_pos, seed, active,
+                                    reorder)
+        return trace_path_kernel(scene, gb, view_pos, seed, active, reorder)
 
 
-def _trace_path(scene, gb, view_pos, seed, active, reorder: str):
+def trace_path_plain(scene, gb, view_pos, seed, active=None,
+                     reorder: str = "none"):
+    """`trace_path` in eager PyTorch ops, on any device: the CPU route,
+    and on the card the yardstick K9 is held to."""
     r = gb["pos"].shape[0]
     device = gb["pos"].device
     num_lights = scene.num_lights
@@ -341,3 +365,168 @@ def _trace_path(scene, gb, view_pos, seed, active, reorder: str):
         "rays": ray_count,
         "state": state,
     }
+
+
+# ---------------------------------------------------------------------------
+# K9 (CUDA tensors)
+# ---------------------------------------------------------------------------
+
+# scene.tex_channels as K9's bit mask (csrc/path_trace.cu: TEX_*)
+TEX_BITS = {"color": 1, "occlusion": 2, "normal": 4, "emissive": 8,
+            "metallic_roughness": 16}
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+
+
+class PathArgs(ctypes.Structure):
+    """csrc/path_trace.cu:PathArgs, field for field."""
+    _fields_ = [
+        *((n, _P) for n in ("tri_table", "inst_table", "mat_table",
+                            "light_table", "color_tex", "data_tex")),
+        *((n, _I) for n in ("tri_cols", "inst_cols", "mat_cols",
+                            "light_cols", "n_inst", "n_mat", "n_light",
+                            "num_lights", "c_layers", "c_h", "c_w",
+                            "d_layers", "d_h", "d_w", "tex", "instanced",
+                            "R", "N")),
+        ("inv_lights", _F),
+        *((n, _P) for n in ("gb_pos", "gb_oct", "gb_uv", "gb_albedo",
+                            "gb_mat", "gb_valid", "mask", "seed", "view")),
+        *((n, _L) for n in ("pos_s0", "pos_s1", "oct_s0", "oct_s1", "uv_s0",
+                            "uv_s1", "alb_s0", "alb_s1", "mat_s", "valid_s",
+                            "mask_s", "seed_s", "view_s")),
+        *((n, _P) for n in ("rng", "flags", "thr", "acc", "nee", "pdf",
+                            "ray_o", "ray_d", "t_min", "t_max", "hit_t",
+                            "hit_tri", "hit_inst", "so", "sd", "s_tmax",
+                            "occ", "radiance", "valid_v1", "v1_pos",
+                            "v1_normal", "state", "rays", "counts")),
+    ]
+
+
+def _table(t, name):
+    """(pointer, rows, cols) of a scene table as K9 reads it."""
+    if t.dim() != 2 or t.dtype != torch.float32 or not t.is_contiguous():
+        raise ValueError(f"{name}: want a contiguous f32 [rows, cols] table, "
+                         f"got {t.dtype} {tuple(t.shape)}")
+    return t.data_ptr(), t.shape[0], t.shape[1]
+
+
+def _texture(t, name):
+    """(pointer, layers, height, width) of a texture array."""
+    if t.dim() != 4 or t.shape[3] != 3 or t.dtype != torch.bfloat16 \
+            or not t.is_contiguous():
+        raise ValueError(f"{name}: want a contiguous bf16 [L, H, W, 3] "
+                         f"array, got {t.dtype} {tuple(t.shape)}")
+    return t.data_ptr(), t.shape[0], t.shape[1], t.shape[2]
+
+
+def trace_path_kernel(scene, gb, view_pos, seed, active=None,
+                      reorder: str = "none"):
+    """`trace_path` on CUDA tensors: K9's 9 launches around the same
+    queries as the eager version's (`scene_trace`, `reorder` as there),
+    each counted in `trace_api.LAUNCHES`. The scene's tables and textures,
+    gb, view_pos, seed and active must lie on one CUDA device; raises on
+    anything else."""
+    device = gb["pos"].device
+    if device.type != "cuda":
+        raise ValueError(f"trace_path_kernel needs CUDA tensors, got {device}")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        return run_k9(load_kernels(), stream, count_launch, scene, gb,
+                      view_pos, seed, active, reorder)
+
+
+def run_k9(lib, stream, launched, scene, gb, view_pos, seed, active,
+           reorder: str):
+    """K9's launches from `lib` on `stream` (a handle, or None for the
+    host emulation of the tests), `launched(name)` after each. Lane state
+    lives in SoA buffers allocated once a call; nothing is read back to
+    the host, so the call captures into a CUDA graph."""
+    device = gb["pos"].device
+    r = gb["pos"].shape[0]
+    if r >= 2 ** 30:
+        raise ValueError(f"{r} lanes exceed K9's int32 columns")
+    f32, i32 = torch.float32, torch.int32
+    lights = scene.num_lights > 0
+    n = 2 * r if lights else r
+
+    def empty(*shape, dtype=f32):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    def launch(fn, name, *extra):
+        err = fn(ctypes.addressof(args), *extra, stream)
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        launched(name)
+
+    for t in (scene.tri_table, scene.mat_table, scene.light_table,
+              scene.inst_table, scene.color_tex, scene.data_tex):
+        if t.device != device:
+            raise ValueError(f"the scene lies on {t.device}, the lanes on "
+                             f"{device}")
+    tri, _, tri_cols = _table(scene.tri_table, "tri_table")
+    mat, n_mat, mat_cols = _table(scene.mat_table, "mat_table")
+    light, n_light, light_cols = _table(scene.light_table, "light_table")
+    inst, n_inst, inst_cols = _table(scene.inst_table, "inst_table")
+    if n_mat == 0 or n_light == 0 or (scene.instanced and n_inst == 0):
+        raise ValueError("K9 needs tables of at least one row")
+    ctex, c_layers, c_h, c_w = _texture(scene.color_tex, "color_tex")
+    dtex, d_layers, d_h, d_w = _texture(scene.data_tex, "data_tex")
+    args = PathArgs(
+        tri_table=tri, inst_table=inst, mat_table=mat, light_table=light,
+        color_tex=ctex, data_tex=dtex, tri_cols=tri_cols,
+        inst_cols=inst_cols, mat_cols=mat_cols, light_cols=light_cols,
+        n_inst=n_inst, n_mat=n_mat, n_light=n_light,
+        num_lights=scene.num_lights, c_layers=c_layers, c_h=c_h, c_w=c_w,
+        d_layers=d_layers, d_h=d_h, d_w=d_w,
+        tex=sum(TEX_BITS[c] for c in scene.tex_channels),
+        instanced=int(scene.instanced), R=r, N=n,
+        inv_lights=1.0 / max(scene.num_lights, 1))
+
+    # the call's inputs, read in place through their element strides
+    seed = seed.to(torch.int64)
+    for field, x, dtype, shape, strides in (
+            ("gb_pos", gb["pos"], f32, (r, 3), ("pos_s0", "pos_s1")),
+            ("gb_oct", gb["oct_normal"], f32, (r, 2), ("oct_s0", "oct_s1")),
+            ("gb_uv", gb["uv"], f32, (r, 2), ("uv_s0", "uv_s1")),
+            ("gb_albedo", gb["albedo"], f32, (r, 3), ("alb_s0", "alb_s1")),
+            ("gb_mat", gb["mat_id"], i32, (r,), ("mat_s",)),
+            ("gb_valid", gb["valid"], torch.bool, (r,), ("valid_s",)),
+            ("seed", seed, torch.int64, (r,), ("seed_s",)),
+            ("view", view_pos, f32, (3,), ("view_s",)),
+            ("mask", active, torch.bool, (r,), ("mask_s",))):
+        if x is None:           # no mask: every lane
+            continue
+        if x.device != device or x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"{field}: want {dtype} {shape} on {device}, "
+                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+        setattr(args, field, x.data_ptr())
+        for name, stride in zip(strides, x.stride()):
+            setattr(args, name, stride)
+
+    # lane state, the queries' rays and the outputs
+    bufs = {"rng": empty(r, dtype=i32), "flags": empty(r, dtype=i32),
+            "thr": empty(3, r), "acc": empty(3, r), "nee": empty(3, r),
+            "pdf": empty(r), "ray_o": empty(3, n), "ray_d": empty(3, n),
+            "t_min": empty(n), "t_max": empty(n), "so": empty(3, r),
+            "sd": empty(3, r), "s_tmax": empty(r),
+            "counts": empty(2 * MAX_DEPTH, dtype=i32)}
+    out = {"radiance": empty(r, 3), "valid_v1": empty(r, dtype=torch.bool),
+           "v1_pos": empty(r, 3), "v1_normal": empty(r, 3),
+           "rays": empty(), "state": empty(r, dtype=torch.int64)}
+    for k, v in {**bufs, **out}.items():
+        setattr(args, k, v.data_ptr())
+
+    launch(lib.tpurt_path_prime, "path_prime")
+    for depth in range(1, MAX_DEPTH):
+        res = scene_trace(scene, bufs["ray_o"], bufs["ray_d"], bufs["t_min"],
+                          bufs["t_max"], reorder=reorder)
+        args.hit_t = res["t"].data_ptr()
+        args.hit_tri = res["tri"].data_ptr()
+        args.hit_inst = res["inst"].data_ptr() if scene.instanced else None
+        launch(lib.tpurt_path_bounce, "path_bounce", depth)
+    if lights:
+        occ = scene_trace(scene, bufs["so"], bufs["sd"], bufs["t_min"][:r],
+                          bufs["s_tmax"], any_hit=True, reorder=reorder)
+        args.occ = occ["tri"].data_ptr()
+    launch(lib.tpurt_path_finish, "path_finish")
+    return out

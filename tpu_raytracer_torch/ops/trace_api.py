@@ -83,7 +83,8 @@ _MODE = re.compile(r"(mxuf|mxuv|mxuw)([1-9][0-9]*)?|mxu[13]|vpu")
 LAUNCHES = {"closest_hit": 0, "any_hit": 0, "inst_closest_hit": 0,
             "inst_any_hit": 0, "stream_closest_hit": 0, "stream_any_hit": 0,
             "vpu_closest_hit": 0, "mxu_closest_hit": 0, "mxu_any_hit": 0,
-            "table_gather": 0, "bvh_closest_hit": 0, "bvh_any_hit": 0}
+            "table_gather": 0, "bvh_closest_hit": 0, "bvh_any_hit": 0,
+            "path_prime": 0, "path_bounce": 0, "path_finish": 0}
 
 
 # row bands (parallel/tiles.py) launch from one thread each
@@ -327,7 +328,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-Xptxas", "-v"]
 KERNEL_SOURCES = ("trace.cu", "trace_stream.cu", "trace_inst.cu",
                   "trace_vpu.cu", "trace_mxu.cu", "gather.cu",
-                  "trace_bvh.cu", "marks.cu")
+                  "trace_bvh.cu", "marks.cu", "path_trace.cu")
 
 
 def _nvcc() -> str:
@@ -343,8 +344,10 @@ def load_kernels() -> ctypes.CDLL:
     """Build the traversal kernels K1, K2 (`csrc/trace.cu`), K3
     (`csrc/trace_stream.cu`), K4 (`csrc/trace_inst.cu`), K5
     (`csrc/trace_vpu.cu`), K6 (`csrc/trace_mxu.cu`) and K8 (the BVH walk,
-    `csrc/trace_bvh.cu`, wrapped by `ops/traversal.py`) and the table
-    gather K7 (`csrc/gather.cu`, wrapped by `ops/table_gather.py`), with
+    `csrc/trace_bvh.cu`, wrapped by `ops/traversal.py`), the table
+    gather K7 (`csrc/gather.cu`, wrapped by `ops/table_gather.py`) and the
+    path tracer's shading K9 (`csrc/path_trace.cu`, wrapped by
+    `ops/path_trace.py`), with
     the frame's stage marks (`csrc/marks.cu`, launched by
     `utils/profiling.py:stage`), into one library with one nvcc call for
     sm_90a (at first use, cached by source hash) and bind them. Once per
@@ -377,6 +380,11 @@ def load_kernels() -> ctypes.CDLL:
         fn.argtypes = [ptr] * 7 + [i32] * 2 + [ptr] * 3
     lib.tpurt_mark.restype = i32
     lib.tpurt_mark.argtypes = [i32, ptr, i32, ptr]
+    for fn, args in ((lib.tpurt_path_prime, [ptr] * 2),
+                     (lib.tpurt_path_bounce, [ptr, i32, ptr]),
+                     (lib.tpurt_path_finish, [ptr] * 2)):
+        fn.restype = i32
+        fn.argtypes = args
     return lib
 
 
@@ -460,11 +468,23 @@ REORDERS = ("none", "live", "bins")
 PERMUTED_ROUTES = ("swept", "stream", "vpu", "mxu")
 
 
-def scene_trace(scene, ray_o: V3, ray_d: V3, t_min, t_max, any_hit=False,
+def _rows(v) -> V3:
+    """A V3 of [R] components, or the rows of a [3, R] tensor as one."""
+    return V3(*v.unbind(0)) if isinstance(v, torch.Tensor) else v
+
+
+def _stacked(v):
+    """A [3, R] tensor, or a V3's components stacked into one."""
+    return v if isinstance(v, torch.Tensor) else torch.stack(list(v))
+
+
+def scene_trace(scene, ray_o, ray_d, t_min, t_max, any_hit=False,
                 active=None, reorder: str = "none"):
     """Closest-hit (or, with `any_hit`, occlusion) query.
 
-    ray_o/ray_d: V3s of [R] components; t_min/t_max: scalars or [R];
+    ray_o/ray_d: V3s of [R] components, or contiguous [3, R] tensors,
+    which the kernels read as they are (the path tracer's K9 writes its
+    rays so); t_min/t_max: scalars or [R];
     active: optional [R] bool (inactive lanes are dead: t_max = 0).
     reorder: "none" keeps the caller's order; "live" and "bins" permute
     the stream of a route in PERMUTED_ROUTES before the trace and restore
@@ -473,8 +493,8 @@ def scene_trace(scene, ray_o: V3, ray_d: V3, t_min, t_max, any_hit=False,
     lane's (t, triangle id) minimum, whatever the lanes beside it."""
     if reorder not in REORDERS:
         raise ValueError(f"reorder={reorder!r}: want one of {REORDERS}")
-    device = ray_o.x.device
-    r = ray_o.x.shape[0]
+    x = _rows(ray_o).x
+    device, r = x.device, x.shape[0]
     t_min = _lanes(t_min, r, device)
     t_max = _lanes(t_max, r, device)
     if active is not None:
@@ -486,20 +506,23 @@ def scene_trace(scene, ray_o: V3, ray_d: V3, t_min, t_max, any_hit=False,
     if reorder != "none" and name in PERMUTED_ROUTES and r:
         src, dest = compaction.permutation(reorder, ray_d, t_max)
         res = _route(scene, name, grp, passes, any_hit,
-                     V3(*(x[src] for x in ray_o)),
-                     V3(*(x[src] for x in ray_d)), t_min[src], t_max[src])
+                     V3(*(x[src] for x in _rows(ray_o))),
+                     V3(*(x[src] for x in _rows(ray_d))), t_min[src],
+                     t_max[src])
         return {k: v[dest] for k, v in res.items()}
     return _route(scene, name, grp, passes, any_hit, ray_o, ray_d, t_min,
                   t_max)
 
 
-def _route(scene, name, grp, passes, any_hit, ray_o: V3, ray_d: V3, t_min,
-           t_max):
+def _route(scene, name, grp, passes, any_hit, ray_o, ray_d, t_min, t_max):
     """The query on route `name` (trace_route's, or "instanced") with the
-    window (t_min, t_max) as [R] tensors."""
+    rays as V3s or [3, R] tensors and the window (t_min, t_max) as [R]
+    tensors."""
     # imported here: these modules build on this one
     from . import trace_inst, trace_mxu, trace_vpu, traversal
-    device = ray_o.x.device
+    device = t_max.device
+    if device.type == "cpu":
+        ray_o, ray_d = _rows(ray_o), _rows(ray_d)
     if name == "bvh":
         bvh = (scene.bvh_rec, scene.bvh_skip, scene.bvh_tri)
         if device.type == "cpu":
@@ -507,8 +530,8 @@ def _route(scene, name, grp, passes, any_hit, ray_o: V3, ray_d: V3, t_min,
                                         any_hit=any_hit)
             return {"t": res["t"], "tri": res["tri"]}
         return traversal.trace_bvh_kernel(
-            *bvh, torch.stack(list(ray_o)), torch.stack(list(ray_d)),
-            t_min.contiguous(), t_max.contiguous(), any_hit=any_hit)
+            *bvh, _stacked(ray_o), _stacked(ray_d), t_min.contiguous(),
+            t_max.contiguous(), any_hit=any_hit)
     if name == "vpu":
         return trace_vpu.trace_vpu(scene.tri_planes, scene.chunk_aabb, ray_o,
                                    ray_d, t_min, t_max)
@@ -524,8 +547,7 @@ def _route(scene, name, grp, passes, any_hit, ray_o: V3, ray_d: V3, t_min,
                 ray_d, t_min, t_max)
         return trace_plain(scene.tri_planes, scene.chunk_aabb, ray_o, ray_d,
                            t_min, t_max)
-    o = torch.stack([ray_o.x, ray_o.y, ray_o.z])
-    d = torch.stack([ray_d.x, ray_d.y, ray_d.z])
+    o, d = _stacked(ray_o), _stacked(ray_d)
     t_min, t_max = t_min.contiguous(), t_max.contiguous()
     if scene.instanced:
         return trace_inst.trace_instanced_kernel(
@@ -540,7 +562,7 @@ def _route(scene, name, grp, passes, any_hit, ray_o: V3, ray_d: V3, t_min,
                         t_max, any_hit=any_hit)
 
 
-def scene_occluded(scene, ray_o: V3, ray_d: V3, t_min, t_max, active=None,
+def scene_occluded(scene, ray_o, ray_d, t_min, t_max, active=None,
                    reorder: str = "none"):
     res = scene_trace(scene, ray_o, ray_d, t_min, t_max, any_hit=True,
                       active=active, reorder=reorder)

@@ -30,8 +30,8 @@ from ..utils.vec3 import V3
 from . import worklist
 from .intersect import INF, MT_EPS, cross, dot, safe_inv_dir
 from .trace_api import (BRUTE_FORCE_MAX_TRIS, CT, INCULL_MAX_CHUNKS,
-                        MXU_MAX_TP, MXUW_GROUP, _check, count_launch,
-                        load_kernels, slab_pass, trace_route)
+                        MXU_MAX_TP, MXUW_GROUP, _check, _stacked,
+                        count_launch, load_kernels, slab_pass, trace_route)
 
 # K6's capacities (csrc/trace_mxu.cu): the routes' largest tables in
 # chunks, and the in-kernel cull's in groups of 2
@@ -304,21 +304,21 @@ def mxu_kernel(table, chunk_aabb, o, d, t_min, t_max, grp, passes,
     return {"t": t_out, "tri": tri_out}
 
 
-def trace_mxu(table, chunk_aabb, o: V3, d: V3, t_min, t_max, grp: int,
+def trace_mxu(table, chunk_aabb, o, d, t_min, t_max, grp: int,
               passes: int = 3, incull: bool = False, any_hit: bool = False):
     """One query of a K6 route: the plain version over `lane_chunks` on
     CPU tensors, K6 on CUDA tensors (it launches or raises). A lane tests
     the chunks whose boxes its window passes (`mxu3`, `mxu1`, `mxuw[N]`),
     or with `incull` the chunks of the groups of grp whose union box it
     passes. Any-hit is served only by the in-kernel cull, as in the
-    reference's routes."""
+    reference's routes. o, d: V3s, or [3, R] tensors on a CUDA device."""
     if table is None:
         raise ValueError("the scene carries no coefficient table for K6: "
                          "build it under a mode whose route takes K6")
-    if o.x.device.type == "cpu":
+    if t_max.device.type == "cpu":
         chunks = lane_chunks(chunk_aabb, grp, incull, o, d, t_min, t_max)
         return trace_mxu_plain(table, chunks, o, d, t_min, t_max, passes,
                                any_hit)
-    return mxu_kernel(table, chunk_aabb, torch.stack(list(o)),
-                      torch.stack(list(d)), t_min.contiguous(),
-                      t_max.contiguous(), grp, passes, incull, any_hit)
+    return mxu_kernel(table, chunk_aabb, _stacked(o), _stacked(d),
+                      t_min.contiguous(), t_max.contiguous(), grp, passes,
+                      incull, any_hit)

@@ -22,8 +22,8 @@ import torch
 from ..utils.vec3 import V3
 from . import trace_stream, worklist
 from .intersect import INF
-from .trace_api import (CT, MXUF_MAX_TP, SWEPT_MAX_UNITS, launch_sweep,
-                        mt_argmin)
+from .trace_api import (CT, MXUF_MAX_TP, SWEPT_MAX_UNITS, _stacked,
+                        launch_sweep, mt_argmin)
 
 BLOCK = 128       # rays per block of the plain version's worklists
 
@@ -85,13 +85,13 @@ def vpu_worklists(chunk_aabb, o: V3, d: V3, t_min, t_max):
     return counts, chunk_list
 
 
-def trace_vpu(tri_planes, chunk_aabb, o: V3, d: V3, t_min, t_max):
+def trace_vpu(tri_planes, chunk_aabb, o, d, t_min, t_max):
     """The `vpu` route's query: on CPU tensors `vpu_worklists` and the
-    plain version, on CUDA tensors K5 alone (it launches or raises)."""
-    if o.x.device.type == "cpu":
+    plain version, on CUDA tensors K5 alone (it launches or raises). o, d:
+    V3s, or [3, R] tensors on a CUDA device."""
+    if t_max.device.type == "cpu":
         counts, chunk_list = vpu_worklists(chunk_aabb, o, d, t_min, t_max)
         return trace_vpu_plain(tri_planes, counts, chunk_list, o, d, t_min,
                                t_max)
-    return vpu_kernel(tri_planes, chunk_aabb, torch.stack(list(o)),
-                      torch.stack(list(d)), t_min.contiguous(),
-                      t_max.contiguous())
+    return vpu_kernel(tri_planes, chunk_aabb, _stacked(o), _stacked(d),
+                      t_min.contiguous(), t_max.contiguous())
