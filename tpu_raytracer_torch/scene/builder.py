@@ -21,7 +21,7 @@ from ..ops.trace_api import (BRUTE_FORCE_MAX_TRIS, MXUF_MAX_TP, check_mode,
                               pack_triangles)
 from ..ops.trace_inst import GROUP, INST_COLS, pack_triangles_instanced
 from ..ops.trace_mxu import mode_table
-from ..utils import math3d
+from ..utils import math3d, profiling
 from ..utils.resample import resize_u8
 from . import light as light_mod
 from .geometry import Mesh
@@ -149,6 +149,7 @@ def _prep_texture(img: np.ndarray, srgb: bool) -> np.ndarray:
         u8 = (np.clip(img, 0, 1) * 255).astype(np.uint8)
         img = resize_u8(u8, TEXTURE_SIZE, TEXTURE_SIZE,
                         "lanczos").astype(np.float32) / 255.0
+        profiling.SETUP["texture_resizes"] += 1
     return img
 
 
@@ -203,11 +204,13 @@ class SceneBuilder:
         return len(self.instances) - 1
 
     def add_color_texture(self, img: np.ndarray, srgb: bool = True) -> int:
-        self.color_textures.append(_prep_texture(img, srgb=srgb))
+        with profiling.setup_span("texture_prep"):
+            self.color_textures.append(_prep_texture(img, srgb=srgb))
         return len(self.color_textures) - 1
 
     def add_data_texture(self, img: np.ndarray) -> int:
-        self.data_textures.append(_prep_texture(img, srgb=False))
+        with profiling.setup_span("texture_prep"):
+            self.data_textures.append(_prep_texture(img, srgb=False))
         return len(self.data_textures) - 1
 
     def add_quad_light(self, position, u, v, emission) -> int:

@@ -10,7 +10,9 @@ profiler trace; `profile_frame.py` traces a frame with torch.profiler).
     each stage of its last replay without a profiler,
   * `span`: host spans of the frame call, on the clock a
     `torch.profiler` trace uses (`time.time_ns`), kept in `SPANS` while
-    a profiler runs and nowhere otherwise.
+    a profiler runs and nowhere otherwise,
+  * `SETUP`: set-up steps that run once, always recorded: host seconds
+    summed over the process (`setup_span`) and counts.
 """
 
 from __future__ import annotations
@@ -228,3 +230,24 @@ def span(name: str, **tags):
     if not _profiler._is_profiler_enabled:
         return _OFF
     return _Open(name, tags)
+
+
+# ---------------------------------------------------------------------------
+# Set-up record
+# ---------------------------------------------------------------------------
+
+# Set-up runs once, so its record is always kept, summed over the process:
+#   texture_prep      host seconds of the scene builder's texture
+#                     preparation (`scene/builder.py:_prep_texture`)
+#   texture_resizes   images that preparation Lanczos-resized
+SETUP = {"texture_prep": 0.0, "texture_resizes": 0}
+
+
+@contextlib.contextmanager
+def setup_span(name: str):
+    """Adds the block's host seconds to SETUP[name]."""
+    start = time.perf_counter()
+    try:
+        yield
+    finally:
+        SETUP[name] = SETUP.get(name, 0.0) + time.perf_counter() - start
