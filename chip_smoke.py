@@ -329,9 +329,24 @@ is non-zero):
                 rays, at HBM_PEAK), and the eager route's ms; ptxas's
                 registers and spills for K9's entries. Prints the phase's
                 wall time.
+ 30. K10      - run after phase 29: the post pass (csrc/post.cu) against
+                the eager route (post_process_plain on the card) on live
+                post_process arguments of a Cornell and a truffle
+                1280x720 still frame, a Cornell 1920x1080 frame under a
+                moving camera (its counter 0, and 5 for the clipped-history
+                branch) and every band of a 4-band split (halo 16) of the
+                still and the moving frame: every ldr and accum word
+                equal (max abs and ulps printed), one "post" launch a
+                call; the still frame's bands together equal to its
+                one-device call; one call under torch.profiler holds K10
+                alone; K10's ms (CUDA events) beside its bytes bound
+                (K10_PX_B a pixel at HBM_PEAK) and the eager route's;
+                ptxas and cudaOccupancyMaxActiveBlocksPerMultiprocessor;
+                "post" launches a replayed frame, 1 on one device and 4
+                on 4 bands.
 Every frame phase (5, 6, 8, 10, 11, 14, 15, 18, 19, 20, 22, 23, 24, 25,
 26, 27, 28) also
-checks that K7 and K9 launched and prints K7's launches a frame; phase 25
+checks that K7, K9 and K10 launched and prints K7's launches a frame; phase 25
 checks K9's launches a replayed Cornell frame (2 x K9_CALL). Then one JSON
 line of per-kernel results (K1-K6: time, plain time and bound at 524,288
 random rays; K7: at 524,288 rows of Cornell's tri_table; K8: at the big
@@ -340,7 +355,7 @@ K2 and K7 also their launches a frame on config 4's, each stand-in's,
 the 4-band Cornell and the replayed Cornell frames, and on the replayed
 config 4, 4-band, batched-tap and subdivided Cornell frames, K8 on the
 big scene's and the walked Cornell frames, K9 (`path_shade`) by launch
-kind on the replayed Cornell, config 4 and 4-band frames,
+kind on the replayed Cornell, config 4 and 4-band frames, K10 (`post`),
 `launches_per_frame`; K2
 also its time, plain time and bound on phase 27's tap stream,
 `tap_stream`), and last the device line {"ok": true, "device":
@@ -525,6 +540,26 @@ def _time_once(torch, fn):
     return out, start.elapsed_time(end)
 
 
+def _profile_call(torch, fn):
+    """The card's operations in one call of fn, as torch.profiler's
+    key_averages() entries: the session runs fn once as its warm-up step,
+    whose events it drops, and records the second call alone. A session's
+    first call can lose its first kernel's event; the warm-up step takes
+    that loss. The steps' own annotations are no device work and are left
+    out."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    cuda = torch.autograd.DeviceType.CUDA
+    return [e for e in prof.key_averages() if e.device_type == cuda
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def _nbytes(*tensors):
     return sum(x.numel() * x.element_size() for x in tensors)
 
@@ -667,7 +702,7 @@ def _run_frames(torch, scene, dev, warmup, timed, name, on, off):
     torch.cuda.synchronize()
     dt = time.time() - t0
     launches = dict(trace_api.LAUNCHES)
-    on = [*on, "table_gather", *PATH_K9]
+    on = [*on, "table_gather", *FRAME_SHADE]
     if min(launches[k] for k in on) <= 0 or any(launches[k] for k in off):
         raise AssertionError(f"the {name} frame must launch {on} and none "
                              f"of {off}: {launches}")
@@ -1179,7 +1214,7 @@ def _flythrough_phase(torch, dev, card):
     peak = torch.cuda.max_memory_allocated()
     launches = dict(trace_api.LAUNCHES)
     rays = [float(r) for r in rays]
-    on = ["closest_hit", "any_hit", "table_gather", *PATH_K9]
+    on = ["closest_hit", "any_hit", "table_gather", *FRAME_SHADE]
     if min(launches[k] for k in on) <= 0 or any(
             v for k, v in launches.items() if k not in on):
         raise AssertionError(f"config 4 must launch {on} and nothing else: "
@@ -1340,7 +1375,7 @@ def _app_phase(torch, root, dev, card):
             raise AssertionError(f"the app's PNG decodes to {shape}")
         frame_count = checkpoint.load(ck)[1]
         launches = tel["launches"]
-        on = ("closest_hit", "any_hit", "table_gather", *PATH_K9)
+        on = ("closest_hit", "any_hit", "table_gather", *FRAME_SHADE)
         if not (frame_count == APP_FRAMES == tel["frames"]
                 and min(launches[k] for k in on) > 0 and "fps" in tel):
             raise AssertionError(f"the app: checkpoint frame_count "
@@ -1422,7 +1457,7 @@ def _standins_phase(torch, root, dev, card, kernels):
     launches = tel["launches"]
     if not (tel["frames"] == STANDIN_APP_FRAMES
             and min(launches[k]
-                    for k in (*flat, "table_gather", *PATH_K9)) > 0
+                    for k in (*flat, "table_gather", *FRAME_SHADE)) > 0
             and not any(launches[k] for k in others)):
         raise AssertionError(f"the truffle app: telemetry {tel}")
     print(f"stand-in app: python -m tpu_raytracer_torch --scene truffle "
@@ -1495,7 +1530,7 @@ def _walk_phase(torch, dev, card, every, c_first, ptxas):
 
     t_phase = time.time()
     walk = ["bvh_closest_hit", "bvh_any_hit"]
-    others = [k for k in every if k not in (*walk, *PATH_K9)]
+    others = [k for k in every if k not in (*walk, *FRAME_SHADE)]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     big = big_scene(dev, BIG_SUBDIV, (-0.3, 0.3))
@@ -1610,7 +1645,7 @@ def _walk_phase(torch, dev, card, every, c_first, ptxas):
               f"{bound[0]:.4f} ms ({bound[1]}); {stats_text(steps)} "
               f"[{card}]", flush=True)
     ldrs, c_launches = _first_frames(cornell, dev, len(c_first))
-    if (min(c_launches[k] for k in (*walk, *PATH_K9)) <= 0
+    if (min(c_launches[k] for k in (*walk, *FRAME_SHADE)) <= 0
             or any(c_launches[k] for k in others)):
         raise AssertionError(f"the walked Cornell frames must launch K8 and "
                              f"K9 and no other kernel: {c_launches}")
@@ -1666,7 +1701,7 @@ def _tiles_phase(torch, dev, card, every, c_fps, c_launches):
 
     t_phase = time.time()
     scene = scenes.create_cornell_box(dev)
-    on = ["closest_hit", "any_hit", "table_gather", *PATH_K9]
+    on = ["closest_hit", "any_hit", "table_gather", *FRAME_SHADE]
     off = [k for k in every if k not in on]
     frames = WARMUP + TIMED
 
@@ -1959,7 +1994,7 @@ def _graph_phase(torch, dev, card, every):
         raise AssertionError(f"replayed frames launch {g_launches} and count "
                              f"{g_rays} rays; the eager frames {e_launches} "
                              f"and {e_rays}")
-    on = ["closest_hit", "any_hit", "table_gather", *PATH_K9]
+    on = ["closest_hit", "any_hit", "table_gather", *FRAME_SHADE]
     if min(g_launches[k] for k in on) <= 0 or any(
             g_launches[k] for k in every if k not in on):
         raise AssertionError(f"the replayed Cornell frames must launch {on} "
@@ -2060,7 +2095,7 @@ def _graph_phase(torch, dev, card, every):
         for u, fc, static_ok in r_seq:
             render(u, fc, static_ok)
         launched = dict(trace_api.LAUNCHES)
-        on = [*on, "table_gather", *PATH_K9]
+        on = [*on, "table_gather", *FRAME_SHADE]
         if min(launched[k] for k in on) <= 0 or any(
                 launched[k] for k in every if k not in on):
             raise AssertionError(f"the replayed {what} frames must launch "
@@ -2154,7 +2189,7 @@ def _refit_graph(torch, dev, card, every):
           f"set_sync_debug_mode('error'): no host sync; the caller's scene "
           f"unwritten", flush=True)
 
-    on = ["closest_hit", "any_hit", "table_gather", *PATH_K9]
+    on = ["closest_hit", "any_hit", "table_gather", *FRAME_SHADE]
     readings = {}
     for what in ("eager", "replayed"):
         if what == "eager":
@@ -2243,7 +2278,7 @@ def _bands_replayed(torch, dev, card, every, scene, what, devices):
             ("moving camera", _camera_seq(dev, TILE_MOTION_FRAMES,
                                           scene.num_lights,
                                           move_at=TILE_MOVE_AT)))
-    on = ["closest_hit", "any_hit", "table_gather", *PATH_K9]
+    on = ["closest_hit", "any_hit", "table_gather", *FRAME_SHADE]
     mesh = tiles.make_mesh(devices)
     scene_r = tiles.replicate(scene, mesh)
     tiled = tiles.make_render_frame_tiled(mesh, WIDTH, HEIGHT)
@@ -2346,7 +2381,7 @@ def _tiled_app(root, card):
                              f"{proc.returncode}: {proc.stderr[-3000:]}")
     tel = json.loads(proc.stdout.strip().splitlines()[-1])
     if min(tel["launches"][k] for k in ("closest_hit", "any_hit",
-                                        "table_gather", *PATH_K9)) <= 0:
+                                        "table_gather", *FRAME_SHADE)) <= 0:
         raise AssertionError(f"the app with --tiles {TILE_BANDS}: {tel}")
     print(f"graph II: python -m tpu_raytracer_torch --tiles {TILE_BANDS} "
           f"--scale={APP_W}x{APP_H}, {tel['frames']} frames on "
@@ -2469,7 +2504,7 @@ def _tap_batch_phase(torch, dev, card, every):
         runs[what] = (dt, rays, dict(trace_api.LAUNCHES))
     b_launches, s_launches = (runs[k][2] for k in ("batched, replayed",
                                                    "sequential, replayed"))
-    on = ["closest_hit", "any_hit", "table_gather", *PATH_K9]
+    on = ["closest_hit", "any_hit", "table_gather", *FRAME_SHADE]
     if min(b_launches[k] for k in on) <= 0 or any(
             b_launches[k] for k in every if k not in on):
         raise AssertionError(f"the batched Cornell frames must launch {on} "
@@ -2681,7 +2716,7 @@ def _mode_frames(torch, scene, dev, seq, what, on, every):
     or leaves one of `on` out."""
     from tpu_raytracer_torch.ops import trace_api
 
-    runs, on = {}, [*on, *PATH_K9]
+    runs, on = {}, [*on, *FRAME_SHADE]
     for m in REORDER_MODES:
         render = _band(scene, dev, WIDTH, HEIGHT, m)
         trace_api.reset_launch_counts()
@@ -3020,6 +3055,8 @@ def _reorder_phase(torch, dev, card, every):
 
 
 PATH_K9 = ("path_prime", "path_bounce", "path_finish")
+# the shading kernels of every ReSTIR frame: K9's and K10 ("post")
+FRAME_SHADE = (*PATH_K9, "post")
 # K9's bytes a lane at the least (csrc/path_trace.cu; table rows and
 # texels come from L2 and are not counted): prime, every lane (the
 # G-buffer row and seed in, the lane state, two rays with t_min, the last
@@ -3204,17 +3241,12 @@ def _path_kernel_phase(torch, dev, card):
 
                 # one call under the profiler: only K9, the trace kernels
                 # and the stage mark, and K9's device time by launch kind
-                acts = [torch.profiler.ProfilerActivity.CUDA]
-                path_trace.trace_path(scene, *call)
-                torch.cuda.synchronize()
-                with torch.profiler.profile(activities=acts) as prof:
-                    path_trace.trace_path(scene, *call)
-                    torch.cuda.synchronize()
-                cuda = torch.autograd.DeviceType.CUDA
+                ops = _profile_call(torch, lambda: path_trace.trace_path(
+                    scene, *call))
                 ms, other = dict.fromkeys(PATH_K9, 0.0), []
                 seen = dict.fromkeys(PATH_K9, 0)
-                for e in prof.key_averages():
-                    if e.device_type != cuda or _device_us(e) <= 0:
+                for e in ops:
+                    if _device_us(e) <= 0:
                         continue
                     kind = next((k for k in PATH_K9 if k in e.key), None)
                     if kind:
@@ -3275,6 +3307,242 @@ def _path_kernel_phase(torch, dev, card):
     return results
 
 
+# 30. K10, the post pass (csrc/post.cu): the bytes a pixel needs, HDR 12 +
+# the G-buffer row's position, oct normal, albedo and motion 40 + an
+# accumulation word 12 in, LDR and accumulation 24 out (the packed rows
+# being adjacent, DRAM moves all 56 B of each: 104 B in this layout)
+K10_PX_B = 88
+POST_SIZES = ((1280, 720), (1920, 1080))     # the one-card cells' sizes
+POST_BANDS, POST_HALO = 4, 16                # the bands cell's split
+POST_TIMED = 50                              # K10 launches timed a case
+
+
+def _post_call(torch, scene, dev, width, height, frames, move=False):
+    """The post_process arguments of the last of `frames` eager ReSTIR
+    frames of `scene` at width x height, live: a still camera with the
+    counter at the frame's index, static_ok and gb_reuse from the second
+    frame on, as the app renders; with `move`, a camera moving each frame
+    (the counter 0, as the app resets it)."""
+    from tpu_raytracer_torch.ops import post
+    from tpu_raytracer_torch.render import camera, pipeline, renderer
+
+    real, calls = post.post_process, []
+
+    def spy(*args):
+        calls[:] = [args]
+        return real(*args)
+
+    cam = camera.CameraController()
+    state = pipeline.init_state(width, height, dev)
+    post.post_process = spy
+    try:
+        for i in range(frames):
+            fc = 0 if move else i
+            if move:
+                cam.press("d")
+                cam.update(0.05)
+                cam.release("d")
+            uniform = renderer.camera_to_device(
+                cam.uniform(width / height, fc, scene.num_lights), dev)
+            _, _, state, _ = pipeline.render_frame(
+                scene, uniform, fc, state, width, height, static_ok=fc > 0,
+                gb_reuse=True)
+    finally:
+        post.post_process = real
+    torch.cuda.synchronize()
+    return calls[0]
+
+
+def _post_band(torch, args, band):
+    """The post_process arguments of band `band` of POST_BANDS, halo
+    POST_HALO, cut from a one-device call's: the views halo_exchange
+    gives (zero rows outside the image), the band's motion rows."""
+    from tpu_raytracer_torch.parallel.views import BandView
+
+    hdr_view, gb, gb_view, hist_view, fc, ctx = args
+    width, height = ctx["width"], ctx["height"]
+    band_h = height // POST_BANDS
+    y0 = band * band_h
+
+    def view(v):
+        rows = v.data.reshape(height, width, -1)
+        ext = rows.new_zeros((band_h + 2 * POST_HALO, width, rows.shape[2]))
+        lo, hi = max(y0 - POST_HALO, 0), min(y0 + band_h + POST_HALO, height)
+        ext[lo - y0 + POST_HALO:hi - y0 + POST_HALO] = rows[lo:hi]
+        return BandView(ext.reshape(-1, rows.shape[2]), y0, width, height,
+                        band_h, POST_HALO)
+
+    return (view(hdr_view), {"motion": gb["motion"][y0 * width:
+                                                    (y0 + band_h) * width]},
+            view(gb_view), view(hist_view), fc,
+            dict(ctx, y0=y0, band_h=band_h))
+
+
+def _k10_diff(torch, got, want):
+    """Per output (ldr, accum): (words equal, words, max abs difference,
+    max ulps)."""
+    out = []
+    for a, b in zip(got, want):
+        same = a.view(torch.int32) == b.view(torch.int32)
+        err = float((a - b).abs().max())
+        ulps = int(np.abs(_ulps(a.cpu().numpy(), b.cpu().numpy())).max())
+        out.append((int(same.sum()), a.numel(), err, ulps))
+    return out
+
+
+def _k10_ptxas():
+    """ptxas's lines for K10's entry, when this process built the
+    library."""
+    from tpu_raytracer_torch.runtime.build import BUILD_LOGS
+
+    out, entry = [], False
+    for ln in BUILD_LOGS.get("trace_kernels", "").splitlines():
+        if "Compiling entry" in ln:
+            entry = "post_pass" in ln
+        elif entry and ("registers" in ln or "spill" in ln):
+            out.append(ln.split(":", 1)[-1].strip())
+    return out
+
+
+def _post_kernel_phase(torch, dev, card):
+    """30. K10, the post pass (csrc/post.cu), against the eager route
+    (post_process_plain on the card) on live frame inputs: a Cornell and a
+    truffle 1280x720 still frame, a Cornell 1920x1080 frame under a moving
+    camera (as rendered, counter 0, and with the counter at 5, so the
+    clipped-history branch runs), and every band of a 4-band split (halo
+    16) of the Cornell still and the moving frame; every word of ldr and
+    accum, max abs and ulps. The bands' K10 words against the one-device
+    call's on the still frame; a call's device trace holds K10 alone; K10's
+    ms beside its bytes bound and the eager route's; ptxas and occupancy;
+    "post" launches a replayed frame, one device and 4 bands."""
+    import ctypes
+
+    from tpu_raytracer_torch.app import interactive
+    from tpu_raytracer_torch.models import scenes
+    from tpu_raytracer_torch.ops import post, trace_api
+    from tpu_raytracer_torch.parallel import tiles
+    from tpu_raytracer_torch.profile_frame import _device_us
+    from tpu_raytracer_torch.render import graph as graph_mod
+    from tpu_raytracer_torch.render import pipeline
+
+    t_phase = time.time()
+    lib = trace_api.load_kernels()
+    blocks = ctypes.c_int(0)
+    err = lib.tpurt_post_occupancy(ctypes.byref(blocks))
+    print(f"K10 ptxas post_pass: {' | '.join(_k10_ptxas()) or 'cached'}; "
+          f"{blocks.value} blocks of 32 x 8 threads an SM "
+          f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor, error {err}) "
+          f"[{card}]", flush=True)
+    cornell = scenes.create_cornell_box(dev)
+    truffle = interactive.load_scene("truffle", dev)
+    (w1, h1), (w2, h2) = POST_SIZES
+    still = _post_call(torch, cornell, dev, w1, h1, 4)
+    moving = _post_call(torch, cornell, dev, w2, h2, 3, move=True)
+    cases = [("Cornell still", still),
+             ("truffle still", _post_call(torch, truffle, dev, w1, h1, 4)),
+             ("Cornell moving", moving),
+             ("Cornell moving, counter 5", moving[:4] + (5,) + moving[5:])]
+    cases += [(f"Cornell still, band {b} of {POST_BANDS}",
+               _post_band(torch, still, b)) for b in range(POST_BANDS)]
+    cases += [(f"Cornell moving, counter 5, band {b} of {POST_BANDS}",
+               _post_band(torch, cases[3][1], b)) for b in range(POST_BANDS)]
+    results, outs, worst, alone = {}, {}, [0.0, 0], ""
+    for what, args in cases:
+        ctx = args[5]
+        n = ctx["band_h"] * ctx["width"]
+        trace_api.reset_launch_counts()
+        got = post.post_process(*args)
+        torch.cuda.synchronize()
+        if trace_api.LAUNCHES["post"] != 1:
+            raise AssertionError(f"K10 {what}: post_process launched "
+                                 f"{trace_api.LAUNCHES['post']} K10")
+        want = post.post_process_plain(*args)
+        torch.cuda.synchronize()
+        outs[what] = got
+        diff = _k10_diff(torch, got, want)
+        line = "; ".join(f"{k} {d[0]} of {d[1]} words equal (max abs "
+                         f"{d[2]:.3g}, {d[3]} ulps)"
+                         for k, d in zip(("ldr", "accum"), diff))
+        if any(d[0] != d[1] for d in diff):
+            raise AssertionError(f"K10 {what}: {line}")
+        worst = [max(worst[0], *(d[2] for d in diff)),
+                 max(worst[1], *(d[3] for d in diff))]
+        motion = args[1]["motion"]
+        speed = (motion * torch.tensor([ctx["width"], ctx["height"]],
+                                       device=dev)).norm(dim=-1)
+        moving_px = int((speed >= 0.5).sum())
+        if "band" in what:
+            print(f"K10 {what}: {line} [{card}]", flush=True)
+            continue
+
+        # the first case's call under the profiler: K10 alone (one
+        # session, so as to meet the profiler's lost events once at most)
+        if not results:
+            kernels = {e.key: e.count for e in _profile_call(
+                torch, lambda: post.post_process(*args)) if _device_us(e) > 0}
+            if list(kernels.values()) != [1] or "post_pass" not in \
+                    next(iter(kernels)):
+                raise AssertionError(f"K10 {what}: a post_process call ran "
+                                     f"{kernels} on the card")
+            alone = f"; the trace of a call holds {kernels} alone"
+        k10_ms = _time_ms(torch, lambda: post.post_process(*args),
+                          POST_TIMED)
+        _, plain_ms = _time_once(torch, lambda: post.post_process_plain(
+            *args))
+        bound_ms = K10_PX_B * n / HBM_PEAK * 1e3
+        results[what] = (k10_ms, bound_ms, plain_ms)
+        print(f"K10 {what} {ctx['width']}x{ctx['height']} (counter "
+              f"{int(args[4])}, {moving_px} of {n} pixels moving >= 0.5 px): "
+              f"{line}; K10 {k10_ms:.4f} ms a call ({POST_TIMED} launches, "
+              f"CUDA events), bound {bound_ms:.4f} ms ({K10_PX_B} B a pixel "
+              f"at HBM_PEAK, {k10_ms / bound_ms:.1f}x), eager route "
+              f"{plain_ms:.2f} ms a call, timed once{alone} [{card}]",
+              flush=True)
+        alone = ""
+
+    # the still frame's bands, put together, are the one-device call's
+    for k in (0, 1):
+        bands = torch.cat([outs[f"Cornell still, band {b} of {POST_BANDS}"]
+                           [k] for b in range(POST_BANDS)])
+        if not torch.equal(bands.view(torch.int32),
+                           outs["Cornell still"][k].view(torch.int32)):
+            raise AssertionError("K10's 4 bands of the still frame differ "
+                                 "from its one-device call")
+    print(f"K10: the still frame's {POST_BANDS} bands put together equal "
+          f"its one-device call in every ldr and accum word [{card}]",
+          flush=True)
+
+    # "post" launches a replayed frame: one device, then 4 bands
+    seq = _camera_seq(dev, 6, cornell.num_lights)
+    one = graph_mod.FrameGraph(cornell, w1, h1, dev)
+    mesh = tiles.make_mesh([DEVICE] * POST_BANDS)
+    banded = tiles.TiledFrameGraph(mesh, tiles.replicate(cornell, mesh), w1,
+                                   h1)
+    banded.load_state(pipeline.init_state(w1, h1, dev))
+    per_frame = []
+    for render in (lambda u, fc, st: one(u, fc, st, gb_reuse=True),
+                   lambda u, fc, st: banded(u, fc, st)):
+        for u, fc, st in seq[:4]:
+            render(u, fc, st)
+        trace_api.reset_launch_counts()
+        for u, fc, st in seq[4:]:
+            render(u, fc, st)
+        torch.cuda.synchronize()
+        per_frame.append(trace_api.LAUNCHES["post"] / (len(seq) - 4))
+    if per_frame != [1, POST_BANDS]:
+        raise AssertionError(f"K10 launches a replayed frame {per_frame}, "
+                             f"want [1, {POST_BANDS}]")
+    print(f"K10: {per_frame[0]:.0f} launch a replayed one-device frame, "
+          f"{per_frame[1]:.0f} a replayed frame of {POST_BANDS} bands "
+          f"[{card}]", flush=True)
+    print(f"K10: every ldr and accum word of the {len(cases)} cases equal "
+          f"to the eager route's (max abs {worst[0]:.3g}, {worst[1]} ulps) "
+          f"[{card}]", flush=True)
+    print(f"phase 30 (K10) took {time.time() - t_phase:.1f} s", flush=True)
+    return {"times": results, "per_frame": per_frame,
+            "max_abs_err": worst[0], "max_ulps": worst[1]}
+
+
 def main() -> int:
     import torch
 
@@ -3304,7 +3572,7 @@ def main() -> int:
     mxu_kernels = ["mxu_closest_hit", "mxu_any_hit"]
     bvh_kernels = ["bvh_closest_hit", "bvh_any_hit"]
     every = (flat_kernels + stream_kernels + inst_kernels + vpu_kernels
-             + mxu_kernels + bvh_kernels + list(PATH_K9))
+             + mxu_kernels + bvh_kernels + list(FRAME_SHADE))
 
     # 2. build
     t0 = time.time()
@@ -3336,8 +3604,11 @@ def main() -> int:
 
     # 29. K9, the path tracer's shading, against the eager route: first,
     # as a process's later torch.profiler sessions can drop events (the
-    # phase checks its launch count and fails on such a session)
+    # phase checks its launch count and fails on such a session; its
+    # sessions, and phase 30's, record after a warm-up step, _profile_call)
     k9 = _path_kernel_phase(torch, dev, card)
+    # 30. K10, the post pass, against the eager route
+    k10 = _post_kernel_phase(torch, dev, card)
 
     # 3. K1 against plain
     primary = primary_rays(scene)
@@ -3385,7 +3656,7 @@ def main() -> int:
     # 5. frame: the Cornell path
     dt, rays, launches, c_ldrs = _run_frames(
         torch, scene, dev, WARMUP, TIMED, "Cornell", on=flat_kernels,
-        off=[k for k in every if k not in (*flat_kernels, *PATH_K9)])
+        off=[k for k in every if k not in (*flat_kernels, *FRAME_SHADE)])
     c_fps = TIMED / dt                            # for phase 24
     print("frame: " + _frame_line("Cornell ReSTIR", TIMED, dt, rays,
                                   launches, card, WARMUP + TIMED),
@@ -3935,7 +4206,7 @@ def main() -> int:
         s = scenes.create_cornell_box(dev, kernel=kernel, incull=incull)
         dt, rays, m_launches, ldrs = _run_frames(
             torch, s, dev, MODE_WARMUP, MODE_TIMED, f"Cornell {mode}", on=on,
-            off=[k for k in every if k not in (*on, *PATH_K9)])
+            off=[k for k in every if k not in (*on, *FRAME_SHADE)])
         p = _psnr(ldrs[-1].cpu().numpy(), ldr_default)
         if not p >= floor:
             raise AssertionError(f"Cornell {mode} frame: PSNR {p:.2f} dB "
@@ -3987,7 +4258,7 @@ def main() -> int:
     standins = _standins_phase(
         torch, root, dev, card,
         (flat_kernels, [k for k in every if k not in (*flat_kernels,
-                                                      *PATH_K9)]))
+                                                      *FRAME_SHADE)]))
 
     # 23. the BVH walk: K8 past the cap and on the Cornell box forced to it
     k8, w_launches, w_frames, cw_launches, cw_frames = _walk_phase(
@@ -4127,6 +4398,21 @@ def main() -> int:
          "ms": k9[("Cornell", "candidates")][0],
          "plain_ms": k9[("Cornell", "candidates")][2],
          "bound_ms": k9[("Cornell", "candidates")][1], "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "post", "route": "cuda",
+         "source": "tpu_raytracer_torch/csrc/post.cu",
+         "replaces": None,
+         "note": "K10 replaces no TPU kernel: the reference's post pass is "
+                 "XLA elementwise and roll code; plain_ms is the port's "
+                 "eager route, post_process_plain, on the card",
+         "launches": launches["post"],
+         "launches_per_frame": {
+             "replayed Cornell (CUDA graph)": k10["per_frame"][0],
+             "replayed tiled Cornell (4 bands)": k10["per_frame"][1]},
+         "max_abs_err": k10["max_abs_err"],
+         "ms": k10["times"]["Cornell still"][0],
+         "plain_ms": k10["times"]["Cornell still"][2],
+         "bound_ms": k10["times"]["Cornell still"][1], "bound_by": "bytes",
          "library_ms": None},
         {"name": "table_gather", "route": "cuda",
          "source": "tpu_raytracer_torch/csrc/gather.cu",

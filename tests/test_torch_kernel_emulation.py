@@ -94,6 +94,7 @@ def _build(out, names, defines=()):
         "tpurt_path_prime": [ptr] * 2,
         "tpurt_path_bounce": [ptr, i32, ptr],
         "tpurt_path_finish": [ptr] * 2,
+        "tpurt_post": [ptr] * 2,
     }
     for name, argtypes in signatures.items():
         if hasattr(lib, name):

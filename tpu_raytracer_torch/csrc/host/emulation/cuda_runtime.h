@@ -24,8 +24,8 @@
 //     host's steady clock, `emu_globaltimer`;
 //   - a launch `k<<<grid, block, 0, stream>>>(args)` must be rewritten
 //     to `emu_launch(k, grid, block)(args)` before compiling;
-//   - with -DTPURT_EMU_ROUNDED_LIBM, sinf and cosf are the double
-//     functions rounded to f32 (correctly rounded but for the rarest
+//   - with -DTPURT_EMU_ROUNDED_LIBM, sinf, cosf, expf and powf are the
+//     double functions rounded to f32 (correctly rounded but for the rarest
 //     arguments), so that a test can hold a kernel's f32 arithmetic to a
 //     plain version computed with the same rounded functions, bit for bit.
 // Build with -std=c++20 -ffp-contract=off (as nvcc's -fmad=false).
@@ -45,6 +45,9 @@
 #ifdef TPURT_EMU_ROUNDED_LIBM
 #define sinf(x) static_cast<float>(std::sin(static_cast<double>(x)))
 #define cosf(x) static_cast<float>(std::cos(static_cast<double>(x)))
+#define expf(x) static_cast<float>(std::exp(static_cast<double>(x)))
+#define powf(x, y) \
+    static_cast<float>(std::pow(static_cast<double>(x), static_cast<double>(y)))
 #endif
 #define __global__
 #define __device__

@@ -18,17 +18,28 @@ The pass works on per-channel [band_h, W] planes of one row band; stencil
 taps are rolls of the band's planes with their halo rows, masked by the
 image bounds. Camera jitter is disabled upstream as in the
 reference (camera.rs:202-203), so there is no unjitter resample.
+
+Route by device, as every kernel of the port:
+  - CPU tensors: `post_process_plain`, the eager PyTorch version below;
+  - CUDA tensors: kernel K10 (`csrc/post.cu`, `post_process_kernel`), one
+    launch a band, counted in `trace_api.LAUNCHES` ("post"), or the call
+    raises. K10 reads the views' rows in place and reproduces the eager
+    version's arithmetic on the card op for op (f32, the same order and
+    constants, the rolls' wrap, the history taps' clamp and coverage).
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
+from ..parallel.views import BandView
 from ..utils import vec3
 from ..utils.vec3 import V3, ipow
-from .gbuffer import GB_ALBEDO, GB_OCT, GB_POS
+from .gbuffer import GB_ALBEDO, GB_COLS, GB_MOTION, GB_OCT, GB_POS
+from .trace_api import count_launch, load_kernels
 
 SIGMA_SPATIAL = 1.5
 SIGMA_COLOR = 0.2
@@ -110,7 +121,8 @@ def accumulation_blend(frame):
 
 
 def post_process(hdr_view, gb, gb_view, history_view, frame_count, ctx):
-    """Full post pass over one band.
+    """Full post pass over one band: `post_process_plain` on CPU tensors,
+    K10 (`post_process_kernel`) on CUDA tensors.
 
     hdr_view: view of the spatial pass's HDR output [n, 3] (halo >= 2 on
     row bands); gb: the band's flat G-buffer (motion); gb_view: view of
@@ -120,6 +132,17 @@ def post_process(hdr_view, gb, gb_view, history_view, frame_count, ctx):
     (restir.make_ctx).
 
     Returns (ldr [n, 3] gamma-encoded, new_accum [n, 3] linear HDR)."""
+    if gb["motion"].device.type == "cpu":
+        return post_process_plain(hdr_view, gb, gb_view, history_view,
+                                  frame_count, ctx)
+    return post_process_kernel(hdr_view, gb, gb_view, history_view,
+                               frame_count, ctx)
+
+
+def post_process_plain(hdr_view, gb, gb_view, history_view, frame_count,
+                       ctx):
+    """`post_process` in eager PyTorch ops, on any device: the CPU route,
+    and on the card the yardstick K10 is held to."""
     band_h, width, height = ctx["band_h"], ctx["width"], ctx["height"]
     frame = frame_f32(frame_count, ctx["device"])
 
@@ -237,3 +260,123 @@ def post_process(hdr_view, gb, gb_view, history_view, frame_count, ctx):
                for c in final))
     return (torch.stack([c.reshape(-1) for c in ldr], dim=-1),
             torch.stack([c.reshape(-1) for c in final], dim=-1))
+
+
+# ---------------------------------------------------------------------------
+# K10 (CUDA tensors)
+# ---------------------------------------------------------------------------
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+# the bilateral's spatial weights, in its tap order, as the eager version
+# multiplies them (a Python float, rounded to f32 by the product)
+W_SPATIAL = [math.exp(-(dx * dx + dy * dy) / (2.0 * SIGMA_SPATIAL ** 2))
+             for dy in range(-KERNEL_RADIUS, KERNEL_RADIUS + 1)
+             for dx in range(-KERNEL_RADIUS, KERNEL_RADIUS + 1)]
+
+
+class PostArgs(ctypes.Structure):
+    """csrc/post.cu:PostArgs, field for field."""
+    _fields_ = [
+        *((n, _P) for n in ("hdr", "gb", "accum", "frame", "ldr", "out")),
+        *((n, _L) for n in ("hdr_s", "gb_s", "accum_s", "frame_value")),
+        *((n, _I) for n in ("width", "height", "band_h", "y0", "halo",
+                            "h_y0", "h_band_h", "h_halo", "h_width",
+                            "h_height", "gb_pos", "gb_oct", "gb_albedo",
+                            "gb_motion", "blocks_x")),
+        ("w_spatial", _F * len(W_SPATIAL)),
+    ]
+
+
+def _rows(x, name, rows, cols, device):
+    """x's pointer and row stride, where x is [rows, cols] f32 on `device`
+    with adjacent columns; raises on anything else."""
+    if x.device != device or x.dtype != torch.float32 or x.dim() != 2 \
+            or tuple(x.shape) != (rows, cols) or x.stride(1) != 1 \
+            or x.stride(0) < cols:
+        raise ValueError(
+            f"{name}: want f32 [{rows}, {cols}] rows of adjacent words on "
+            f"{device}, got {x.dtype} {tuple(x.shape)} strides "
+            f"{tuple(x.stride())} on {x.device}")
+    return x.data_ptr(), x.stride(0)
+
+
+def post_process_kernel(hdr_view, gb, gb_view, history_view, frame_count,
+                        ctx):
+    """`post_process` on CUDA tensors: one launch of K10, counted in
+    `trace_api.LAUNCHES`. The three views must be `BandView`s whose rows
+    and frame_count (an int, or a 0-dim int64 tensor) lie on gb["motion"]'s
+    CUDA device; raises on anything else."""
+    device = gb["motion"].device
+    if device.type != "cuda":
+        raise ValueError(f"post_process_kernel needs CUDA tensors, got "
+                         f"{device}")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        return run_k10(load_kernels(), stream, count_launch, hdr_view, gb,
+                       gb_view, history_view, frame_count, ctx)
+
+
+def run_k10(lib, stream, launched, hdr_view, gb, gb_view, history_view,
+            frame_count, ctx):
+    """K10's launch from `lib` on `stream` (a handle, or None for the host
+    emulation of the tests), `launched("post")` after it. It reads the
+    views' rows in place, and frame_count's device word where it is a
+    tensor: nothing is read back to the host, so the call captures into a
+    CUDA graph. The motion is read from the band's own rows of gb_view, at
+    GB_MOTION, where `pack_gb` put gb["motion"]; gb gives the device."""
+    band_h, width, height = ctx["band_h"], ctx["width"], ctx["height"]
+    device = gb["motion"].device
+    views = (("hdr_view", hdr_view), ("gb_view", gb_view),
+             ("history_view", history_view))
+    for name, v in views:
+        if not isinstance(v, BandView):
+            raise ValueError(f"{name}: want a BandView, got "
+                             f"{type(v).__name__}")
+    for name, v in views[:2]:
+        if (v.band_h, v.width, v.halo) != (band_h, width, hdr_view.halo):
+            raise ValueError(
+                f"{name}: band_h {v.band_h}, width {v.width}, halo "
+                f"{v.halo}; K10 wants the band's {band_h} and {width}, and "
+                f"one halo for the HDR and G-buffer views")
+    n = band_h * width
+    if n == 0:
+        raise ValueError("K10 needs a band of at least one pixel")
+    halo = hdr_view.halo
+    h_cover = history_view.band_h + 2 * history_view.halo
+    if (band_h + 2 * halo) * width >= 2 ** 31 \
+            or h_cover * history_view.width >= 2 ** 31:
+        raise ValueError("a view exceeds K10's int32 pixel indices")
+    hdr, hdr_s = _rows(hdr_view.data, "hdr_view", (band_h + 2 * halo) * width,
+                       3, device)
+    gbr, gb_s = _rows(gb_view.data, "gb_view", (band_h + 2 * halo) * width,
+                      GB_COLS, device)
+    acc, acc_s = _rows(history_view.data, "history_view",
+                       h_cover * history_view.width, 3, device)
+    args = PostArgs(
+        hdr=hdr, gb=gbr, accum=acc, hdr_s=hdr_s, gb_s=gb_s, accum_s=acc_s,
+        width=width, height=height, band_h=band_h, y0=ctx["y0"], halo=halo,
+        h_y0=history_view.y0, h_band_h=history_view.band_h,
+        h_halo=history_view.halo, h_width=history_view.width,
+        h_height=history_view.height, gb_pos=GB_POS.start,
+        gb_oct=GB_OCT.start, gb_albedo=GB_ALBEDO.start,
+        gb_motion=GB_MOTION.start,
+        w_spatial=(_F * len(W_SPATIAL))(*W_SPATIAL))
+    if isinstance(frame_count, torch.Tensor):
+        if frame_count.device != device or frame_count.dtype != torch.int64 \
+                or frame_count.dim() != 0:
+            raise ValueError(f"frame_count: want a 0-dim int64 tensor on "
+                             f"{device}, got {frame_count.dtype} "
+                             f"{tuple(frame_count.shape)} on "
+                             f"{frame_count.device}")
+        args.frame = frame_count.data_ptr()
+    else:
+        args.frame_value = int(frame_count)
+
+    ldr = torch.empty((n, 3), dtype=torch.float32, device=device)
+    accum = torch.empty((n, 3), dtype=torch.float32, device=device)
+    args.ldr, args.out = ldr.data_ptr(), accum.data_ptr()
+    err = lib.tpurt_post(ctypes.addressof(args), stream)
+    if err != 0:
+        raise RuntimeError(f"post launch failed: CUDA error {err}")
+    launched("post")
+    return ldr, accum
