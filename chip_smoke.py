@@ -1,34 +1,36 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one NVIDIA GPU: build, check, time.
+"""Check run of the PyTorch port on one NVIDIA GPU: build every kernel,
+then hold each kernel, route and frame to its plain twin on the card.
 
     python3 chip_smoke.py
 
-Phases (each prints one line; any failed check raises, so the exit code
-is non-zero):
+It checks and does not time. The port is timed by the benchmark alone:
+`python3 -m rtbench --workload <cell> --trace 1` (rtbench/README.md)
+names the device operations and stages that take a cell's time.
+
+Phases (each prints what it checked; any failed check raises, so the exit
+code is non-zero):
   1. device   - a CUDA device is required; prints its name and power
                 limit as nvidia-smi reports them.
   2. build    - builds kernels K1 (closest-hit), K2 (any-hit), K3
                 (streamed closest- and any-hit), K4 (instanced closest-
                 and any-hit), K5 (the vpu sweep), K6 (the tensor-core
-                test), K7 (the table gather of the row fetches) and K8
-                (the BVH walk, closest- and any-hit), with K9 (the path
-                tracer's shading) and the stage marks, from
+                test), K7 (the table gather of the row fetches), K8 (the
+                BVH walk, closest- and any-hit), K9 (the path tracer's
+                shading), K10 (the post pass) and the stage marks, from
                 tpu_raytracer_torch/csrc/{trace,trace_stream,trace_inst,
-                trace_vpu,trace_mxu,gather,trace_bvh,marks,path_trace}.cu
-                for sm_90a with one nvcc call.
+                trace_vpu,trace_mxu,gather,trace_bvh,marks,path_trace,
+                post}.cu for sm_90a with one nvcc call. Phases 29 and 30
+                run next.
   3. K1       - against its plain PyTorch version on the card: Cornell
                 512^2 primary rays and 524,288 random rays (random t_max,
                 30% dead lanes). tri equal on every lane, t bit-equal.
   4. K2       - against plain closest-hit `tri >= 0` on the same rays,
                 t = t_max.
-  5. frame    - the Cornell ReSTIR frame at 512^2 through render_frame:
-                2 warm-up + 8 timed frames (static_ok from the second
-                frame on), launch counts (K1 and K2 launched, K3-K6
-                not), fps, Mrays/s, and K1/K2 against plain at 262,144 and
-                524,288 random rays; then K1/K2 on the primary rays beside
-                their bound, with K1's unit capacity (SWEPT_MAX_UNITS) and
-                units and ptxas's registers and shared memory for both
-                entries.
+  5. frame    - the Cornell ReSTIR frame at 512^2 through render_frame,
+                FRAMES frames (static_ok from the second frame on): K1 and
+                K2 launched, K3-K6 and K8 not; ldr finite in [0, 1], hdr
+                finite, rays positive.
   6. golden   - 8 frames of the 64^2 Cornell box against
                 tests/golden/cornell_64_f8_ldr.npy and 4 frames of the 48^2
                 restir scene (100 sphere lights) against
@@ -39,43 +41,33 @@ is non-zero):
                 random rays inside the gallery (random t_max, 30% dead).
                 Closest-hit tri and inst equal on every lane, t within
                 T_ULPS; any-hit occlusion equal to plain, t = t_max,
-                inst set exactly on the occluded lanes. After phase 8,
-                K4 is timed on both ray sets and printed beside its
-                bound, with its MAX_UNITS and units and ptxas's
-                registers and shared memory for its entries.
-  8. gallery  - the gallery's ReSTIR frame at 512^2 through render_frame:
-                2 warm-up + 4 timed frames, both K4 entry points launched
-                and neither K1 nor K2; fps, Mrays/s; K4 against plain at
-                262,144 and 524,288 random rays.
+                inst set exactly on the occluded lanes.
+  8. gallery  - the gallery's ReSTIR frame at 512^2 through render_frame,
+                SCENE_FRAMES frames: both K4 entry points launched and
+                none of K1, K2 and K3.
   9. K3       - the dense knot (bench.py config 6: 100,804 world
                 triangles in 100,864 slots, loaded from the generated .glb
                 through the glTF loader) against the plain versions: 512^2
                 primary rays and 524,288 random rays in the knot's box
                 (random t_max, 30% dead). Closest-hit tri equal on every
                 lane and t within T_ULPS against the streamed twin and the
-                chunk scan; any-hit occlusion equal, t = t_max. K1 is
-                timed on the same rays and scene beside K3 (a check of
-                MXUF_MAX_TP on this card, not a yardstick); both times
-                print beside the bound, with K3's MAX_UNITS and grp and
-                ptxas's registers and shared memory for its entries.
- 10. knot     - the knot's ReSTIR frame at 512^2: 2 warm-up + 4 timed
-                frames, both K3 entry points launched and none of K1, K2
-                and K4; fps, Mrays/s. Then (10b) its first 2 frames again
-                with trace_api.MXUF_MAX_TP raised here only, so K1/K2 take
-                the route (K3 not launched): equal to K3's bit for bit.
+                chunk scan; any-hit occlusion equal, t = t_max.
+ 10. knot     - the knot's ReSTIR frame at 512^2, SCENE_FRAMES frames:
+                both K3 entry points launched and none of K1, K2 and K4.
+                Then (10b) its first 2 frames again with
+                trace_api.MXUF_MAX_TP raised here only, so K1/K2 take the
+                route (K3 not launched): equal to K3's bit for bit.
  11. bunny    - the bunny scene's (config 3, 15,372 triangles) frame at
-                512^2: 2 warm-up + 4 timed frames, K1 and K2 launched,
-                neither K3 nor K4. Then K3 against K1/K2 on the bunny's
-                and Cornell's 512^2 primary rays and 524,288 random rays
-                (equal on every lane) and timed beside them: data for
-                MXUF_MAX_TP, which stays as it is.
+                512^2, SCENE_FRAMES frames: K1 and K2 launched, neither K3
+                nor K4. Then K3 against K1/K2 on the bunny's and Cornell's
+                512^2 primary rays and 524,288 random rays: equal on every
+                lane.
  12. K5       - the vpu sweep (an instance of csrc/sweep.cuh) against its
                 plain version (the worklists of ops/worklist.py) and
                 against K1, on Cornell's 512^2 primary rays, 524,288
                 random Cornell rays and 524,288 random rays in the bunny
                 scene: tri equal on every lane, t bit-equal to K1's and
-                within T_ULPS of plain. Timed beside K1, with the vpu
-                route's whole call as scene_trace makes it, and ptxas.
+                within T_ULPS of plain.
  13. K6       - each variant (mxu3, mxu1, mxuw with hulls of 8 chunks,
                 the in-kernel cull's closest- and any-hit) on the same
                 rays, against its plain version over the kernel's own
@@ -84,22 +76,18 @@ is non-zero):
                 relative t error < PLAIN_REL where tri agrees) and
                 against K1 within the reference's bf16 tolerance
                 (hit/miss and tri agreement > AGREE, median relative t
-                error < MEDIAN_REL; mxu1's only printed), with the count
-                and relative t margin of the lanes that disagree. Timed
-                on the random Cornell rays, beside the route's whole
-                scene_trace call; ptxas of every instance.
+                error < MEDIAN_REL; mxu1 held to its plain version only).
  14. modes    - with ops/worklist.py's block_entry and worklists made to
                 raise: one scene_trace call on the primary rays under
                 vpu (closest and any), mxu3, mxu1, mxuw and the cull
                 (closest and any) launches exactly one kernel, its own;
-                then the Cornell ReSTIR frame at 512^2, MODE_WARMUP +
-                MODE_TIMED frames, under vpu (K5 launched; K1-K4 not),
-                mxu3 and mxuw (K6 closest-hit and K2; not K1), and the
-                in-kernel cull (both K6 entries; not K1 or K2): fps,
-                Mrays/s, and PSNR against the same frame of phase 5's
-                default run, >= VPU_DB under vpu (K5 returns K1's hits)
-                and >= GOLDEN_DB otherwise. mxu1 renders no frame (the
-                reference calls it broken for rendering).
+                then the Cornell ReSTIR frame at 512^2, MODE_FRAMES
+                frames, under vpu (K5 launched; K1-K4 not), mxu3 and mxuw
+                (K6 closest-hit and K2; not K1), and the in-kernel cull
+                (both K6 entries; not K1 or K2): PSNR against the same
+                frame of phase 5, >= VPU_DB under vpu (K5 returns K1's
+                hits) and >= GOLDEN_DB otherwise. mxu1 renders no frame
+                (the reference calls it broken for rendering).
  15. golden   - the 64^2 Cornell golden under mxu3, PSNR >= GOLDEN_DB.
  16. K7       - the table gather against its plain version on the card,
                 bit for bit: Cornell's tri_table and mat_table, the knot's
@@ -107,37 +95,30 @@ is non-zero):
                 light_table (100 lights), at GATHER_RAYS random indices
                 (the random sets' counts and the app's, config 4's and
                 config 5's frames; negative ones and ones past the table
-                included). Timed
-                beside the plain version and one torch.index_select call
-                on the transposed table (the yardstick, `library_ms`).
+                included).
  17. fetch    - the first 2 Cornell 512^2 frames again with
                 hit.fetch_cols set to the plain gather (here only, never
                 in the package): K7 not launched, and the images equal to
                 phase 5's (a gather is a copy), PSNR >= VPU_DB.
  18. config 1 - bench.py's config-1 sequence: the diffuse Cornell box at
-                512^2, PROGRESSIVE_FRAMES render_progressive frames, the
-                first 2 untimed: fps_1spp_progressive.
+                512^2, PROGRESSIVE_FRAMES render_progressive frames: K1
+                and K7 launched, the accumulation finite, non-negative
+                and lit.
  19. config 5 - bench.py's config-5 sequence on the Cornell box at
-                3840 x 2160 as one frame: frame 0, frame 1 and a warm-up
-                denoised_screenshot, then frame 2 and its denoise timed
-                (s_per_denoised_frame), then frames 3-31 accumulate;
-                denoised_psnr_vs_32spp_3840x2160 (the denoised frame 2
-                against the 32-frame accumulation, both through
-                resolve_tonemap) must be finite and above the un-denoised
-                frame 2's. Peak device memory of a frame and of the
-                denoise; the ScreenshotSaver's PNG read back.
+                3840 x 2160 as one frame: frames 0-2, frame 2 denoised
+                (denoised_screenshot), frames 3-31 accumulated; the
+                denoised frame 2 against the 32-frame accumulation, both
+                through resolve_tonemap, must be finite and above the
+                un-denoised frame 2's PSNR; the ScreenshotSaver's PNG
+                read back.
  20. config 4 - bench.py's config-4 sequence: the Cornell box at 1920 x
-                1080, FLY_WARMUP + FLY_TIMED frames; each presses `d` for
-                1/60 s (the accumulation restarts), moves the crystal
-                (instance 6) by bench.py's wobble and refits it with
+                1080, FLY_FRAMES frames; each presses `d` for 1/60 s (the
+                accumulation restarts), moves the crystal (instance 6) by
+                bench.py's wobble and refits it with
                 ops/refit.py:update_instances(changed=(6,)), static_ok
                 False. From the second frame on every refit runs under
                 torch.cuda.set_sync_debug_mode("error"): no host sync.
-                fps_1080p_flythrough_refit, Mrays/s, the refit's time a
-                frame (on the host in the frame loop, and its device time
-                and kernel launches under torch.profiler over REFIT_REPS
-                refits), launches a frame (K1, K2, K7 and K9;
-                nothing else), peak memory. Checks:
+                K1, K2, K7, K9 and K10 launched and nothing else. Checks:
                 the last refit against a full refit (changed=None) of the
                 same transforms within REFIT_ATOL on tri_planes,
                 chunk_aabb, tri_table, bvh_rec, inst_transform and
@@ -159,65 +140,50 @@ is non-zero):
                 (its frames replayed CUDA graphs that reuse the G-buffer
                 on static frames, render/graph.py):
                 exit code 0, one PNG read back through utils/png.py, the
-                checkpoint's frame_count 12, K1, K2 and K7 launched; then
-                2 more frames resumed from the checkpoint, starting at
-                frame 12. Prints the app's FrameStats fps and Mrays/s.
+                checkpoint's frame_count 12, K1, K2, K7, K9 and K10
+                launched, its telemetry with fps; then 2 more frames
+                resumed from the checkpoint, starting at frame 12.
  22. stand-ins - the procedural glTF stand-ins at their generators'
                 defaults (avocado, helmet, vrm, truffle), each built through
                 interactive.load_scene (the .glb generated if missing, its
-                textures Lanczos-resized, the tables built; host seconds
-                printed), its triangle count asserted (and the truffle's
-                three sphere lights), so a load that fell back to the floor
-                scene fails; K1/K2 on its 512^2 primary rays against plain
-                (as in phase 21); then 2 warm-up + 4 timed ReSTIR frames at
-                512^2: K1, K2 and K7 launched and none of K3-K6, every frame
-                finite and none black (max LDR > 0.01), fps and Mrays/s.
-                Then `python -m tpu_raytracer_torch --scene truffle
-                --scale=1280x720 --max-frames 4 --no-preview` as a
-                subprocess: exit code 0, K1, K2 and K7 in its launches.
-                Prints the phase's wall time.
+                textures Lanczos-resized, the tables built), its triangle
+                count asserted (and the truffle's three sphere lights), so
+                a load that fell back to the floor scene fails; K1/K2 on
+                its 512^2 primary rays against plain (as in phase 21);
+                then SCENE_FRAMES ReSTIR frames at 512^2: K1, K2 and K7
+                launched and none of K3-K6, every frame finite and none
+                black (max LDR > 0.01). Then `python -m
+                tpu_raytracer_torch --scene truffle --scale=1280x720
+                --max-frames 4 --no-preview` as a subprocess: exit code 0,
+                K1, K2 and K7 in its launches.
  23. walk     - the BVH walk K8 (the route past a scene's brute_max
                 triangle slots). The big scene, built
                 (bigscene.big_scene) as scripts/ucb_bigscene.py
                 builds its own: the floor, the
                 quad light and two create_sphere(8) bodies at x = +-0.3,
-                2,621,444 triangles, past the 2M cap; its host build time,
-                bvh_rec's records and bytes. K8 closest- and any-hit
-                against the plain walk (traversal.trace_plain, with its
-                step counts) on ucb_bigscene.py's 262,144 incoherent and
-                262,144 coherent rays: tri equal on every lane, t
-                bit-equal. Timed by CUDA events beside the plain walk
-                (timed once, counting its steps), K3 on the same scene and
-                rays, and the bound from the plain walk's steps and
-                touched records, each time beside the walk's steps per
-                ray (mean, p99, max), its warps' longest lane over the
-                mean lane (32 lanes in call order) and its box misses
-                (bigscene.step_stats); then K8 and K3 on
-                ucb_bigscene.py's own
-                983,044-triangle scene (three create_sphere(7)) forced
-                through the walk with brute_max=1. The big scene's ReSTIR
-                frame at 512^2: 2 warm-up + 4 timed frames, K8 and K7
-                launched and no other trace kernel, fps, Mrays/s and the
-                peak device memory of the phase. Then the Cornell box
-                built with brute_max=1: K8 against the plain walk on its
-                512^2 primary rays and 262,144 random rays (30% dead),
-                timed beside K1/K2 on the same random rays, and its first
-                2 frames (K8, no K1/K2) against phase
-                5's, PSNR >= VPU_DB (the same hits but exact-t ties).
-                Prints the phase's wall time.
+                2,621,444 triangles, past the 2M cap, routed to the walk.
+                K8 closest- and any-hit against the plain walk
+                (traversal.trace_plain) on ucb_bigscene.py's 262,144
+                incoherent and 262,144 coherent rays: tri equal on every
+                lane, t bit-equal. The big scene's ReSTIR frame at 512^2,
+                SCENE_FRAMES frames: K8 and K7 launched and no other trace
+                kernel, no frame black. Then the Cornell box built with
+                brute_max=1: K8 against the plain walk on its 512^2
+                primary rays and 262,144 random rays (30% dead), and its
+                first 2 frames (K8, no K1/K2) against phase 5's, PSNR >=
+                VPU_DB (the same hits but exact-t ties).
  24. tiles    - the frame over row bands (parallel/tiles.py):
                 bench.py:headline_tiled's sequence (the Cornell box at
-                512^2, 2 warm-up + 8 timed frames, cam.uniform(1.0, i,
-                2), static_ok from the second frame) over 4 bands of 128
-                rows on this card (make_mesh(["cuda:0"] * 4)), and over 4
-                cards where the host has them. The last LDR against the
-                one-device frame of the same sequence, max abs <= 1e-5
-                (the reference's bound, tests/test_tiles.py:49), rays
-                within 1e-3 a frame; then 4 frames with the camera moved
-                at frame 2, held the same way. K1, K2 and K7 launched in
-                every band and no other trace kernel; launches a frame
-                beside 4x phase 5's, fps and Mrays/s beside the one-device
-                sequence's. Prints the measured gaps.
+                512^2, FRAMES frames, cam.uniform(1.0, i, 2), static_ok
+                from the second frame) over 4 bands of 128 rows on this
+                card (make_mesh(["cuda:0"] * 4)), and over 4 cards where
+                the host has them. The last LDR against the one-device
+                frame of the same sequence, max abs <= 1e-5 (the
+                reference's bound, tests/test_tiles.py:49), rays within
+                1e-3 a frame; then 4 frames with the camera moved at frame
+                2, held the same way. K1, K2 and K7 launched in every band
+                and no other trace kernel, the bands' launches summing to
+                the run's.
  25. graph    - the frame as CUDA graphs (render/graph.py:FrameGraph,
                 render_frame and render_progressive captured with their
                 state updated in place): phase 24's headline sequence and
@@ -225,93 +191,79 @@ is non-zero):
                 lockstep, ldr, hdr, every state tensor and rays bit-equal
                 on every frame; eager frames 1 and 2 (static, and with
                 the G-buffer reused) under set_sync_debug_mode("error");
-                the headline sequence timed eager and then replayed:
-                fps, Mrays/s, launches (a replay counts its capture's;
-                equal to the eager frames'), peak memory, and 2 frames of
-                each under torch.profiler (busy share and host launches,
-                as profile_frame.py reads them); the graph with gb_reuse
+                the headline sequence eager and then replayed: launches
+                (a replay counts its capture's) and rays equal, K9's
+                launches 2 x K9_CALL a frame; the graph with gb_reuse
                 against eager frames without it (within
                 GRAPH_REUSE_ATOL, rays exactly W x H fewer after the
-                first); config 1's PROGRESSIVE_FRAMES frames bit-equal and
-                timed replayed; and GRAPH_ROUTE_FRAMES frames each of the
-                knot (K3), the gallery (K4), Cornell under vpu (K5) and
-                mxu3 (K6) and Cornell with brute_max=1 (K8), bit-equal,
-                each route's kernels launched in the replay and no other.
-                Prints the phase's wall time.
+                first); config 1's PROGRESSIVE_FRAMES frames bit-equal;
+                and GRAPH_ROUTE_FRAMES frames each of the knot (K3), the
+                gallery (K4), Cornell under vpu (K5) and mxu3 (K6) and
+                Cornell with brute_max=1 (K8), bit-equal, each route's
+                kernels launched in the replay and no other.
  26. graphs II - config 4 and the row bands replayed. Config 4's
-                FLY_WARMUP + FLY_TIMED frames through
+                FLY_FRAMES frames through
                 FrameGraph(refit_changed=(CRYSTAL,)) (the refit written in
                 place, ops/refit.py:update_instances_, and the frame in
                 one replay) in lockstep with update_instances +
                 render_frame: ldr, hdr, every state tensor, rays and the
                 scene's refit fields bit-equal on every frame, replays
                 after the first under set_sync_debug_mode("error"), the
-                caller's scene unwritten; eager and replayed fps, Mrays/s,
-                launches (equal), at most GRAPH_FLY_LAUNCHES host launches
-                a replayed frame, its busy share over GRAPH_PROFILED
-                frames under torch.profiler, peak memory. Then phase 24's
+                caller's scene unwritten; eager and replayed launches and
+                rays equal, and at most GRAPH_FLY_LAUNCHES host launches
+                a replayed frame under torch.profiler. Then phase 24's
                 headline sequence and moving camera through
                 parallel/tiles.py:TiledFrameGraph over 4 bands of this card
                 (and of 4 cards where the host has them) in lockstep with
                 the eager bands and the one-device frames, every word
                 equal; each band's launches its eager band's (K1, K2 and
-                K7, no other trace kernel); the replayed bands timed
-                (phase 24 times the eager ones), graph launches a
-                replayed frame = bands x segments, other launches at
-                most GRAPH_TILE_OTHER, peak memory; on 4 cards also
+                K7, no other trace kernel); under torch.profiler, graph
+                launches a replayed frame = bands x segments and other
+                launches at most GRAPH_TILE_OTHER; on 4 cards also
                 `python -m tpu_raytracer_torch --tiles 4` (its frames
                 replayed band graphs): exit 0, K1, K2 and K7 launched.
-                Prints the phase's wall time.
  27. tap batch - batched spatial-tap visibility (ops/restir.py,
                 `tap_batch`: the five taps' shadow rays as one any-hit call
                 over a pixel-interleaved stream of 5R rays,
-                `_tap_stream`). The Cornell box at 512^2, TAP_WARMUP +
-                TAP_TIMED frames through FrameGraph(tap_batch=True) in
-                lockstep with render_frame(tap_batch=True), every word
-                equal, an eager batched frame under
-                set_sync_debug_mode("error"); then timed in this process:
-                batched replayed, sequential replayed and batched eager
-                (fps, Mrays/s, K1/K2/K7 launches a frame: K2 4 fewer a
-                frame batched, replayed launches equal to eager), and the
-                replayed batched frame's host launches (2) and busy share
-                under torch.profiler. The stream `_tap_stream` made in one
-                eager frame (spied, not rebuilt) through K2 against plain
-                closest-hit tri>=0, on every lane, t = t_max, timed by
-                CUDA events beside plain with K2's bound; the knot's and
-                the gallery's streams through K3's and K4's any hit
-                against their plain versions. TAP_BAND_FRAMES frames of
-                TiledFrameGraph(tap_batch=True) over 4 bands of this card
-                against the one-device batched frames, every word equal.
-                Then the Cornell box built with subdivide_max_diag=
-                SUBDIV_DIAG: its triangles and chunks against the
-                unsplit box's and its build time, K1 (tri equal, t
-                bit-equal) and K2 against plain on its 512^2 primary
-                rays, SUBDIV_WARMUP + SUBDIV_TIMED replayed frames (K1,
-                K2 and K7 only; fps, Mrays/s). Prints the phase's wall
-                time.
+                `_tap_stream`). The Cornell box at 512^2, TAP_FRAMES
+                frames through FrameGraph(tap_batch=True) in lockstep with
+                render_frame(tap_batch=True), every word equal, an eager
+                batched frame under set_sync_debug_mode("error"); then
+                batched replayed, sequential replayed and batched eager:
+                K1, K2 and K7 launched and no other trace kernel, K2 4
+                launches fewer a frame batched, replayed launches equal to
+                eager, and at most 2 host launches a replayed batched
+                frame under torch.profiler. The stream `_tap_stream` made
+                in one eager frame (spied, not rebuilt) through K2 against
+                plain closest-hit tri>=0, on every lane, t = t_max; the
+                knot's and the gallery's streams through K3's and K4's any
+                hit against their plain versions. TAP_BAND_FRAMES frames
+                of TiledFrameGraph(tap_batch=True) over 4 bands of this
+                card against the one-device batched frames, every word
+                equal. Then the Cornell box built with subdivide_max_diag=
+                SUBDIV_DIAG: more triangles and chunks than the unsplit
+                box's, K1 (tri equal, t bit-equal) and K2 against plain on
+                its 512^2 primary rays, SUBDIV_FRAMES replayed frames (K1,
+                K2 and K7 only).
  28. reorder  - the ray-stream reorder (ops/compaction.py): the Cornell
                 box at 512^2 through render_band with
                 restir.make_ctx(reorder=m) for m in REORDER_MODES,
-                REORDER_WARMUP + REORDER_TIMED eager frames a mode (fps,
-                K1/K2/K7 launches a frame, no other kernel), every word of
-                "live" and "bins" equal to "none"; one frame a mode under
-                `vpu` (K5) and on the knot (K3), every word equal; under
-                `mxu3` (K6) the words and pixels that differ from "none"
-                counted. The streams one Cornell frame hands its queries
-                (spied at trace_api._route): the temporal path's closest-hit
-                calls 1, 4 and 7 (of 7), its last depth's any-hit and the
-                first spatial tap's; on each, a mode's permuted stream
-                through K1 (or K2), K5 and K6 (mxu3, closest streams),
-                each restored result against "none" (K1/K2/K5 every word
-                equal, K6's differing lanes counted, at most PLAIN_DIFF),
-                timed with CUDA events over REORDER_REPS launches, and the
-                permutation (partition, gathers and restore) timed apart,
-                eager and replayed from a CUDA graph (its device time).
-                The device ms of an eager frame a mode under
-                torch.profiler, K1/K2 apart. One render_band call with a
-                "bins" ctx captured in a CUDA graph under
+                REORDER_FRAMES eager frames a mode (K1/K2/K7 launched, no
+                other trace kernel), every word of "live" and "bins" equal
+                to "none"; one frame a mode under `vpu` (K5) and on the
+                knot (K3), every word equal; under `mxu3` (K6) its
+                launches (K6 may differ from "none" in a few lanes). The
+                streams one Cornell frame hands its queries (spied at
+                trace_api._route): the temporal path's closest-hit calls
+                1, 4 and 7 (of 7), its last depth's any-hit and the first
+                spatial tap's; on each, a mode's
+                permuted stream through K1 (or K2), K5 and K6 (mxu3,
+                closest streams), each restored result against "none"
+                (K1/K2/K5 every word equal, K6 at most 2 x PLAIN_DIFF
+                words differing). One render_band call with a "bins" ctx
+                captured in a CUDA graph under
                 set_sync_debug_mode("error"), its replay every word equal
-                to the eager frame. Prints the phase's wall time.
+                to the eager frame.
  29. K9       - run right after the build: the path tracer's shading
                 (csrc/path_trace.cu) against the eager route: both
                 trace_path calls (the temporal candidates and the spatial
@@ -320,15 +272,11 @@ is non-zero):
                 through trace_path_kernel and trace_path_plain on the same
                 CUDA inputs: state and valid_v1 equal on every lane, rays
                 equal, radiance, v1_pos and v1_normal bit-equal on every
-                lane (max abs and ulps printed); K9 launches a frame (2
-                prime, 14 bounce, 2 finish); one call under torch.profiler
-                holds K9_CALL's launches (a session that drops events
-                fails here) and only K9, the trace kernels and the stage
-                mark; K9's device ms a call by launch kind, no less than
-                its bytes bound (K9_*_B a lane, from the queries' live
-                rays, at HBM_PEAK), and the eager route's ms; ptxas's
-                registers and spills for K9's entries. Prints the phase's
-                wall time.
+                lane; MAX_DEPTH queries a call; one call under
+                torch.profiler holds K9_CALL's launches (a session that
+                drops events fails here) and only K9, the trace kernels
+                and the stage mark; K9 launches a frame (2 prime, 14
+                bounce, 2 finish).
  30. K10      - run after phase 29: the post pass (csrc/post.cu) against
                 the eager route (post_process_plain on the card) on live
                 post_process arguments of a Cornell and a truffle
@@ -336,53 +284,14 @@ is non-zero):
                 moving camera (its counter 0, and 5 for the clipped-history
                 branch) and every band of a 4-band split (halo 16) of the
                 still and the moving frame: every ldr and accum word
-                equal (max abs and ulps printed), one "post" launch a
-                call; the still frame's bands together equal to its
-                one-device call; one call under torch.profiler holds K10
-                alone; K10's ms (CUDA events) beside its bytes bound
-                (K10_PX_B a pixel at HBM_PEAK) and the eager route's;
-                ptxas and cudaOccupancyMaxActiveBlocksPerMultiprocessor;
-                "post" launches a replayed frame, 1 on one device and 4
-                on 4 bands.
-Every frame phase (5, 6, 8, 10, 11, 14, 15, 18, 19, 20, 22, 23, 24, 25,
-26, 27, 28) also
-checks that K7, K9 and K10 launched and prints K7's launches a frame; phase 25
-checks K9's launches a replayed Cornell frame (2 x K9_CALL). Then one JSON
-line of per-kernel results (K1-K6: time, plain time and bound at 524,288
-random rays; K7: at 524,288 rows of Cornell's tri_table; K8: at the big
-scene's 262,144 incoherent rays; launches on each kernel's frames; K1,
-K2 and K7 also their launches a frame on config 4's, each stand-in's,
-the 4-band Cornell and the replayed Cornell frames, and on the replayed
-config 4, 4-band, batched-tap and subdivided Cornell frames, K8 on the
-big scene's and the walked Cornell frames, K9 (`path_shade`) by launch
-kind on the replayed Cornell, config 4 and 4-band frames, K10 (`post`),
-`launches_per_frame`; K2
-also its time, plain time and bound on phase 27's tap stream,
-`tap_stream`), and last the device line {"ok": true, "device":
-{...}}. Without a CUDA device it exits with 1 and prints no result.
-
-A kernel's bound is the least time the card could take for the work
-this run's rays need: the ray-triangle tests (MT_FLOPS each, counted from
-csrc/mt.cuh:intersect with an FMA as 2) in every chunk or group whose
-box the ray's final window (t_min, t_hit or t_max) passes, one test per
-occluded any-hit ray, and for K4 one transform (XFORM_FLOPS) per ray and
-instance box passed, at FP32_PEAK; or each input read once and each
-output written once at HBM_PEAK, whichever is longer. K3 does the
-work K1 does (its units, sort and exit only skip work), so both take
-the same bound, and K5 (the same sweep) takes it too.
-K6's bound is the longest of three: its products, 2 x 16 x 4 x 128 x
-passes FLOP for each ray and chunk the ray's window passes, at
-BF16_PEAK (the H100 SXM's dense bf16 tensor rate, 989 TFLOP/s, NVIDIA
-data sheet); its window tests, WINDOW_FLOPS for each such ray and valid
-triangle, at FP32_PEAK; and its bytes (rays, coefficient table, chunk
-boxes, outputs) at HBM_PEAK. Any-hit counts one test
-and one chunk for an occluded ray, as K2's bound does. K8's bound counts
-the plain walk's steps on the same rays: SLAB_FLOPS a box record and
-MT_FLOPS a triangle record at FP32_PEAK, or each record any lane touched
-(48 bytes and its skip and id) read once, the rays read and the results
-written once at HBM_PEAK. K7's bound is its
-bytes alone: each index read once, each output word written once and
-the table read once, at HBM_PEAK.
+                equal, one "post" launch a call; the still frame's bands
+                together equal to its one-device call; one call under
+                torch.profiler holds K10 alone; "post" launches a replayed
+                frame, 1 on one device and 4 on 4 bands.
+Every ReSTIR frame phase but the goldens' (5, 8, 10, 11, 14, 20-28) also
+checks that K7, K9 and K10 launched; the goldens and configs 1 and 5
+check K7. Last it prints the device line {"ok": true, "device": {...}}.
+Without a CUDA device it exits with 1 and prints no result.
 """
 
 import json
@@ -390,28 +299,19 @@ import os
 import subprocess
 import sys
 import tempfile
-import time
 
 import numpy as np
 
 T_ULPS = 2          # K1/K4 t against plain; measured 0 on the CPU twins
 GOLDEN_DB = 38.0
-WARMUP, TIMED = 2, 8
-GALLERY_WARMUP, GALLERY_TIMED = 2, 4   # also the knot and bunny frames
+FRAMES = 10         # the Cornell sequence, bench.py:headline's 2 + 8
+# the gallery's, knot's, bunny's, stand-ins' and big scene's frames
+SCENE_FRAMES = 6
 KNOT_TRIANGLES = 100804   # 420 x 120 x 2 knot + floor + light quads
 WIDTH = HEIGHT = 512
 RANDOM_RAYS = 524288
-TIMED_RAYS = (262144, 524288)
 DEVICE = "cuda:0"
-# H100 SXM published peaks (NVIDIA data sheet): FP32 outside the tensor
-# cores, and HBM3
-FP32_PEAK = 67e12
-HBM_PEAK = 3.35e12
-BF16_PEAK = 989e12  # dense bf16 on the tensor cores
-MT_FLOPS = 46       # one ray-triangle test
-XFORM_FLOPS = 36    # one ray moved into an instance's object space
-WINDOW_FLOPS = 15   # one window test on K6's products (csrc/trace_mxu.cu)
-MODE_WARMUP, MODE_TIMED = 2, 4     # the Cornell frames under a mode
+MODE_FRAMES = 6     # the Cornell frames under a mode
 VPU_DB = 60.0       # vpu against the default frame (K5 returns K1's hits)
 # K6 against K1: the reference's tolerance for its bf16 modes
 # (tests/test_mxu_kernel.py:40-52)
@@ -420,21 +320,18 @@ AGREE, MEDIAN_REL = 0.999, 1e-4
 # hit/miss and (separately) in tri, and the max relative t error where tri
 # agrees; measured 0, 0 and 5.94e-5 on the card (PERF.md, PR 4)
 PLAIN_DIFF, PLAIN_REL = 8, 1e-4
-# K6's variants: (name, mode, grp (None: the in-kernel cull's 2 or 4),
-# passes, in-kernel cull, the TPU kernel's line)
-MXU_VARIANTS = (("mxu3", "mxu3", 1, 3, False, 1186),
-                ("mxu1", "mxu1", 1, 1, False, 1186),
-                ("mxuw8", "mxuw", 8, 3, False, 1070),
-                ("incull", "mxuf2", None, 3, True, 701))
-PROGRESSIVE_FRAMES = 34    # config 1 (bench.py:151-172), 2 untimed
+# K6's variants: (name, grp (None: the in-kernel cull's 2 or 4), passes,
+# in-kernel cull)
+MXU_VARIANTS = (("mxu3", 1, 3, False), ("mxu1", 1, 1, False),
+                ("mxuw8", 8, 3, False), ("incull", None, 3, True))
+PROGRESSIVE_FRAMES = 34    # config 1 (bench.py:151-172)
 SHOT_W, SHOT_H, SHOT_FRAMES = 3840, 2160, 32   # config 5 (bench.py:207-279)
 # config 4 (bench.py:187-206): the 1080p fly-through, the crystal
 # (instance 6) refit every frame
-FLY_W, FLY_H, FLY_WARMUP, FLY_TIMED, CRYSTAL = 1920, 1080, 2, 6, 6
+FLY_W, FLY_H, FLY_FRAMES, CRYSTAL = 1920, 1080, 8, 6
 # the changed-instance refit against the full one; the same bound holds
 # the port's refit tables to the reference's (tests/test_torch_refit.py)
 REFIT_ATOL = 1e-6
-REFIT_REPS = 5      # refits under torch.profiler for their device time
 # the app (phase 21): the reference app's default size (src/main.rs:122)
 APP_W, APP_H, APP_FRAMES, APP_SPP, APP_RESUME = 1280, 720, 12, 8, 2
 # the procedural glTF stand-ins (phase 22): the app's scene name and the
@@ -443,15 +340,13 @@ APP_W, APP_H, APP_FRAMES, APP_SPP, APP_RESUME = 1280, 720, 12, 8, 2
 # lights of 5,120 triangles)
 STANDINS = (("avocado", 12268), ("helmet", 23364), ("vrm", 11908),
             ("truffle", 23258))
-STANDIN_WARMUP, STANDIN_TIMED, STANDIN_APP_FRAMES = 2, 4, 4
+STANDIN_APP_FRAMES = 4
 # the BVH walk (phase 23): two create_sphere(8) bodies past the cap, and
-# scripts/ucb_bigscene.py's three create_sphere(7) bodies; its ray sets
-BIG_SUBDIV, BIG_TRIANGLES, UCB_TRIANGLES = 8, 2 * 1310720 + 4, 3 * 327680 + 4
-WALK_RAYS, WALK_REPS = 262144, 5
-WALK_WARMUP, WALK_TIMED = 2, 4
-SLAB_FLOPS = 25     # one box record: csrc/trace_bvh.cu:box_hit
+# scripts/ucb_bigscene.py's ray sets
+BIG_SUBDIV, BIG_TRIANGLES = 8, 2 * 1310720 + 4
+WALK_RAYS = 262144
 # row bands (phase 24): bench.py:headline_tiled's sequence (Cornell 512^2,
-# 2 + 8 frames, cam.uniform(1.0, i, 2)) over 4 bands of 128 rows, the
+# FRAMES frames, cam.uniform(1.0, i, 2)) over 4 bands of 128 rows, the
 # reference's bound against the one-device frame (tests/test_tiles.py:49),
 # and test_tiled_matches_single_chip_with_motion's 4 frames (moved at 2)
 TILE_BANDS, TILE_LDR_ATOL, TILE_RAYS_ATOL = 4, 1e-5, 1e-3
@@ -461,9 +356,9 @@ TILE_MOTION_FRAMES, TILE_MOVE_AT = 4, 2
 GATHER_RAYS = (262144, 524288, APP_W * APP_H, FLY_W * FLY_H, 3840 * 2160)
 # the frame as CUDA graphs (phase 25): G-buffer reuse against the traced
 # G-buffer within the reference test's bound (tests/test_dedup.py:49-69);
-# 2 frames of each other route; 1 frame under torch.profiler
+# 2 frames of each other route
 GRAPH_REUSE_ATOL = 2e-5
-GRAPH_ROUTE_FRAMES, GRAPH_PROFILED = 2, 1
+GRAPH_ROUTE_FRAMES = 2
 # config 4 and the row bands replayed (phase 26): host launches a
 # replayed config-4 frame (the graph and its input copies), and a
 # replayed tiled frame's launches besides its bands x segments graphs
@@ -472,15 +367,15 @@ GRAPH_FLY_LAUNCHES, GRAPH_TILE_OTHER = 20, 4 * TILE_BANDS + 8
 # batched spatial taps (phase 27): the Cornell frames eager and replayed,
 # the 4-band frames, and the subdivided Cornell box's cut
 # (subdivide_max_diag) and frames
-TAP_WARMUP, TAP_TIMED, TAP_BAND_FRAMES = 2, 6, 2
-SUBDIV_DIAG, SUBDIV_WARMUP, SUBDIV_TIMED = 0.1, 2, 4
+TAP_FRAMES, TAP_BAND_FRAMES = 8, 2
+SUBDIV_DIAG, SUBDIV_FRAMES = 0.1, 6
 # the ray-stream reorder (phase 28): the modes of make_ctx(reorder=), the
-# eager Cornell frames a mode, launches a timing, and the streams of one
-# frame's queries timed: (label, index in the frame's order of queries:
-# 0 the G-buffer, 1-7 the temporal path's closest hits, 8 its last
-# depth's any hit, 9-13 the spatial taps')
+# eager Cornell frames a mode, and the streams of one frame's queries:
+# (label, index in the frame's order of queries: 0 the G-buffer, 1-7 the
+# temporal path's closest hits, 8 its last depth's any hit, 9-13 the
+# spatial taps')
 REORDER_MODES = ("none", "live", "bins")
-REORDER_WARMUP, REORDER_TIMED, REORDER_REPS = 2, 2, 20
+REORDER_FRAMES = 4
 REORDER_STREAMS = (("closest 1", 1), ("closest 4", 4), ("closest 7", 7),
                    ("any, last depth", 8), ("tap 1", 9))
 
@@ -514,39 +409,13 @@ def _ulps(a, b):
             - b.view(np.int32).astype(np.int64))
 
 
-def _time_ms(torch, fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def _time_once(torch, fn):
-    """(fn(), its device time in ms) for one call that is slow enough
-    to time alone."""
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = fn()
-    end.record()
-    torch.cuda.synchronize()
-    return out, start.elapsed_time(end)
-
-
-def _profile_call(torch, fn):
-    """The card's operations in one call of fn, as torch.profiler's
-    key_averages() entries: the session runs fn once as its warm-up step,
+def _device_ops(torch, fn):
+    """{name: count} of the operations the card ran in one call of fn,
+    under torch.profiler: the session runs fn once as its warm-up step,
     whose events it drops, and records the second call alone. A session's
     first call can lose its first kernel's event; the warm-up step takes
-    that loss. The steps' own annotations are no device work and are left
-    out."""
+    that loss. It records the device's activity alone: with the host's
+    too, a process's second such session has recorded no device work."""
     acts = [torch.profiler.ProfilerActivity.CUDA]
     sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
     torch.cuda.synchronize()
@@ -556,131 +425,37 @@ def _profile_call(torch, fn):
             torch.cuda.synchronize()
             prof.step()
     cuda = torch.autograd.DeviceType.CUDA
-    return [e for e in prof.key_averages() if e.device_type == cuda
-            and not getattr(e, "is_user_annotation", False)]
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == cuda and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)}
 
 
-def _nbytes(*tensors):
-    return sum(x.numel() * x.element_size() for x in tensors)
+def _host_launches(torch, render, seq):
+    """(launches of device work, of them graph launches) the host makes
+    a frame in seq[1:], each render(*its inputs), under torch.profiler,
+    after seq[0] unprofiled."""
+    render(*seq[0])
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for inputs in seq[1:]:
+            render(*inputs)
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+
+    def count(*keys):
+        return sum(e.count for e in avgs if e.key in keys) / (len(seq) - 1)
+    return (count("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                  "cudaGraphLaunch"), count("cudaGraphLaunch"))
 
 
-def _bound(flops, nbytes):
-    """(bound_ms, bound_by): the longer of the operations at FP32_PEAK and
-    the bytes at HBM_PEAK."""
-    t_ops, t_bytes = flops / FP32_PEAK, nbytes / HBM_PEAK
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
-
-
-def _window(torch, res, t_max):
-    """Each ray's final window end: its hit's t, else t_max."""
-    return torch.where(res["tri"] >= 0, torch.minimum(res["t"], t_max),
-                       t_max)
-
-
-def _flat_tests(trace_api, scene, o, d, t_min, t_hi):
-    """(ray-triangle tests, ray-chunk pairs) a 128-triangle-chunk-culled
-    sweep must make for windows (t_min, t_hi): valid triangles of every
-    chunk each ray's window passes, and those chunks."""
-    from tpu_raytracer_torch.utils.vec3 import V3
-
-    ov, dv = V3(*o), V3(*d)
-    inv = trace_api.safe_inv_dir(dv)
-    per_chunk = scene.tri_planes[3, 0].reshape(-1, trace_api.CT).sum(1)
-    n = pairs = 0
-    for c, box in enumerate(scene.chunk_aabb.cpu().tolist()):
-        lanes = (t_hi > 0) & trace_api.slab_pass(box, ov, inv, t_min, t_hi)
-        n += int(per_chunk[c]) * int(lanes.sum())
-        pairs += int(lanes.sum())
-    return n, pairs
-
-
-def _mxu_bound(tests, pairs, passes, nbytes):
-    """(bound_ms, bound_by) of K6: the longest of its products (16 x 4
-    x 128 multiply-adds per ray and chunk, a pass each) at BF16_PEAK, its
-    window tests at FP32_PEAK and its bytes at HBM_PEAK."""
-    t_dot = pairs * 2 * 16 * 4 * 128 * passes / BF16_PEAK
-    t_ops = max(t_dot, tests * WINDOW_FLOPS / FP32_PEAK)
-    t_bytes = nbytes / HBM_PEAK
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
-
-
-def _inst_tests(torch, trace_api, trace_inst, scene, o, d, t_min, t_hi):
-    """(ray-triangle tests, ray transforms) a sweep culled per instance
-    box and per 256-triangle object group must make for windows (t_min,
-    t_hi), in the unit order of trace_inst.trace_instanced_plain."""
-    import itertools
-
-    from tpu_raytracer_torch.utils.vec3 import V3
-
-    ov, dv = V3(*o), V3(*d)
-    inv = trace_api.safe_inv_dir(dv)
-    per_group = scene.tri_planes[3, 0].reshape(-1, trace_inst.GROUP).sum(1)
-    per_group = per_group.cpu().tolist()
-    inst_boxes = scene.inst_aabb.cpu().tolist()
-    group_boxes = scene.obj_group_aabb.T.cpu().tolist()
-    units = zip(scene.unit_inst.cpu().tolist(),
-                scene.unit_group.cpu().tolist())
-    tests = transforms = 0
-    for i, run in itertools.groupby(units, key=lambda u: u[0]):
-        sel = (t_hi > 0) & trace_api.slab_pass(inst_boxes[i], ov, inv, t_min,
-                                                t_hi)
-        lanes = torch.nonzero(sel).squeeze(1)
-        if lanes.numel() == 0:
-            continue
-        transforms += lanes.numel()
-        oo, od = trace_inst.to_object(scene.inst_table[i],
-                                      V3(*(x[lanes] for x in ov)),
-                                      V3(*(x[lanes] for x in dv)))
-        o_inv = trace_api.safe_inv_dir(od)
-        for _, g in run:
-            hit = trace_api.slab_pass(group_boxes[g], oo, o_inv,
-                                      t_min[lanes], t_hi[lanes])
-            tests += int(per_group[g]) * int(hit.sum())
-    return tests, transforms
-
-
-def _ptxas_of(ptxas, kernel):
-    """ptxas's registers line for each entry (closest, any) of the kernels
-    whose names hold `kernel` (a template's <true> entry, or a name with
-    any_hit, is the any-hit one), from the build's ptxas lines."""
-    out, compiling = [], ""
-    for ln in ptxas:
-        if "Compiling entry" in ln:
-            compiling = ln
-        elif kernel in compiling:
-            any_hit = "ILb1" in compiling or "any_hit" in compiling
-            out.append(f"{'any' if any_hit else 'closest'}:"
-                       f"{ln.split(':', 1)[-1]}")
-    return out
-
-
-def _ptxas_entries(ptxas, kernel):
-    """ptxas's registers line for each instance of the kernel template
-    named `kernel`, labelled by its template arguments as the mangled
-    name gives them (ints and bools in order), from the build's lines."""
-    import re
-
-    out, compiling = [], ""
-    for ln in ptxas:
-        if "Compiling entry" in ln:
-            compiling = ln
-        elif kernel in compiling:
-            args = re.findall(r"L([ib])(\d+)E", compiling.split(kernel, 1)[1])
-            label = ",".join(v if t == "i" else ("true", "false")[v == "0"]
-                             for t, v in args)
-            out.append(f"<{label}>:{ln.split(':', 1)[-1]}")
-    return out
-
-
-def _run_frames(torch, scene, dev, warmup, timed, name, on, off):
-    """The main path: `warmup` + `timed` ReSTIR frames of `scene` at
-    WIDTH x HEIGHT through render_frame (static_ok from the second frame
-    on), with the launch counts set to 0 just before. Checks the output
-    and that the kernels `on` and K7 (every frame's row fetches) launched
-    and those `off` did not. Returns (seconds of the timed frames, rays
-    per timed frame, launches, every frame's ldr)."""
+def _run_frames(torch, scene, dev, frames, name, on, off):
+    """The main path: `frames` ReSTIR frames of `scene` at WIDTH x HEIGHT
+    through render_frame (static_ok from the second frame on), with the
+    launch counts set to 0 just before. Checks the output and that the
+    kernels `on`, K7 (every frame's row fetches), K9 and K10 launched and
+    those `off` did not. Returns every frame's ldr."""
     from tpu_raytracer_torch.ops import trace_api
     from tpu_raytracer_torch.render import camera, pipeline, renderer
 
@@ -688,19 +463,13 @@ def _run_frames(torch, scene, dev, warmup, timed, name, on, off):
     state = pipeline.init_state(WIDTH, HEIGHT, dev)
     trace_api.reset_launch_counts()
     rays, ldrs = [], []
-    for i in range(warmup + timed):
+    for i in range(frames):
         uniform = renderer.camera_to_device(
             cam.uniform(WIDTH / HEIGHT, i, scene.num_lights), dev)
         ldr, hdr, state, aux = pipeline.render_frame(
             scene, uniform, i, state, WIDTH, HEIGHT, static_ok=i > 0)
         ldrs.append(ldr)
-        if i == warmup - 1:
-            torch.cuda.synchronize()
-            t0 = time.time()
-        elif i >= warmup:
-            rays.append(aux["rays"])
-    torch.cuda.synchronize()
-    dt = time.time() - t0
+        rays.append(aux["rays"])
     launches = dict(trace_api.LAUNCHES)
     on = [*on, "table_gather", *FRAME_SHADE]
     if min(launches[k] for k in on) <= 0 or any(launches[k] for k in off):
@@ -711,24 +480,9 @@ def _run_frames(torch, scene, dev, warmup, timed, name, on, off):
         raise AssertionError(f"{name} ldr is not finite in [0, 1]")
     if not torch.isfinite(hdr).all():
         raise AssertionError(f"{name} hdr is not finite")
-    rays = [float(r) for r in rays]
-    if min(rays) <= 0:
+    if min(float(r) for r in rays) <= 0:
         raise AssertionError(f"{name} aux['rays'] is not positive")
-    return dt, rays, launches, ldrs
-
-
-def _k7_line(launches, frames):
-    return (f"K7 {launches['table_gather'] / frames:.2f} launches/frame "
-            f"over {frames} frames")
-
-
-def _frame_line(what, timed, dt, rays, launches, card, frames):
-    total = sum(rays)
-    return (f"{what} {WIDTH}x{HEIGHT}, {timed} timed frames: "
-            f"{timed / dt:.4f} fps, {total / dt / 1e6:.4f} Mrays/s, "
-            f"{dt / timed * 1e3:.2f} ms/frame, {total / timed:.0f} "
-            f"rays/frame; launches {launches}; {_k7_line(launches, frames)} "
-            f"[{card}]")
+    return ldrs
 
 
 def _psnr(a, b):
@@ -738,8 +492,8 @@ def _psnr(a, b):
 
 
 def _golden_psnr(torch, scene, dev, size, frames, path):
-    """(PSNR of `frames` frames at size^2 against the golden LDR image,
-    K7's launches over them); raises unless K7 launched."""
+    """PSNR of `frames` frames at size^2 against the golden LDR image;
+    raises unless K7 launched and the PSNR is at least GOLDEN_DB."""
     from tpu_raytracer_torch.ops import trace_api
     from tpu_raytracer_torch.render import camera, pipeline, renderer
 
@@ -760,22 +514,21 @@ def _golden_psnr(torch, scene, dev, size, frames, path):
     if not psnr >= GOLDEN_DB:
         raise AssertionError(f"golden {os.path.basename(path)}: PSNR "
                              f"{psnr:.2f} dB < {GOLDEN_DB}")
-    return psnr, launches
+    return psnr
 
 
 def _check_closest(name, got, want, hit_keys=("tri",)):
     """Raise unless `got` has `want`'s hit keys on every lane and t within
-    T_ULPS; returns (max ulps, max |dt| on hit lanes, hit share)."""
+    T_ULPS; returns the largest t difference in ulps."""
     for key in hit_keys:
         bad = int((got[key] != want[key]).sum())
         if bad:
             raise AssertionError(f"{name}: {key} differs on {bad} lanes")
     g_t, w_t = got["t"].cpu().numpy(), want["t"].cpu().numpy()
-    hit = want["tri"].cpu().numpy() >= 0
     ulps = int(np.abs(_ulps(g_t, w_t)).max())
     if ulps > T_ULPS:
         raise AssertionError(f"{name}: t differs by {ulps} ulps")
-    return ulps, float(np.abs(g_t - w_t)[hit].max(initial=0)), hit.mean()
+    return ulps
 
 
 def _compare(got, want):
@@ -816,18 +569,14 @@ def _check_plain(name, cmp, any_hit):
         raise AssertionError(f"{name}: outside tolerance: {cmp}")
 
 
-def _gather_phase(torch, dev, card, tables, sizes):
+def _gather_phase(torch, dev, tables, sizes):
     """Phase 16: K7 on each (name, [M, C] table) at each index count in
-    `sizes`, against its plain version bit for bit, timed beside it and
-    beside torch.index_select on the transposed table. Returns {(name,
-    n): (max |err|, ms, plain ms, library ms, (bound ms, bound by))}."""
+    `sizes`, against its plain version bit for bit."""
     from tpu_raytracer_torch.ops import table_gather
 
     gen = torch.Generator(device=dev).manual_seed(5)
-    k7 = {}
     for tname, table in tables:
         m, c = table.shape
-        table_cm = table.T.contiguous()      # the yardstick's layout
         for n in sizes:
             # random rows, an eighth of them past either end of the table
             idx = torch.randint(-(m // 8) - 1, m + m // 8 + 1, (n,),
@@ -835,26 +584,12 @@ def _gather_phase(torch, dev, card, tables, sizes):
             got = table_gather.table_gather_kernel(table, idx)
             want = table_gather.table_gather_plain(table, idx)
             torch.cuda.synchronize()
-            same = got.view(torch.int32) == want.view(torch.int32)
-            bad = int((~same).sum())
+            bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
             if bad:
                 raise AssertionError(f"K7 {tname} at {n} rows: {bad} words "
                                      f"differ from plain")
-            err = float(torch.where(same, 0.0, (got - want).abs()).max())
-            ms = _time_ms(torch, lambda: table_gather.table_gather_kernel(
-                table, idx), 20)
-            plain_ms = _time_ms(torch, lambda: table_gather.table_gather_plain(
-                table, idx), 5)
-            valid = idx.clamp(0, m - 1)      # index_select does not clamp
-            lib_ms = _time_ms(torch, lambda: torch.index_select(
-                table_cm, 1, valid), 20)
-            bound = _bound(0, _nbytes(idx, got, table))
-            k7[(tname, n)] = (err, ms, plain_ms, lib_ms, bound)
-            print(f"K7: {tname} [{m}, {c}] at {n} random rows: equal to "
-                  f"plain bit for bit; K7 {ms:.4f} ms, plain {plain_ms:.4f} "
-                  f"ms, index_select {lib_ms:.4f} ms, bound {bound[0]:.4f} "
-                  f"ms ({bound[1]}) [{card}]", flush=True)
-    return k7
+        print(f"K7: {tname} [{m}, {c}] at {', '.join(map(str, sizes))} "
+              f"random rows: equal to plain bit for bit", flush=True)
 
 
 def _first_frames(scene, dev, n):
@@ -900,7 +635,7 @@ def _swept_knot_phase(scene, dev, want_ldrs):
                              f"those through K3 in {bad} values")
     print(f"knot route: the first {len(ldrs)} knot {WIDTH}x{HEIGHT} frames "
           f"through K1/K2 (MXUF_MAX_TP raised) equal those through K3 bit "
-          f"for bit; launches {launches}", flush=True)
+          f"for bit", flush=True)
 
 
 def _fetch_phase(torch, scene, dev, want_ldrs):
@@ -919,21 +654,18 @@ def _fetch_phase(torch, scene, dev, want_ldrs):
     if launches["table_gather"] or not launches["closest_hit"]:
         raise AssertionError(f"the plain-fetch frames must launch K1 and not "
                              f"K7: {launches}")
-    diff = max(float((a - b).abs().max()) for a, b in zip(ldrs, want_ldrs))
     psnr = min(_psnr(a.numpy(), b.numpy()) for a, b in zip(ldrs, want_ldrs))
     if not psnr >= VPU_DB:
         raise AssertionError(f"plain-fetch frames: PSNR {psnr:.2f} dB "
                              f"against K7's < {VPU_DB}")
     print(f"fetch: the first {len(ldrs)} Cornell {WIDTH}x{HEIGHT} frames "
           f"with the plain gather (K7 not launched) against the same frames "
-          f"through K7: max |diff| {diff:.3g}, PSNR {psnr:.2f} dB (floor "
-          f"{VPU_DB})", flush=True)
+          f"through K7: PSNR {psnr:.2f} dB (floor {VPU_DB})", flush=True)
 
 
-def _progressive_phase(torch, dev, card, width, height, frames):
+def _progressive_phase(torch, dev, width, height, frames):
     """Phase 18, bench.py's config 1: `frames` render_progressive frames
-    of the diffuse Cornell box, the first 2 untimed. Returns the
-    launches."""
+    of the diffuse Cornell box."""
     from tpu_raytracer_torch.models import scenes
     from tpu_raytracer_torch.ops import trace_api
     from tpu_raytracer_torch.render import camera, renderer
@@ -947,11 +679,6 @@ def _progressive_phase(torch, dev, card, width, height, frames):
             cam.uniform(1.0, f, scene.num_lights), dev)
         accum, rad = renderer.render_progressive(scene, uniform, f, accum,
                                                  width, height)
-        if f == 1:
-            torch.cuda.synchronize()
-            t0 = time.time()
-    torch.cuda.synchronize()
-    dt = time.time() - t0
     launches = dict(trace_api.LAUNCHES)
     if not (launches["closest_hit"] > 0 and launches["table_gather"] > 0):
         raise AssertionError(f"config 1 must launch K1 and K7: {launches}")
@@ -960,19 +687,16 @@ def _progressive_phase(torch, dev, card, width, height, frames):
         raise AssertionError("config 1: accum is not finite, non-negative "
                              "and lit")
     print(f"config 1: diffuse Cornell ({scene.num_triangles} triangles) "
-          f"{width}x{height}, {frames - 2} timed render_progressive frames: "
-          f"fps_1spp_progressive {(frames - 2) / dt:.4f}, "
-          f"{dt / (frames - 2) * 1e3:.2f} ms/frame; launches {launches}; "
-          f"{_k7_line(launches, frames)} [{card}]", flush=True)
-    return launches
+          f"{width}x{height}, {frames} render_progressive frames: K1 and K7 "
+          f"launched, the accumulation finite, non-negative and lit",
+          flush=True)
 
 
-def _screenshot_phase(torch, scene, dev, card, width, height, frames):
+def _screenshot_phase(torch, scene, dev, width, height, frames):
     """Phase 19, bench.py's config 5 at width x height as one frame:
-    frame 0; frame 1 and a warm-up denoise; frame 2 and its denoise,
-    timed; frames 3 to frames - 1 accumulate. The denoised frame 2 must
-    beat the un-denoised one against the accumulation. Returns the
-    launches."""
+    frames 0-2, frame 2 denoised, then frames 3 to frames - 1
+    accumulated. The denoised frame 2 must beat the un-denoised one
+    against the accumulation; its PNG must read back."""
     from tpu_raytracer_torch.app.screenshot import (ScreenshotSaver,
                                                     denoised_screenshot)
     from tpu_raytracer_torch.ops import trace_api
@@ -990,35 +714,15 @@ def _screenshot_phase(torch, scene, dev, card, width, height, frames):
 
     state = pipeline.init_state(width, height, dev)
     trace_api.reset_launch_counts()
-    t0 = time.time()
-    _, hdr, state, _ = frame(0, state)
-    torch.cuda.synchronize()
-    first_s = time.time() - t0
-    torch.cuda.reset_peak_memory_stats()
-    _, hdr, state, _ = frame(1, state)
-    torch.cuda.synchronize()
-    frame_peak = torch.cuda.max_memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    den = denoised_screenshot(state["gb"], hdr, width, height)   # warm-up
-    torch.cuda.synchronize()
-    den_peak = torch.cuda.max_memory_allocated()
-    del den
-    t0 = time.time()
-    _, hdr, state, _ = frame(2, state)
+    for f in range(3):
+        _, hdr, state, _ = frame(f, state)
     den = denoised_screenshot(state["gb"], hdr, width, height)
-    torch.cuda.synchronize()
-    s_per_frame = time.time() - t0
-    _, den_ms = _time_once(torch, lambda: denoised_screenshot(
-        state["gb"], hdr, width, height))
     den_tm = resolve_tonemap(den).cpu().numpy()
     raw_tm = resolve_tonemap(hdr.reshape(height, width, 3)).cpu().numpy()
     den_img = den.cpu().numpy()
     del den
-    t0 = time.time()
     for f in range(3, frames):
         _, hdr, state, _ = frame(f, state)
-    torch.cuda.synchronize()
-    accum_s = time.time() - t0
     launches = dict(trace_api.LAUNCHES)
     ref_tm = resolve_tonemap(state["accum"].reshape(height, width, 3))
     ref_tm = ref_tm.cpu().numpy()
@@ -1045,18 +749,10 @@ def _screenshot_phase(torch, scene, dev, card, width, height, frames):
     if png_shape != (height, width, 4):
         raise AssertionError(f"config 5: the screenshot PNG decodes to "
                              f"{png_shape}")
-    total = torch.cuda.get_device_properties(0).total_memory
-    print(f"config 5: Cornell {width}x{height} as one frame: frame 0 "
-          f"{first_s:.2f} s; s_per_denoised_frame {s_per_frame:.4f} (frame "
-          f"2 + its denoise), denoise alone {den_ms:.2f} ms; frames "
-          f"3-{frames - 1} {accum_s / (frames - 3):.4f} s/frame; "
-          f"denoised_psnr_vs_{frames}spp_{width}x{height} {den_psnr:.4f} dB "
-          f"(frame 2 without the denoise {raw_psnr:.4f} dB); peak memory: "
-          f"frame {frame_peak / 2**30:.2f} GiB, denoise "
-          f"{den_peak / 2**30:.2f} GiB of {total / 2**30:.1f} GiB; PNG "
-          f"{png_shape} read back; launches {launches}; "
-          f"{_k7_line(launches, frames)} [{card}]", flush=True)
-    return launches
+    print(f"config 5: Cornell {width}x{height} as one frame, {frames} "
+          f"frames: the denoised frame 2 at {den_psnr:.4f} dB of the "
+          f"accumulation, above the frame without the denoise "
+          f"({raw_psnr:.4f} dB); PNG {png_shape} read back", flush=True)
 
 
 def _check_primary(torch, scene, uniform, width, height, what):
@@ -1095,7 +791,7 @@ def _check_fetch(torch, scene, uniform, width, height, what):
     """Raise unless one ReSTIR frame of `scene` at width x height from a
     fresh state (frame 0, static_ok False) with hit.fetch_cols set to the
     plain gather is within VPU_DB of the same frame through K7, as phase
-    17 holds them. Returns (max |diff|, PSNR)."""
+    17 holds them. Returns the PSNR."""
     from tpu_raytracer_torch.ops import hit, table_gather, trace_api
     from tpu_raytracer_torch.render import pipeline
 
@@ -1118,11 +814,11 @@ def _check_fetch(torch, scene, uniform, width, height, what):
         raise AssertionError(f"{what}: the K7 frame must launch K7 and the "
                              f"plain-fetch frame not: {k7_launched}, "
                              f"{plain_launched}")
-    diff, psnr = float(np.abs(got - want).max()), _psnr(got, want)
+    psnr = _psnr(got, want)
     if not psnr >= VPU_DB:
         raise AssertionError(f"{what}: the plain-fetch frame is at PSNR "
                              f"{psnr:.2f} dB of K7's, < {VPU_DB}")
-    return diff, psnr
+    return psnr
 
 
 def _boxes_contain(torch, scene):
@@ -1159,16 +855,15 @@ def _wobble(torch, base, i, dev):
     return torch.as_tensor(tf, dtype=torch.float32, device=dev)
 
 
-def _flythrough_phase(torch, dev, card):
+def _flythrough_phase(torch, dev):
     """Phase 20, bench.py's config 4: the Cornell box at FLY_W x FLY_H,
-    FLY_WARMUP + FLY_TIMED frames; each frame presses `d` for 1/60 s
-    (the accumulation restarts), moves the crystal by bench.py's wobble
-    and refits with changed=(CRYSTAL,), then renders with static_ok
-    False. From the second frame on every update_instances call runs
-    under torch.cuda.set_sync_debug_mode("error"). Then the checks:
-    the last refit against a full refit of the same transforms, K1/K2 on
-    the refit scene against plain, the refit boxes, and a repack.
-    Returns (launches, frames)."""
+    FLY_FRAMES frames; each frame presses `d` for 1/60 s (the
+    accumulation restarts), moves the crystal by bench.py's wobble and
+    refits with changed=(CRYSTAL,), then renders with static_ok False.
+    From the second frame on every update_instances call runs under
+    torch.cuda.set_sync_debug_mode("error"). Then the checks: the last
+    refit against a full refit of the same transforms, K1/K2 on the
+    refit scene against plain, the refit boxes, and a repack."""
     from tpu_raytracer_torch.models import scenes
     from tpu_raytracer_torch.ops import lbvh, refit, trace_api
     from tpu_raytracer_torch.render import camera, pipeline, renderer
@@ -1182,36 +877,24 @@ def _flythrough_phase(torch, dev, card):
 
     cam = camera.CameraController()
     state = pipeline.init_state(FLY_W, FLY_H, dev)
-    frames = FLY_WARMUP + FLY_TIMED
     trace_api.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    rays, host_ms = [], []
-    for i in range(frames):
+    rays = []
+    for i in range(FLY_FRAMES):
         cam.press("d")
         cam.update(1.0 / 60.0)
         cam.release("d")
         tf = wobble(i)
-        h0 = time.perf_counter()
         if i > 0:
             torch.cuda.set_sync_debug_mode("error")
         try:
             scene = refit.update_instances(scene, tf, changed=(CRYSTAL,))
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        h1 = time.perf_counter()
         uniform = renderer.camera_to_device(
             cam.uniform(FLY_W / FLY_H, 0, scene.num_lights), dev)
         ldr, hdr, state, aux = pipeline.render_frame(
             scene, uniform, 0, state, FLY_W, FLY_H, static_ok=False)
-        if i == FLY_WARMUP - 1:
-            torch.cuda.synchronize()
-            t0 = time.time()
-        elif i >= FLY_WARMUP:
-            rays.append(aux["rays"])
-            host_ms.append((h1 - h0) * 1e3)
-    torch.cuda.synchronize()
-    dt = time.time() - t0
-    peak = torch.cuda.max_memory_allocated()
+        rays.append(aux["rays"])
     launches = dict(trace_api.LAUNCHES)
     rays = [float(r) for r in rays]
     on = ["closest_hit", "any_hit", "table_gather", *FRAME_SHADE]
@@ -1227,7 +910,7 @@ def _flythrough_phase(torch, dev, card):
         raise AssertionError(f"config 4: ldr is {tuple(ldr.shape)}")
 
     # the last changed-instance refit against a full one
-    tf = wobble(frames - 1)
+    tf = wobble(FLY_FRAMES - 1)
     full = refit.update_instances(scene0, tf)
     gaps = {}
     for name in ("tri_planes", "chunk_aabb", "tri_table", "bvh_rec",
@@ -1239,24 +922,6 @@ def _flythrough_phase(torch, dev, card):
                              f"full one beyond {REFIT_ATOL}: {gaps}")
     pairs = _boxes_contain(torch, scene)
 
-    # the refit's device time and kernel launches, from torch.profiler
-    # over REFIT_REPS refits
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(REFIT_REPS):
-            refit.update_instances(scene, tf, changed=(CRYSTAL,))
-        torch.cuda.synchronize()
-    avgs = prof.key_averages()
-    refit_dev_ms = sum(e.self_device_time_total for e in avgs if e.device_type
-                       == torch.autograd.DeviceType.CUDA) / 1e3 / REFIT_REPS
-    refit_launches = sum(e.count for e in avgs if e.key in (
-        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")) \
-        / REFIT_REPS
-    if not (refit_dev_ms > 0 and refit_launches > 0):
-        raise AssertionError("config 4: the profiler saw no refit kernels")
-
     # K1 / K2 on the refit scene's primary rays against plain, and its
     # frame with the plain fetch against K7's
     uniform = renderer.camera_to_device(
@@ -1264,8 +929,8 @@ def _flythrough_phase(torch, dev, card):
     o, d, po, pd, t_min, t_max = _check_primary(torch, scene, uniform, FLY_W,
                                                 FLY_H, "config 4")
     n = o.shape[1]
-    fetch_diff, fetch_psnr = _check_fetch(torch, scene, uniform, FLY_W, FLY_H,
-                                          "config 4")
+    fetch_psnr = _check_fetch(torch, scene, uniform, FLY_W, FLY_H,
+                              "config 4")
 
     def k1(s):
         return trace_api.trace_kernel(s.tri_planes, s.chunk_aabb, o, d,
@@ -1296,39 +961,26 @@ def _flythrough_phase(torch, dev, card):
             raise AssertionError(f"config 4: {lanes.numel()} repacked "
                                  f"winners are other triangles without a "
                                  f"tie")
-    total = torch.cuda.get_device_properties(0).total_memory
-    per_frame = {k: round(launches[k] / frames, 2) for k in on}
     print(f"config 4: Cornell {FLY_W}x{FLY_H} fly-through, crystal refit "
-          f"with changed=({CRYSTAL},) each frame, {FLY_TIMED} timed frames: "
-          f"fps_1080p_flythrough_refit {FLY_TIMED / dt:.4f}, "
-          f"{sum(rays) / dt / 1e6:.4f} Mrays/s, {dt / FLY_TIMED * 1e3:.2f} "
-          f"ms/frame; refit a frame: {np.mean(host_ms):.4f} ms of host time "
-          f"({min(host_ms):.4f}-{max(host_ms):.4f}), {refit_dev_ms:.4f} ms of "
-          f"device time in {refit_launches:.0f} kernel launches "
-          f"(torch.profiler, {REFIT_REPS} refits); no host sync in "
-          f"update_instances from frame 1 on; peak memory "
-          f"{peak / 2**30:.2f} GiB of {total / 2**30:.1f} GiB; launches a "
-          f"frame {per_frame} [{card}]", flush=True)
-    print(f"config 4 checks: changed refit against full, max |diff| "
-          f"{max(gaps.values()):.3g} (bound {REFIT_ATOL}; "
-          f"{', '.join(f'{k} {v:.3g}' for k, v in gaps.items())}); "
+          f"with changed=({CRYSTAL},) each frame, {FLY_FRAMES} frames: "
+          f"{on} launched and nothing else, no host sync in "
+          f"update_instances from frame 1 on; changed refit against full, "
+          f"max |diff| {max(gaps.values()):.3g} (bound {REFIT_ATOL}); "
           f"{pairs} (box, triangle) pairs contained; K1 equal to plain on "
           f"{n} primary rays, t bit-equal, K2 occlusion equal; the frame "
-          f"with the plain fetch against K7's: max |diff| {fetch_diff:.3g}, "
-          f"PSNR {fetch_psnr:.2f} dB (floor {VPU_DB}); repack: K1 "
-          f"hit/miss and t bit-equal, rows follow the order, "
-          f"{lanes.numel()} winners moved within exact-t ties", flush=True)
-    return launches, frames
+          f"with the plain fetch against K7's: PSNR {fetch_psnr:.2f} dB "
+          f"(floor {VPU_DB}); repack: K1 hit/miss and t bit-equal, rows "
+          f"follow the order, {lanes.numel()} winners moved within exact-t "
+          f"ties", flush=True)
 
 
-def _app_phase(torch, root, dev, card):
+def _app_phase(torch, root, dev):
     """Phase 21: first, in this process, K1/K2 on the app's default scene
     and camera at APP_W x APP_H against plain, and its first frame with
     the plain fetch against K7's; then `python -m tpu_raytracer_torch` at
     APP_W x APP_H for APP_FRAMES frames (no preview, stdin not a tty, an
     auto-screenshot at APP_SPP samples, a checkpoint), then APP_RESUME
-    more frames resumed from its checkpoint. Returns the first run's
-    launches."""
+    more frames resumed from its checkpoint."""
     from tpu_raytracer_torch.app import interactive
     from tpu_raytracer_torch.render import camera, checkpoint, renderer
     from tpu_raytracer_torch.utils import config, png
@@ -1338,20 +990,17 @@ def _app_phase(torch, root, dev, card):
     uniform = renderer.camera_to_device(camera.CameraController().uniform(
         APP_W / APP_H, 0, scene.num_lights), dev)
     _check_primary(torch, scene, uniform, APP_W, APP_H, "app")
-    fetch_diff, fetch_psnr = _check_fetch(torch, scene, uniform, APP_W, APP_H,
-                                          "app")
+    fetch_psnr = _check_fetch(torch, scene, uniform, APP_W, APP_H, "app")
     print(f"app checks: the default scene ({cfg.scene}) at {APP_W}x{APP_H}: "
           f"K1 equal to plain on {APP_W * APP_H} primary rays, t bit-equal, "
           f"K2 occlusion equal; the first frame with the plain fetch against "
-          f"K7's: max |diff| {fetch_diff:.3g}, PSNR {fetch_psnr:.2f} dB "
-          f"(floor {VPU_DB})", flush=True)
+          f"K7's: PSNR {fetch_psnr:.2f} dB (floor {VPU_DB})", flush=True)
     del scene
 
     with tempfile.TemporaryDirectory() as tmp:
         ck, out = os.path.join(tmp, "app.npz"), os.path.join(tmp, "shots")
 
         def app(frames):
-            t0 = time.time()
             proc = subprocess.run(
                 [sys.executable, "-m", "tpu_raytracer_torch",
                  f"--scale={APP_W}x{APP_H}", "--max-frames", str(frames),
@@ -1363,9 +1012,9 @@ def _app_phase(torch, root, dev, card):
                 raise AssertionError(f"the app exited {proc.returncode}: "
                                      f"{proc.stderr[-3000:]}")
             lines = proc.stdout.strip().splitlines()
-            return lines, json.loads(lines[-1]), time.time() - t0
+            return lines, json.loads(lines[-1])
 
-        lines, tel, wall = app(APP_FRAMES)
+        lines, tel = app(APP_FRAMES)
         shots = os.listdir(out)
         if len(shots) != 1:
             raise AssertionError(f"the app wrote {shots}, not one PNG")
@@ -1380,40 +1029,29 @@ def _app_phase(torch, root, dev, card):
                 and min(launches[k] for k in on) > 0 and "fps" in tel):
             raise AssertionError(f"the app: checkpoint frame_count "
                                  f"{frame_count}, telemetry {tel}")
-        r_lines, r_tel, r_wall = app(APP_RESUME)
+        r_lines, _ = app(APP_RESUME)
         resumed = f"resumed from {ck} at frame {APP_FRAMES}"
         if resumed not in r_lines or (checkpoint.load(ck)[1]
                                       != APP_FRAMES + APP_RESUME):
             raise AssertionError(f"the app did not resume at frame "
                                  f"{APP_FRAMES}: {r_lines}")
     print(f"app: python -m tpu_raytracer_torch --scale={APP_W}x{APP_H}, "
-          f"{APP_FRAMES} frames in {wall:.2f} s of wall time (process "
-          f"included): fps {tel['fps']:.4f} and {tel['mrays_per_s']:.4f} "
-          f"Mrays/s from its FrameStats (frames 2-{APP_FRAMES}); PNG {shape} read back; checkpoint frame_count "
-          f"{frame_count}; resumed at frame {APP_FRAMES} for {APP_RESUME} "
-          f"frames ({r_wall:.2f} s); launches {launches} [{card}]",
-          flush=True)
-    return launches
+          f"{APP_FRAMES} frames: exit 0, {list(on)} launched, PNG {shape} "
+          f"read back, checkpoint frame_count {frame_count}; resumed at "
+          f"frame {APP_FRAMES} for {APP_RESUME} frames", flush=True)
 
 
-def _standins_phase(torch, root, dev, card, kernels):
+def _standins_phase(torch, root, dev, kernels):
     """Phase 22: each stand-in scene built through the app's load_scene,
     checked (triangles, the truffle's lights, K1/K2 on its primary rays)
     and rendered through _run_frames, launching `kernels` and none of the
-    other trace kernels; then the app on the truffle. Returns {name:
-    (launches, frames)}."""
+    other trace kernels; then the app on the truffle."""
     from tpu_raytracer_torch.app import interactive
     from tpu_raytracer_torch.render import camera, renderer
 
-    t_phase = time.time()
     flat, others = kernels
-    out = {}
     for name, want in STANDINS:
-        t0 = time.time()
         scene = interactive.load_scene(name, dev)
-        torch.cuda.synchronize()
-        build_s = time.time() - t0
-        slots = scene.tri_planes.shape[2]
         if scene.num_triangles != want or scene.instanced:
             raise AssertionError(f"{name}: {scene.num_triangles} triangles "
                                  f"(instanced {scene.instanced}), not the "
@@ -1427,24 +1065,20 @@ def _standins_phase(torch, root, dev, card, kernels):
         uniform = renderer.camera_to_device(camera.CameraController().uniform(
             WIDTH / HEIGHT, 0, scene.num_lights), dev)
         _check_primary(torch, scene, uniform, WIDTH, HEIGHT, name)
-        frames = STANDIN_WARMUP + STANDIN_TIMED
-        dt, rays, launches, ldrs = _run_frames(
-            torch, scene, dev, STANDIN_WARMUP, STANDIN_TIMED, name, flat,
-            others)
+        ldrs = _run_frames(torch, scene, dev, SCENE_FRAMES, name, flat,
+                           others)
         for i, ldr in enumerate(ldrs):
             if not (torch.isfinite(ldr).all() and float(ldr.max()) > 0.01):
                 raise AssertionError(f"{name}: frame {i} is not finite or "
                                      f"is black (max {float(ldr.max())})")
-        out[name] = (launches, frames)
-        print(f"stand-in {name}: {scene.num_triangles} triangles in {slots} "
-              f"slots, {scene.num_lights} lights, built in {build_s:.2f} s "
-              f"on the host; K1 equal to plain on {WIDTH * HEIGHT} primary "
-              f"rays, t bit-equal, K2 occlusion equal; "
-              + _frame_line(name, STANDIN_TIMED, dt, rays, launches, card,
-                            frames), flush=True)
+        print(f"stand-in {name}: {scene.num_triangles} triangles, "
+              f"{scene.num_lights} lights; K1 equal to plain on "
+              f"{WIDTH * HEIGHT} primary rays, t bit-equal, K2 occlusion "
+              f"equal; {SCENE_FRAMES} {WIDTH}x{HEIGHT} frames finite, none "
+              f"black, {flat}, K7, K9 and K10 launched and no other trace "
+              f"kernel", flush=True)
         del scene, ldrs
 
-    t0 = time.time()
     proc = subprocess.run(
         [sys.executable, "-m", "tpu_raytracer_torch", "--scene", "truffle",
          f"--scale={APP_W}x{APP_H}", "--max-frames", str(STANDIN_APP_FRAMES),
@@ -1462,26 +1096,20 @@ def _standins_phase(torch, root, dev, card, kernels):
         raise AssertionError(f"the truffle app: telemetry {tel}")
     print(f"stand-in app: python -m tpu_raytracer_torch --scene truffle "
           f"--scale={APP_W}x{APP_H} --max-frames {STANDIN_APP_FRAMES}: exit "
-          f"0 in {time.time() - t0:.2f} s of wall time (process included), "
-          f"fps {tel['fps']:.4f} and {tel['mrays_per_s']:.4f} Mrays/s from "
-          f"its FrameStats; launches {launches}; phase 22 took "
-          f"{time.time() - t_phase:.2f} s [{card}]", flush=True)
-    return out
+          f"0, launches {launches}", flush=True)
 
 
 def _walk_check(torch, scene, what, o, d, t_min, t_max):
-    """K8 closest- and any-hit against the plain walk (with its step
-    counts) on these rays: tri equal on every lane and t bit-equal, or
-    raise. Returns {any_hit: (plain result, plain ms)}."""
+    """K8 closest- and any-hit against the plain walk on these rays: tri
+    equal on every lane and t bit-equal, or raise."""
     from tpu_raytracer_torch.ops import traversal
     from tpu_raytracer_torch.utils.vec3 import V3
 
     bvh = (scene.bvh_rec, scene.bvh_skip, scene.bvh_tri)
-    out = {}
     for any_hit in (False, True):
         got = traversal.trace_bvh_kernel(*bvh, o, d, t_min, t_max, any_hit)
-        want, plain_ms = _time_once(torch, lambda: traversal.trace_plain(
-            *bvh, V3(*o), V3(*d), t_min, t_max, any_hit=any_hit, count=True))
+        want = traversal.trace_plain(*bvh, V3(*o), V3(*d), t_min, t_max,
+                                     any_hit=any_hit)
         query = "any" if any_hit else "closest"
         bad = int((got["tri"] != want["tri"]).sum())
         if bad:
@@ -1492,129 +1120,44 @@ def _walk_check(torch, scene, what, o, d, t_min, t_max):
         if bad:
             raise AssertionError(f"K8 {query} {what}: t differs from the "
                                  f"plain walk on {bad} lanes")
-        out[any_hit] = (want, plain_ms)
-    hit = float((out[False][0]["tri"] >= 0).float().mean())
     print(f"K8: {what}: closest- and any-hit equal the plain walk on "
-          f"{o.shape[1]} rays ({hit:.3f} hit): tri on every lane, t "
-          f"bit-equal", flush=True)
-    return out
+          f"{o.shape[1]} rays: tri on every lane, t bit-equal", flush=True)
 
 
-def _walk_bound(want, n):
-    """((bound ms, by), box steps, triangle steps, records touched) of a
-    walk of n rays whose plain run counted its steps: SLAB_FLOPS a box
-    record and MT_FLOPS a triangle record read; each touched record (48
-    bytes, its skip and id) read once, the rays read and the results
-    written once."""
-    box = int(want["box_steps"].sum())
-    tri = int(want["tri_steps"].sum())
-    touched = int(want["touched"].sum())
-    nbytes = touched * (12 * 4 + 8) + n * (6 * 4 + 8) + n * 8
-    return _bound(box * SLAB_FLOPS + tri * MT_FLOPS, nbytes), box, tri, \
-        touched
-
-
-def _walk_phase(torch, dev, card, every, c_first, ptxas):
+def _walk_phase(torch, dev, every, c_first):
     """Phase 23: the BVH walk (K8) on the 2,621,444-triangle scene past the
-    cap, on ucb_bigscene.py's own 983,044-triangle scene forced through
-    it, and on the Cornell box built with brute_max=1 (its frames against
-    `c_first`, phase 5's). Returns (K8's {(ray set, any_hit): (ms, plain
-    ms, bound, the plain walk's step_stats)}, the big scene's launches and
-    frames, the walked Cornell frames' launches and frames)."""
-    from tpu_raytracer_torch.bigscene import (big_scene, stats_text,
-                                              step_stats, walk_rays)
+    cap, and on the Cornell box built with brute_max=1 (its frames against
+    `c_first`, phase 5's)."""
+    from tpu_raytracer_torch.bigscene import big_scene, walk_rays
     from tpu_raytracer_torch.models import scenes
-    from tpu_raytracer_torch.ops import gbuffer, trace_api, traversal
-    from tpu_raytracer_torch.ops.trace_stream import trace_stream_kernel
+    from tpu_raytracer_torch.ops import gbuffer, trace_api
     from tpu_raytracer_torch.render import camera, renderer
 
-    t_phase = time.time()
     walk = ["bvh_closest_hit", "bvh_any_hit"]
     others = [k for k in every if k not in (*walk, *FRAME_SHADE)]
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
     big = big_scene(dev, BIG_SUBDIV, (-0.3, 0.3))
-    torch.cuda.synchronize()
-    build_s = time.time() - t0
-    tp = big.tri_planes.shape[2]
-    s = big.bvh_rec.shape[0]
-    route = trace_api.trace_route(big.kernel, big.incull, tp, False,
+    route = trace_api.trace_route(big.kernel, big.incull,
+                                  big.tri_planes.shape[2], False,
                                   big.brute_max)
     if big.num_triangles != BIG_TRIANGLES or route[0] != "bvh":
         raise AssertionError(f"big scene: {big.num_triangles} triangles, "
                              f"route {route}")
-    print(f"walk: big scene {big.num_triangles} triangles in {tp} slots "
-          f"(cap {big.brute_max}: route {route[0]}), built in {build_s:.2f} s "
-          f"on the host; bvh_rec {s} records, "
-          f"{_nbytes(big.bvh_rec, big.bvh_skip, big.bvh_tri)} bytes with "
-          f"skip and tri; ptxas K8 "
-          f"{' | '.join(_ptxas_of(ptxas, 'bvh_kernel')) or 'cached'} "
-          f"[{card}]", flush=True)
+    print(f"walk: big scene {big.num_triangles} triangles (cap "
+          f"{big.brute_max}: route {route[0]})", flush=True)
 
-    def k8(scene, rays, any_hit):
-        return traversal.trace_bvh_kernel(scene.bvh_rec, scene.bvh_skip,
-                                          scene.bvh_tri, *rays, any_hit)
-
-    def k3(scene, rays, any_hit):
-        return trace_stream_kernel(scene.tri_planes, scene.chunk_aabb, *rays,
-                                   any_hit=any_hit)
-
-    # K8 against the plain walk, and timed beside K3, on both ray sets
-    rays = walk_rays(dev, WALK_RAYS)
-    out = {}
-    for name, r in rays.items():
-        checked = _walk_check(torch, big, f"big scene {name}", *r)
-        for any_hit in (False, True):
-            want, plain_ms = checked[any_hit]
-            ms = _time_ms(torch, lambda: k8(big, r, any_hit), WALK_REPS)
-            k3_ms = _time_ms(torch, lambda: k3(big, r, any_hit), 1)
-            bound, box, tri, touched = _walk_bound(want, WALK_RAYS)
-            steps = step_stats(want)
-            out[(name, any_hit)] = (ms, plain_ms, bound, steps)
-            query = "any" if any_hit else "closest"
-            print(f"timing big scene {name} {WALK_RAYS} rays, {query}: K8 "
-                  f"{ms:.4f} ms, plain walk {plain_ms:.2f} ms, K3 "
-                  f"{k3_ms:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}) "
-                  f"from {box} box and {tri} triangle steps over "
-                  f"{touched} of {s} records; {stats_text(steps)} "
-                  f"[{card}]", flush=True)
-        k3_res, want = k3(big, r, False), checked[False][0]
-        same_tri = float((k3_res["tri"] == want["tri"]).float().mean())
-        same_t = float((k3_res["t"] == want["t"]).float().mean())
-        print(f"K3 against K8, big scene {name}: tri equal on {same_tri:.6f} "
-              f"of lanes, t bit-equal on {same_t:.6f}", flush=True)
-        del checked
-
-    # ucb_bigscene.py's own scene, forced through the walk
-    t0 = time.time()
-    ucb = big_scene(dev, 7, (-0.6, 0.0, 0.6), brute_max=1)
-    torch.cuda.synchronize()
-    print(f"walk: ucb_bigscene.py's scene {ucb.num_triangles} triangles, "
-          f"{ucb.bvh_rec.shape[0]} records, built in {time.time() - t0:.2f} "
-          f"s", flush=True)
-    if ucb.num_triangles != UCB_TRIANGLES:
-        raise AssertionError(f"ucb scene: {ucb.num_triangles} triangles")
-    for name, r in rays.items():
-        times = []
-        for any_hit in (False, True):
-            times += [_time_ms(torch, lambda: k8(ucb, r, any_hit), WALK_REPS),
-                      _time_ms(torch, lambda: k3(ucb, r, any_hit), 1)]
-        print(f"timing ucb scene {name} {WALK_RAYS} rays: closest K8 "
-              f"{times[0]:.4f} ms, K3 {times[1]:.4f} ms; any K8 "
-              f"{times[2]:.4f} ms, K3 {times[3]:.4f} ms [{card}]",
-              flush=True)
-    del ucb
+    # K8 against the plain walk on both ray sets
+    for name, r in walk_rays(dev, WALK_RAYS).items():
+        _walk_check(torch, big, f"big scene {name}", *r)
 
     # the big scene's frames: K8 and K7 only
-    dt, frame_rays, launches, ldrs = _run_frames(
-        torch, big, dev, WALK_WARMUP, WALK_TIMED, "big scene", walk, others)
+    ldrs = _run_frames(torch, big, dev, SCENE_FRAMES, "big scene", walk,
+                       others)
     for i, ldr in enumerate(ldrs):
         if not float(ldr.max()) > 0.01:
             raise AssertionError(f"big scene frame {i} is black")
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print("walk frame: " + _frame_line(
-        "big scene ReSTIR", WALK_TIMED, dt, frame_rays, launches, card,
-        WALK_WARMUP + WALK_TIMED) + f"; peak {peak:.2f} GiB", flush=True)
+    print(f"walk frame: big scene {WIDTH}x{HEIGHT}, {SCENE_FRAMES} frames: "
+          f"K8, K7, K9 and K10 launched and no other trace kernel, none "
+          f"black", flush=True)
     del big, ldrs
 
     # the Cornell box forced through the walk
@@ -1630,20 +1173,7 @@ def _walk_phase(torch, dev, card, every, c_first, ptxas):
     ro, rd, rt_max = _random_rays(torch, WALK_RAYS, dev, seed=3)
     rnd = (ro, rd, torch.full((WALK_RAYS,), 1e-3, device=dev), rt_max)
     _walk_check(torch, cornell, f"Cornell primary {WIDTH}^2", *primary)
-    c_checked = _walk_check(torch, cornell, "Cornell random", *rnd)
-    for any_hit in (False, True):
-        ms = _time_ms(torch, lambda: k8(cornell, rnd, any_hit), 20)
-        k1_ms = _time_ms(torch, lambda: trace_api.trace_kernel(
-            cornell.tri_planes, cornell.chunk_aabb, *rnd, any_hit), 20)
-        bound = _walk_bound(c_checked[any_hit][0], WALK_RAYS)[0]
-        steps = step_stats(c_checked[any_hit][0])
-        out[("cornell", any_hit)] = (ms, c_checked[any_hit][1], bound, steps)
-        print(f"timing Cornell {WALK_RAYS} random rays, "
-              f"{'any' if any_hit else 'closest'}: K8 {ms:.4f} ms, "
-              f"{'K2' if any_hit else 'K1'} {k1_ms:.4f} ms on the same rays, "
-              f"plain walk {c_checked[any_hit][1]:.2f} ms, bound "
-              f"{bound[0]:.4f} ms ({bound[1]}); {stats_text(steps)} "
-              f"[{card}]", flush=True)
+    _walk_check(torch, cornell, "Cornell random", *rnd)
     ldrs, c_launches = _first_frames(cornell, dev, len(c_first))
     if (min(c_launches[k] for k in (*walk, *FRAME_SHADE)) <= 0
             or any(c_launches[k] for k in others)):
@@ -1655,55 +1185,41 @@ def _walk_phase(torch, dev, card, every, c_first, ptxas):
                              f"against K1's < {VPU_DB}")
     print(f"walk Cornell: the first {len(ldrs)} {WIDTH}x{HEIGHT} frames "
           f"built with brute_max=1 (K8, no K1/K2) against phase 5's: PSNR "
-          f"{psnr:.2f} dB (floor {VPU_DB}); launches {c_launches}; phase 23 "
-          f"took {time.time() - t_phase:.2f} s [{card}]", flush=True)
-    return out, launches, WALK_WARMUP + WALK_TIMED, c_launches, len(c_first)
+          f"{psnr:.2f} dB (floor {VPU_DB})", flush=True)
 
 
-def _tiled_sequence(torch, render, state, dev, frames, warmup,
-                    move_at=None):
+def _tiled_sequence(torch, render, state, dev, frames, move_at=None):
     """`frames` Cornell frames of bench.py:headline_tiled's camera
     sequence through `render(uniform, frame_count, state, static_ok)`,
     the camera moved (and the count reset) at frame `move_at`. Returns
-    (the last ldr, seconds of the frames after `warmup`, their rays, the
-    per-band launches summed over every frame or None)."""
-    rays, bands, t0 = [], None, None
-    for i, (uniform, fc, static_ok) in enumerate(
-            _camera_seq(dev, frames, 2, move_at)):
+    (the last ldr, every frame's rays, the per-band launches summed over
+    every frame or None)."""
+    rays, bands = [], None
+    for uniform, fc, static_ok in _camera_seq(dev, frames, 2, move_at):
         ldr, hdr, state, aux = render(uniform, fc, state, static_ok)
         if "band_launches" in aux:
             bands = [{k: (bands[b][k] if bands else 0) + v
                       for k, v in launched.items()}
                      for b, launched in enumerate(aux["band_launches"])]
-        if i == warmup - 1:
-            torch.cuda.synchronize()
-            t0 = time.time()
-        elif i >= warmup:
-            rays.append(float(aux["rays"]))    # a host read, as the bench's
-    torch.cuda.synchronize()
-    dt = time.time() - t0 if t0 is not None else None
+        rays.append(float(aux["rays"]))    # a host read, as the bench's
     if not (torch.isfinite(ldr).all() and ldr.min() >= 0 and ldr.max() <= 1
             and torch.isfinite(hdr).all()):
         raise AssertionError("tiled phase: ldr or hdr is not finite")
-    return ldr, dt, rays, bands
+    return ldr, rays, bands
 
 
-def _tiles_phase(torch, dev, card, every, c_fps, c_launches):
+def _tiles_phase(torch, dev, every):
     """24. the frame over row bands (parallel/tiles.py): 4 bands of the
     512^2 Cornell frame on this card (and on 4 cards where there are),
-    held to the one-device frames of the same sequences. Returns the
-    launches of the 4 bands on this card over their WARMUP + TIMED
-    frames."""
+    held to the one-device frames of the same sequences."""
     from tpu_raytracer_torch.models import scenes
     from tpu_raytracer_torch.ops import trace_api
     from tpu_raytracer_torch.parallel import tiles
     from tpu_raytracer_torch.render import pipeline
 
-    t_phase = time.time()
     scene = scenes.create_cornell_box(dev)
     on = ["closest_hit", "any_hit", "table_gather", *FRAME_SHADE]
     off = [k for k in every if k not in on]
-    frames = WARMUP + TIMED
 
     def one_device(uniform, fc, state, static_ok):
         return pipeline.render_frame(scene, uniform, fc, state, WIDTH,
@@ -1712,22 +1228,14 @@ def _tiles_phase(torch, dev, card, every, c_fps, c_launches):
     def fresh():
         return pipeline.init_state(WIDTH, HEIGHT, dev)
 
-    ldr1, dt1, rays1, _ = _tiled_sequence(torch, one_device, fresh(), dev,
-                                          frames, WARMUP)
-    moved1, _, _, _ = _tiled_sequence(torch, one_device, fresh(), dev,
-                                      TILE_MOTION_FRAMES, TILE_MOTION_FRAMES,
-                                      TILE_MOVE_AT)
-    fps1 = TIMED / dt1
-    print(f"tiles: one-device Cornell {WIDTH}x{HEIGHT} (bench.py:"
-          f"headline_tiled's sequence), {TIMED} timed frames: {fps1:.4f} fps, "
-          f"{sum(rays1) / dt1 / 1e6:.4f} Mrays/s (phase 5: {c_fps:.4f} fps) "
-          f"[{card}]", flush=True)
+    ldr1, rays1, _ = _tiled_sequence(torch, one_device, fresh(), dev, FRAMES)
+    moved1, _, _ = _tiled_sequence(torch, one_device, fresh(), dev,
+                                   TILE_MOTION_FRAMES, TILE_MOVE_AT)
 
     meshes = [("1 card", [dev] * TILE_BANDS)]
     if torch.cuda.device_count() >= TILE_BANDS:
         meshes.append((f"{TILE_BANDS} cards",
                        [torch.device("cuda", i) for i in range(TILE_BANDS)]))
-    one_card = None
     for what, devices in meshes:
         mesh = tiles.make_mesh(devices)
         tiled = tiles.make_render_frame_tiled(mesh, WIDTH, HEIGHT)
@@ -1740,12 +1248,11 @@ def _tiles_phase(torch, dev, card, every, c_fps, c_launches):
             return tiles.shard_state(fresh(), mesh)
 
         trace_api.reset_launch_counts()
-        ldr, dt, rays, bands = _tiled_sequence(torch, render, fresh_bands(),
-                                               dev, frames, WARMUP)
+        ldr, rays, bands = _tiled_sequence(torch, render, fresh_bands(), dev,
+                                           FRAMES)
         launches = dict(trace_api.LAUNCHES)
-        moved, _, _, _ = _tiled_sequence(torch, render, fresh_bands(), dev,
-                                         TILE_MOTION_FRAMES,
-                                         TILE_MOTION_FRAMES, TILE_MOVE_AT)
+        moved, _, _ = _tiled_sequence(torch, render, fresh_bands(), dev,
+                                      TILE_MOTION_FRAMES, TILE_MOVE_AT)
         gap = float((ldr - ldr1).abs().max())
         gap_moved = float((moved - moved1).abs().max())
         ray_gap = max(abs(a - b) for a, b in zip(rays, rays1))
@@ -1762,22 +1269,12 @@ def _tiles_phase(torch, dev, card, every, c_fps, c_launches):
         if launches != {k: sum(b[k] for b in bands) for k in launches}:
             raise AssertionError(f"the bands' launches {bands} do not sum "
                                  f"to the run's {launches}")
-        per_frame = {k: launches[k] / frames for k in on}
         print(f"tiles: {TILE_BANDS} bands of {HEIGHT // TILE_BANDS} rows on "
-              f"{what}, Cornell {WIDTH}x{HEIGHT}, {TIMED} timed frames: "
-              f"{TIMED / dt:.4f} fps, {sum(rays) / dt / 1e6:.4f} Mrays/s "
-              f"(one device {fps1:.4f} fps); last ldr max abs {gap:.3g} "
-              f"against the one-device frame, moved camera {gap_moved:.3g} "
-              f"(bound {TILE_LDR_ATOL}), rays max gap {ray_gap:.3g} a frame; "
-              f"launches a frame {per_frame} (4x phase 5's: "
-              f"{ {k: TILE_BANDS * c_launches[k] / frames for k in on} }); "
-              f"per band {[{k: b[k] for k in on} for b in bands]} [{card}]",
-              flush=True)
-        if one_card is None:
-            one_card = launches
-    print(f"tiles: phase 24 took {time.time() - t_phase:.1f} s [{card}]",
-          flush=True)
-    return one_card
+              f"{what}, Cornell {WIDTH}x{HEIGHT}, {FRAMES} frames: last ldr "
+              f"max abs {gap:.3g} against the one-device frame, moved "
+              f"camera {gap_moved:.3g} (bound {TILE_LDR_ATOL}), rays max gap "
+              f"{ray_gap:.3g} a frame; {on} launched in every band and no "
+              f"other trace kernel", flush=True)
 
 
 def _camera_seq(dev, frames, num_lights, move_at=None, start=0):
@@ -1868,80 +1365,25 @@ def _lockstep(torch, eager, graph, seq, what):
     return gap
 
 
-def _timed_seq(torch, render, seq, warmup):
-    """(seconds of the frames after `warmup`, their rays: none for the
-    progressive frame) of `seq`, each frame render(*its inputs)."""
-    rays = []
-    for i, inputs in enumerate(seq):
-        out = render(*inputs)
-        if i == warmup - 1:
-            torch.cuda.synchronize()
-            t0 = time.time()
-        elif i >= warmup and len(out) == 4:
-            rays.append(out[3]["rays"])
-    torch.cuda.synchronize()
-    return time.time() - t0, [float(r) for r in rays]
+def _run_seq(render, seq):
+    """Each of seq's frames through render(*its inputs); returns their
+    rays."""
+    return [float(render(*inputs)[3]["rays"]) for inputs in seq]
 
 
-def _memory(torch, dev):
-    """(peak allocated bytes since the last reset, bytes reserved once the
-    allocator's cache is emptied): a CUDA graph's pool stays reserved
-    between replays while its temporaries count as freed, so the second
-    holds what the graphs keep and the first does not."""
-    peak = torch.cuda.max_memory_allocated(dev)
-    torch.cuda.empty_cache()
-    return peak, torch.cuda.memory_reserved(dev)
-
-
-def _profiled(torch, render, seq):
-    """profile_frame.py's readings of `seq`'s frames (each render(*its
-    inputs)), the first half timed unprofiled and the second under
-    torch.profiler: (wall ms a frame, device ms a frame, host launches a
-    frame: kernels and graphs, of them graph launches, and copies)."""
-    from tpu_raytracer_torch.profile_frame import _device_us
-
-    half = len(seq) // 2
-    torch.cuda.synchronize()
-    t0 = time.time()
-    for inputs in seq[:half]:
-        render(*inputs)
-    torch.cuda.synchronize()
-    wall_ms = (time.time() - t0) * 1e3 / half
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for inputs in seq[half:]:
-            render(*inputs)
-        torch.cuda.synchronize()
-    avgs = prof.key_averages()
-    cuda = torch.autograd.DeviceType.CUDA
-    device_ms = sum(_device_us(e) for e in avgs
-                    if e.device_type == cuda) / 1e3 / half
-
-    def count(*keys):
-        return sum(e.count for e in avgs if e.key in keys) / half
-    launches = count("cudaLaunchKernel", "cuLaunchKernel",
-                     "cudaLaunchKernelExC", "cudaGraphLaunch")
-    return (wall_ms, device_ms, launches, count("cudaGraphLaunch"),
-            count("cudaMemcpyAsync", "cudaMemcpyPeerAsync"))
-
-
-def _graph_phase(torch, dev, card, every):
+def _graph_phase(torch, dev, every):
     """25. the frame as CUDA graphs (render/graph.py:FrameGraph): the
     headline sequence, the moving camera, G-buffer reuse, config 1 and
     the other trace routes, each replayed frame held to the eager frame
     word for word; an eager frame under set_sync_debug_mode("error");
-    eager and graph fps, launches, busy share and peak memory. Returns
-    the launches of the replayed headline sequence."""
+    eager and replayed launches."""
     from tpu_raytracer_torch.models import scenes
     from tpu_raytracer_torch.ops import trace_api
     from tpu_raytracer_torch.render import pipeline, renderer
     from tpu_raytracer_torch.render.graph import FrameGraph
 
-    t_phase = time.time()
     scene = scenes.create_cornell_box(dev)
-    frames = WARMUP + TIMED
-    seq = _camera_seq(dev, frames, scene.num_lights)
+    seq = _camera_seq(dev, FRAMES, scene.num_lights)
     graph = FrameGraph(scene, WIDTH, HEIGHT, dev)
     gap = _lockstep(torch, _eager(scene, dev, WIDTH, HEIGHT), _replay(graph),
                     seq, "headline")
@@ -1949,7 +1391,7 @@ def _graph_phase(torch, dev, card, every):
                         move_at=TILE_MOVE_AT)
     gap_moved = _lockstep(torch, _eager(scene, dev, WIDTH, HEIGHT),
                           _replay(graph), moved, "moving camera")
-    print(f"graph: Cornell {WIDTH}x{HEIGHT}, the headline sequence ({frames} "
+    print(f"graph: Cornell {WIDTH}x{HEIGHT}, the headline sequence ({FRAMES} "
           f"frames) and the moving camera ({TILE_MOTION_FRAMES} frames, moved "
           f"at {TILE_MOVE_AT}) through FrameGraph against render_frame: ldr, "
           f"hdr, every state tensor and rays bit-equal on every frame, max "
@@ -1972,24 +1414,14 @@ def _graph_phase(torch, dev, card, every):
           "reused) under torch.cuda.set_sync_debug_mode('error'): no host "
           "sync", flush=True)
 
-    # eager, then replayed, on the headline sequence in one process; the
-    # eager frames' memory is read with the graphs deleted
-    del graph
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
+    # the headline sequence eager, then replayed: the same launches and
+    # rays
     trace_api.reset_launch_counts()
-    e_dt, e_rays = _timed_seq(torch, _eager(scene, dev, WIDTH, HEIGHT), seq,
-                              WARMUP)
+    e_rays = _run_seq(_eager(scene, dev, WIDTH, HEIGHT), seq)
     e_launches = dict(trace_api.LAUNCHES)
-    e_peak = _memory(torch, dev)
-    graph = FrameGraph(scene, WIDTH, HEIGHT, dev)
-    _lockstep(torch, _eager(scene, dev, WIDTH, HEIGHT), _replay(graph),
-              seq[:2], "headline (recaptured)")
-    torch.cuda.reset_peak_memory_stats(dev)
     trace_api.reset_launch_counts()
-    g_dt, g_rays = _timed_seq(torch, _replay(graph), seq, WARMUP)
+    g_rays = _run_seq(_replay(graph), seq)
     g_launches = dict(trace_api.LAUNCHES)
-    g_peak = _memory(torch, dev)
     if g_launches != e_launches or g_rays != e_rays:
         raise AssertionError(f"replayed frames launch {g_launches} and count "
                              f"{g_rays} rays; the eager frames {e_launches} "
@@ -1999,32 +1431,13 @@ def _graph_phase(torch, dev, card, every):
             g_launches[k] for k in every if k not in on):
         raise AssertionError(f"the replayed Cornell frames must launch {on} "
                              f"and no other kernel: {g_launches}")
-    per_frame = {k: g_launches[k] / frames for k in on}
+    per_frame = {k: g_launches[k] / FRAMES for k in on}
     if any(per_frame[k] != 2 * n for k, n in K9_CALL.items()):
         raise AssertionError(f"the replayed Cornell frames launch K9 "
                              f"{per_frame}: want 2 trace_path calls of "
                              f"{K9_CALL} a frame")
-    tail = _camera_seq(dev, 2 * GRAPH_PROFILED, scene.num_lights,
-                       start=frames)
-    profiled = []
-    for render in (_eager(scene, dev, WIDTH, HEIGHT), _replay(graph)):
-        for u, fc, static_ok in seq:      # the state the tail follows
-            render(u, fc, static_ok)
-        profiled.append(_profiled(torch, render, tail))
-    e_prof, g_prof = profiled
-    for what, dt, rays, peak, (wall, dev_ms, launched, _, _) in (
-            ("eager", e_dt, e_rays, e_peak, e_prof),
-            ("graph", g_dt, g_rays, g_peak, g_prof)):
-        print(f"graph: {what} Cornell {WIDTH}x{HEIGHT}, {TIMED} timed frames: "
-              f"{TIMED / dt:.4f} fps, {sum(rays) / dt / 1e6:.4f} Mrays/s, "
-              f"{dt / TIMED * 1e3:.2f} ms/frame; {GRAPH_PROFILED} frames under "
-              f"torch.profiler: wall {wall:.2f} ms/frame, device {dev_ms:.2f} "
-              f"ms/frame, busy {dev_ms / wall:.4f}, host launches "
-              f"{launched:.0f}/frame; peak allocated {peak[0] / 2 ** 30:.3f} "
-              f"GiB, reserved {peak[1] / 2 ** 30:.3f} GiB [{card}]",
-              flush=True)
-    print(f"graph: launches a frame, replayed and eager: {per_frame}",
-          flush=True)
+    print(f"graph: launches a frame, replayed and eager, equal: {per_frame}; "
+          f"rays equal", flush=True)
 
     # the G-buffer reused on static frames, against the traced one
     eager = _eager(scene, dev, WIDTH, HEIGHT)
@@ -2061,14 +1474,10 @@ def _graph_phase(torch, dev, card, every):
 
     p_gap = _lockstep(torch, progressive, _replay(p_graph), p_seq,
                       "config 1")
-    accum = renderer.make_accum(WIDTH, HEIGHT, dev)
-    p_fps = [(PROGRESSIVE_FRAMES - 2) / _timed_seq(torch, r, p_seq, 2)[0]
-             for r in (progressive, _replay(p_graph))]
     print(f"graph: config 1, {PROGRESSIVE_FRAMES} render_progressive frames "
           f"through FrameGraph(progressive=True) against eager: accum and "
-          f"radiance bit-equal on every frame (max abs gap {p_gap:.3g}); "
-          f"fps_1spp_progressive eager {p_fps[0]:.4f}, replayed "
-          f"{p_fps[1]:.4f} [{card}]", flush=True)
+          f"radiance bit-equal on every frame (max abs gap {p_gap:.3g})",
+          flush=True)
     del p_graph, diffuse, accum
 
     # the other routes, each kernel captured in its own scene's frames
@@ -2102,21 +1511,19 @@ def _graph_phase(torch, dev, card, every):
                                  f"{on} and no other kernel: {launched}")
         print(f"graph: {what} {WIDTH}x{HEIGHT}, {GRAPH_ROUTE_FRAMES} frames "
               f"through FrameGraph bit-equal to render_frame (max abs gap "
-              f"{gap:.3g}); replayed launches {launched}", flush=True)
+              f"{gap:.3g}); replayed, {on} launched and no other kernel",
+              flush=True)
         del s, g, render
-    print(f"graph: phase 25 took {time.time() - t_phase:.1f} s [{card}]",
-          flush=True)
-    return g_launches, frames
 
-def _refit_graph(torch, dev, card, every):
+
+def _refit_graph(torch, dev, every):
     """26a. config 4 replayed (render/graph.py:FrameGraph with
     refit_changed): bench.py:187-206's sequence, each frame's crystal
     refit in place and the frame in one replay, held in lockstep to the
     eager sequence (update_instances, then render_frame): every output,
     state word and refit field equal; replays after the first under
-    set_sync_debug_mode("error"). Then both timed in this process, and
-    GRAPH_PROFILED replayed frames under torch.profiler. Returns the
-    replayed launches and frames."""
+    set_sync_debug_mode("error"). Then both again for their launches and
+    rays, and a replayed frame's host launches under torch.profiler."""
     from tpu_raytracer_torch.models import scenes
     from tpu_raytracer_torch.ops import refit, trace_api
     from tpu_raytracer_torch.render import camera, pipeline, renderer
@@ -2127,9 +1534,9 @@ def _refit_graph(torch, dev, card, every):
     kept = {n: getattr(scene0, n).clone() for n in names}
     base = scene0.inst_transform.cpu().numpy()
     cam = camera.CameraController()
-    frames = FLY_WARMUP + FLY_TIMED
+    frames = FLY_FRAMES
     seq = []
-    for i in range(frames + 2 * GRAPH_PROFILED):
+    for i in range(frames + 2):       # 2 more for the profiled frame
         cam.press("d")
         cam.update(1.0 / 60.0)
         cam.release("d")
@@ -2190,23 +1597,18 @@ def _refit_graph(torch, dev, card, every):
           f"unwritten", flush=True)
 
     on = ["closest_hit", "any_hit", "table_gather", *FRAME_SHADE]
-    readings = {}
+    runs = {}
     for what in ("eager", "replayed"):
         if what == "eager":
             render, _ = eager()
         else:
             graph.load_state(pipeline.init_state(FLY_W, FLY_H, dev))
             render = replay
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
         trace_api.reset_launch_counts()
-        dt, rays = _timed_seq(torch, render, seq[:frames], FLY_WARMUP)
-        launches = dict(trace_api.LAUNCHES)
-        peak = _memory(torch, dev)
-        readings[what] = (dt, rays, launches, peak, None if what == "eager"
-                          else _profiled(torch, render, seq[frames:]))
-    (_, e_rays, e_launches, _, _), (_, g_rays, g_launches, _, g_prof) = (
-        readings["eager"], readings["replayed"])
+        rays = _run_seq(render, seq[:frames])
+        runs[what] = (rays, dict(trace_api.LAUNCHES))
+    (e_rays, e_launches), (g_rays, g_launches) = (runs["eager"],
+                                                  runs["replayed"])
     if g_launches != e_launches or g_rays != e_rays:
         raise AssertionError(f"config 4 replayed launches {g_launches} and "
                              f"counts {g_rays} rays; eager {e_launches}, "
@@ -2215,66 +1617,45 @@ def _refit_graph(torch, dev, card, every):
             g_launches[k] for k in every if k not in on):
         raise AssertionError(f"config 4 replayed must launch {on} and no "
                              f"other kernel: {g_launches}")
-    if g_prof[2] > GRAPH_FLY_LAUNCHES:
-        raise AssertionError(f"config 4 replayed: {g_prof[2]:.0f} host "
+    launched, graphs = _host_launches(torch, replay, seq[frames:])
+    if launched > GRAPH_FLY_LAUNCHES:
+        raise AssertionError(f"config 4 replayed: {launched:.0f} host "
                              f"launches a frame (at most "
                              f"{GRAPH_FLY_LAUNCHES})")
-    for what, (dt, rays, _, peak, prof) in readings.items():
-        extra = ""
-        if prof is not None:
-            wall, dev_ms, launched, graphs, copies = prof
-            extra = (f"; {GRAPH_PROFILED} frames under torch.profiler: wall "
-                     f"{wall:.2f} ms/frame, device {dev_ms:.2f} ms/frame, "
-                     f"busy {dev_ms / wall:.4f}, host launches "
-                     f"{launched:.0f}/frame ({graphs:.0f} graphs), "
-                     f"{copies:.0f} copies/frame")
-        print(f"graph II: config 4 {what}, {FLY_TIMED} timed frames: "
-              f"fps_1080p_flythrough_refit {FLY_TIMED / dt:.4f}, "
-              f"{sum(rays) / dt / 1e6:.4f} Mrays/s, "
-              f"{dt / FLY_TIMED * 1e3:.2f} ms/frame{extra}; peak allocated "
-              f"{peak[0] / 2 ** 30:.3f} GiB, reserved {peak[1] / 2 ** 30:.3f} "
-              f"GiB [{card}]", flush=True)
-    print(f"graph II: config 4 launches a frame, replayed and eager: "
-          f"{ {k: g_launches[k] / frames for k in on} }", flush=True)
+    print(f"graph II: config 4 replayed and eager: launches and rays equal, "
+          f"{on} launched and no other kernel; a replayed frame under "
+          f"torch.profiler: {launched:.0f} host launches ({graphs:.0f} "
+          f"graphs, at most {GRAPH_FLY_LAUNCHES})", flush=True)
     del graph
-    return g_launches, frames
 
 
-def _tiled_graph(torch, root, dev, card, every):
+def _tiled_graph(torch, root, dev, every):
     """26b. the row bands replayed (parallel/tiles.py:TiledFrameGraph):
     phase 24's headline sequence and moving camera over 4 bands of this
     card, and of 4 cards where the host has them (there also `python -m
     tpu_raytracer_torch --tiles 4`), each frame held to the eager tiled
-    frame and to the one-device frame. Returns the replayed launches over
-    the headline sequence on this card and its frames."""
+    frame and to the one-device frame."""
     from tpu_raytracer_torch.models import scenes
 
     scene = scenes.create_cornell_box(dev)
-    one_card = _bands_replayed(torch, dev, card, every, scene, "1 card",
-                               [dev] * TILE_BANDS)
+    _bands_replayed(torch, dev, every, scene, "1 card", [dev] * TILE_BANDS)
     if torch.cuda.device_count() >= TILE_BANDS:
-        _bands_replayed(torch, dev, card, every, scene,
-                        f"{TILE_BANDS} cards",
+        _bands_replayed(torch, dev, every, scene, f"{TILE_BANDS} cards",
                         [torch.device("cuda", i) for i in range(TILE_BANDS)])
-        _tiled_app(root, card)
-    return one_card, WARMUP + TIMED
+        _tiled_app(root)
 
 
-def _bands_replayed(torch, dev, card, every, scene, what, devices):
+def _bands_replayed(torch, dev, every, scene, what, devices):
     """TiledFrameGraph over `devices`: the headline sequence and the
     moving camera in lockstep with the eager bands and the one-device
     frames, every word equal; each band's launches its eager band's (K1,
-    K2 and K7, no other trace kernel). Then the replayed headline
-    sequence timed, GRAPH_PROFILED frames under torch.profiler (graph
-    launches a frame = bands x segments, other launches at most
-    GRAPH_TILE_OTHER), peak memory. Returns the timed launches."""
-    from tpu_raytracer_torch.ops import trace_api
+    K2 and K7, no other trace kernel). Then a replayed frame under
+    torch.profiler: graph launches a frame = bands x segments, other
+    launches at most GRAPH_TILE_OTHER."""
     from tpu_raytracer_torch.parallel import tiles
     from tpu_raytracer_torch.render import pipeline
 
-    t0 = time.time()
-    frames = WARMUP + TIMED
-    seqs = (("headline", _camera_seq(dev, frames, scene.num_lights)),
+    seqs = (("headline", _camera_seq(dev, FRAMES, scene.num_lights)),
             ("moving camera", _camera_seq(dev, TILE_MOTION_FRAMES,
                                           scene.num_lights,
                                           move_at=TILE_MOVE_AT)))
@@ -2327,26 +1708,9 @@ def _bands_replayed(torch, dev, card, every, scene, what, devices):
                     raise AssertionError(f"replayed band {b} must launch "
                                          f"{on} and no other kernel: {band}")
         gaps[name] = gap
-    t_lock = time.time() - t0
-    print(f"graph II: {TILE_BANDS} bands of {HEIGHT // TILE_BANDS} rows on "
-          f"{what}, Cornell {WIDTH}x{HEIGHT}, {graph.segments} segments a "
-          f"band, through TiledFrameGraph against the eager bands and the "
-          f"one-device frames: ldr, hdr, every state word and rays "
-          f"bit-equal on every frame (max abs {gaps}); replayed band "
-          f"launches equal the eager bands' "
-          f"({[{k: b[k] for k in on} for b in g_b]}); lockstep and "
-          f"captures {t_lock:.1f} s [{card}]", flush=True)
 
     graph.load_state(pipeline.init_state(WIDTH, HEIGHT, dev))
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    trace_api.reset_launch_counts()
-    dt, rays = _timed_seq(torch, replay, seqs[0][1], WARMUP)
-    launches = dict(trace_api.LAUNCHES)
-    peak = _memory(torch, dev)
-    wall, dev_ms, launched, graphs, copies = _profiled(
-        torch, replay, _camera_seq(dev, 2 * GRAPH_PROFILED, scene.num_lights,
-                                   start=frames))
+    launched, graphs = _host_launches(torch, replay, seqs[0][1][:2])
     if graphs != TILE_BANDS * graph.segments or \
             launched - graphs > GRAPH_TILE_OTHER:
         raise AssertionError(
@@ -2354,22 +1718,20 @@ def _bands_replayed(torch, dev, card, every, scene, what, devices):
             f"frame ({TILE_BANDS} x {graph.segments} expected) and "
             f"{launched - graphs:.0f} other launches (at most "
             f"{GRAPH_TILE_OTHER})")
-    print(f"graph II: {TILE_BANDS} bands on {what} replayed, {TIMED} timed "
-          f"frames: {TIMED / dt:.4f} fps, {sum(rays) / dt / 1e6:.4f} Mrays/s, "
-          f"{dt / TIMED * 1e3:.2f} ms/frame; launches a frame "
-          f"{ {k: launches[k] / frames for k in on} }; {GRAPH_PROFILED} "
-          f"frames under torch.profiler: wall {wall:.2f} ms/frame, device "
-          f"{dev_ms:.2f} ms/frame, busy {dev_ms / wall:.4f}, host launches "
-          f"{launched:.0f}/frame ({graphs:.0f} graphs), {copies:.0f} "
-          f"copies/frame; peak allocated {peak[0] / 2 ** 30:.3f} GiB, "
-          f"reserved {peak[1] / 2 ** 30:.3f} GiB [{card}]", flush=True)
-    return launches
+    print(f"graph II: {TILE_BANDS} bands of {HEIGHT // TILE_BANDS} rows on "
+          f"{what}, Cornell {WIDTH}x{HEIGHT}, {graph.segments} segments a "
+          f"band, through TiledFrameGraph against the eager bands and the "
+          f"one-device frames: ldr, hdr, every state word and rays "
+          f"bit-equal on every frame (max abs {gaps}); replayed band "
+          f"launches equal the eager bands'; a replayed frame under "
+          f"torch.profiler: {graphs:.0f} graph launches, "
+          f"{launched - graphs:.0f} other launches (at most "
+          f"{GRAPH_TILE_OTHER})", flush=True)
 
 
-def _tiled_app(root, card):
+def _tiled_app(root):
     """`python -m tpu_raytracer_torch --tiles 4` on 4 cards: the app's
     frames as replayed band graphs. Exit 0, K1, K2 and K7 launched."""
-    t0 = time.time()
     proc = subprocess.run(
         [sys.executable, "-m", "tpu_raytracer_torch", "--tiles",
          str(TILE_BANDS), f"--scale={APP_W}x{APP_H}", "--max-frames",
@@ -2385,23 +1747,8 @@ def _tiled_app(root, card):
         raise AssertionError(f"the app with --tiles {TILE_BANDS}: {tel}")
     print(f"graph II: python -m tpu_raytracer_torch --tiles {TILE_BANDS} "
           f"--scale={APP_W}x{APP_H}, {tel['frames']} frames on "
-          f"{TILE_BANDS} cards in {time.time() - t0:.2f} s of wall time "
-          f"(process included): fps {tel['fps']:.4f}, "
-          f"{tel['mrays_per_s']:.4f} Mrays/s from its FrameStats; launches "
-          f"{tel['launches']} [{card}]", flush=True)
-
-
-def _graphs2_phase(torch, root, dev, card, every):
-    """26. graphs II: config 4 and the row bands replayed. Returns
-    ((config 4's launches, frames), (the bands', frames))."""
-    t_phase = time.time()
-    fly = _refit_graph(torch, dev, card, every)
-    print(f"graph II: config 4 took {time.time() - t_phase:.1f} s",
+          f"{TILE_BANDS} cards: exit 0, launches {tel['launches']}",
           flush=True)
-    bands = _tiled_graph(torch, root, dev, card, every)
-    print(f"graph II: phase 26 took {time.time() - t_phase:.1f} s [{card}]",
-          flush=True)
-    return fly, bands
 
 
 def _spied_stream(torch, scene, dev, inputs):
@@ -2439,37 +1786,30 @@ def _spied_stream(torch, scene, dev, inputs):
 
 def _occlusion_check(torch, what, got, want, t_max):
     """Raise unless any-hit `got` flags exactly the lanes `want` does,
-    with t = t_max; returns the occluded and the live shares."""
+    with t = t_max."""
     bad = int(((got["tri"] >= 0) != want).sum())
     if bad:
         raise AssertionError(f"{what}: occlusion differs from plain on {bad} "
                              f"lanes")
     if not torch.equal(got["t"], t_max):
         raise AssertionError(f"{what}: t is not t_max")
-    return float(want.float().mean()), float((t_max > 0).float().mean())
 
 
-def _tap_batch_phase(torch, dev, card, every):
+def _tap_batch_phase(torch, dev, every):
     """27. batched spatial taps (ops/restir.py:_tap_stream, tap_batch):
-    the Cornell frames eager and replayed in lockstep, timed beside the
-    sequential replayed frames, K2 on one frame's tap stream against
-    plain and timed; K3 and K4 on the knot's and the gallery's streams;
-    4 bands against one device; the subdivided Cornell box. Returns
-    (the replayed batched frames' launches, their frames, K2 on the
-    stream: (lanes, ms, plain ms, bound), the subdivided frames'
-    launches, their frames)."""
+    the Cornell frames eager and replayed in lockstep, the launches of
+    the batched and the sequential frames, K2 on one frame's tap stream
+    against plain; K3 and K4 on the knot's and the gallery's streams; 4
+    bands against one device; the subdivided Cornell box."""
     from tpu_raytracer_torch.models import scenes
     from tpu_raytracer_torch.ops import (gbuffer, restir, trace_api,
                                          trace_inst, trace_stream)
     from tpu_raytracer_torch.parallel import tiles
-    from tpu_raytracer_torch.render import pipeline
     from tpu_raytracer_torch.render.graph import FrameGraph
     from tpu_raytracer_torch.utils.vec3 import V3
 
-    t_phase = time.time()
     scene = scenes.create_cornell_box(dev)
-    frames = TAP_WARMUP + TAP_TIMED
-    seq = _camera_seq(dev, frames, scene.num_lights)
+    seq = _camera_seq(dev, TAP_FRAMES, scene.num_lights)
     graph = FrameGraph(scene, WIDTH, HEIGHT, dev, tap_batch=True)
     gap = _lockstep(torch, _eager(scene, dev, WIDTH, HEIGHT, tap_batch=True),
                     _replay(graph), seq, "tap batch")
@@ -2482,14 +1822,14 @@ def _tap_batch_phase(torch, dev, card, every):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    print(f"tap batch: Cornell {WIDTH}x{HEIGHT}, {frames} frames through "
+    print(f"tap batch: Cornell {WIDTH}x{HEIGHT}, {TAP_FRAMES} frames through "
           f"FrameGraph(tap_batch=True) against render_frame(tap_batch=True): "
           f"ldr, hdr, every state tensor and rays bit-equal on every frame "
           f"(max abs gap {gap:.3g}); eager frame 1 under "
           f"set_sync_debug_mode('error'): no host sync", flush=True)
 
-    # timed in this process: batched replayed, sequential replayed,
-    # batched eager; each graph captured before its counts are reset
+    # the launches of batched replayed, sequential replayed and batched
+    # eager frames; each graph captured before its counts are reset
     seq_graph = FrameGraph(scene, WIDTH, HEIGHT, dev)
     _lockstep(torch, _eager(scene, dev, WIDTH, HEIGHT), _replay(seq_graph),
               seq[:2], "sequential taps")
@@ -2500,75 +1840,46 @@ def _tap_batch_phase(torch, dev, card, every):
             ("batched, eager", _eager(scene, dev, WIDTH, HEIGHT,
                                       tap_batch=True))):
         trace_api.reset_launch_counts()
-        dt, rays = _timed_seq(torch, render, seq, TAP_WARMUP)
-        runs[what] = (dt, rays, dict(trace_api.LAUNCHES))
-    b_launches, s_launches = (runs[k][2] for k in ("batched, replayed",
-                                                   "sequential, replayed"))
+        _run_seq(render, seq)
+        runs[what] = dict(trace_api.LAUNCHES)
+    b_launches, s_launches = (runs[k] for k in ("batched, replayed",
+                                                "sequential, replayed"))
     on = ["closest_hit", "any_hit", "table_gather", *FRAME_SHADE]
     if min(b_launches[k] for k in on) <= 0 or any(
             b_launches[k] for k in every if k not in on):
         raise AssertionError(f"the batched Cornell frames must launch {on} "
                              f"and no other kernel: {b_launches}")
     saved = s_launches["any_hit"] - b_launches["any_hit"]
-    if saved != (restir.TAPS - 1) * frames:
+    if saved != (restir.TAPS - 1) * TAP_FRAMES:
         raise AssertionError(f"K2 launches: {b_launches['any_hit']} batched "
                              f"against {s_launches['any_hit']} sequential "
-                             f"over {frames} frames")
-    if runs["batched, replayed"][2] != runs["batched, eager"][2]:
+                             f"over {TAP_FRAMES} frames")
+    if runs["batched, replayed"] != runs["batched, eager"]:
         raise AssertionError(f"replayed batched frames launch "
                              f"{b_launches}; eager ones "
-                             f"{runs['batched, eager'][2]}")
-    for what, (dt, rays, launched) in runs.items():
-        print(f"tap batch: Cornell {WIDTH}x{HEIGHT} {what}, {TAP_TIMED} "
-              f"timed frames: {TAP_TIMED / dt:.4f} fps, "
-              f"{sum(rays) / dt / 1e6:.4f} Mrays/s, "
-              f"{dt / TAP_TIMED * 1e3:.2f} ms/frame; K1/K2/K7 launches a "
-              f"frame {launched['closest_hit'] / frames:.2f} / "
-              f"{launched['any_hit'] / frames:.2f} / "
-              f"{launched['table_gather'] / frames:.2f} [{card}]",
-              flush=True)
-    tail = _camera_seq(dev, 2 * GRAPH_PROFILED, scene.num_lights,
-                       start=frames)
-    render = _replay(graph)
-    for inputs in seq:
-        render(*inputs)
-    wall, dev_ms, launched, graphs, _ = _profiled(torch, render, tail)
+                             f"{runs['batched, eager']}")
+    launched, graphs = _host_launches(torch, _replay(graph), seq[:2])
     if launched > 2:
-        raise AssertionError(f"a replayed batched frame makes {launched:.0f} "
+        raise AssertionError(f"a replayed batched frame makes {launched} "
                              f"host launches (2 expected)")
-    print(f"tap batch: replayed, {GRAPH_PROFILED} frames under "
-          f"torch.profiler: wall {wall:.2f} ms/frame, device {dev_ms:.2f} "
-          f"ms/frame, busy {dev_ms / wall:.4f}, host launches "
-          f"{launched:.0f}/frame ({graphs:.0f} graphs) [{card}]", flush=True)
+    print(f"tap batch: Cornell {WIDTH}x{HEIGHT}, {TAP_FRAMES} frames: K2 "
+          f"{restir.TAPS - 1} launches fewer a frame batched than "
+          f"sequential, replayed launches equal to eager; a replayed "
+          f"batched frame under torch.profiler: {launched:.0f} host launches "
+          f"({graphs:.0f} graphs)", flush=True)
     del graph, seq_graph, render
 
-    # K2 on one frame's tap stream against plain, timed, bound
+    # K2 on one frame's tap stream against plain
     o, d, t_min, t_max = _spied_stream(torch, scene, dev, seq[0])
     n = t_max.shape[0]
-
-    def k2():
-        return trace_api.trace_kernel(scene.tri_planes, scene.chunk_aabb, o,
-                                      d, t_min, t_max, any_hit=True)
-
-    def plain():
-        return trace_api.trace_plain(scene.tri_planes, scene.chunk_aabb,
-                                     V3(*o), V3(*d), t_min, t_max)
-
-    want = plain()["tri"] >= 0
-    occ, live = _occlusion_check(torch, "K2 on the tap stream", k2(), want,
-                                 t_max)
-    ms = _time_ms(torch, k2, 20)
-    plain_ms = _time_ms(torch, lambda: plain()["tri"] >= 0, 3)
-    tests = int(want.sum()) + _flat_tests(
-        trace_api, scene, o, d, t_min, torch.where(want, 0.0, t_max))[0]
-    bound = _bound(tests * MT_FLOPS, _nbytes(
-        o, d, t_min, t_max, scene.tri_planes, scene.chunk_aabb) + n * 8)
+    want = trace_api.trace_plain(scene.tri_planes, scene.chunk_aabb, V3(*o),
+                                 V3(*d), t_min, t_max)["tri"] >= 0
+    _occlusion_check(torch, "K2 on the tap stream", trace_api.trace_kernel(
+        scene.tri_planes, scene.chunk_aabb, o, d, t_min, t_max,
+        any_hit=True), want, t_max)
     print(f"tap batch: K2 on one Cornell frame's tap stream ({n} rays, "
-          f"pixel-interleaved, {live:.4f} live, {occ:.4f} occluded) equals "
-          f"plain closest-hit tri>=0 on every lane, t = t_max; "
-          f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
-          f"({bound[1]}, {tests} tests) [{card}]", flush=True)
-    k2_stream = (n, ms, plain_ms, bound)
+          f"pixel-interleaved) equals plain closest-hit tri>=0 on every "
+          f"lane, t = t_max", flush=True)
 
     # K3 and K4 on the knot's and the gallery's streams
     for what, build, kernel, plain_fn in (
@@ -2585,18 +1896,16 @@ def _tap_batch_phase(torch, dev, card, every):
              lambda s, o, d, t0, t1: trace_inst.trace_instanced_plain(
                  s.tri_planes, s.obj_group_aabb, s.inst_table, s.inst_aabb,
                  s.unit_inst, s.unit_group, V3(*o), V3(*d), t0, t1))):
-        t0 = time.time()
         s = build(dev)
         stream = _spied_stream(torch, s, dev,
                                _camera_seq(dev, 1, s.num_lights)[0])
         got = kernel(s, *stream)
         want = plain_fn(s, *stream)["tri"] >= 0
-        occ, live = _occlusion_check(torch, f"{what} on the tap stream", got,
-                                     want, stream[3])
+        _occlusion_check(torch, f"{what} on the tap stream", got, want,
+                         stream[3])
         print(f"tap batch: {what} any-hit on one frame's tap stream "
-              f"({stream[3].shape[0]} rays, {live:.4f} live, {occ:.4f} "
-              f"occluded) equals plain on every lane, t = t_max "
-              f"({time.time() - t0:.1f} s with the build)", flush=True)
+              f"({stream[3].shape[0]} rays) equals plain on every lane, t = "
+              f"t_max", flush=True)
         del s, stream, got, want
 
     # 4 bands of this card against the one-device batched frames
@@ -2622,9 +1931,7 @@ def _tap_batch_phase(torch, dev, card, every):
     del bands, one
 
     # the subdivided Cornell box
-    t0 = time.time()
     split = scenes.create_cornell_box(dev, subdivide_max_diag=SUBDIV_DIAG)
-    t_build = time.time() - t0
     n_tri = int(split.tri_planes[3, 0].sum())
     chunks = split.chunk_aabb.shape[0]
     if not n_tri > scene.num_triangles or chunks <= scene.chunk_aabb.shape[0]:
@@ -2639,20 +1946,19 @@ def _tap_batch_phase(torch, dev, card, every):
                                  V3(*pd), t_lo, t_hi)
     got = trace_api.trace_kernel(split.tri_planes, split.chunk_aabb, po, pd,
                                  t_lo, t_hi)
-    ulps, _, hit = _check_closest("K1 on the subdivided box", got, want)
+    ulps = _check_closest("K1 on the subdivided box", got, want)
     if ulps:
         raise AssertionError(f"K1 on the subdivided box: t differs from "
                              f"plain by {ulps} ulps")
     _occlusion_check(torch, "K2 on the subdivided box", trace_api.trace_kernel(
         split.tri_planes, split.chunk_aabb, po, pd, t_lo, t_hi,
         any_hit=True), want["tri"] >= 0, t_hi)
-    s_frames = SUBDIV_WARMUP + SUBDIV_TIMED
     s_graph = FrameGraph(split, WIDTH, HEIGHT, dev)
-    s_seq = _camera_seq(dev, s_frames, split.num_lights)
+    s_seq = _camera_seq(dev, SUBDIV_FRAMES, split.num_lights)
     _lockstep(torch, _eager(split, dev, WIDTH, HEIGHT), _replay(s_graph),
               s_seq[:2], "subdivided Cornell")
     trace_api.reset_launch_counts()
-    dt, rays = _timed_seq(torch, _replay(s_graph), s_seq, SUBDIV_WARMUP)
+    _run_seq(_replay(s_graph), s_seq)
     sub_launches = dict(trace_api.LAUNCHES)
     if min(sub_launches[k] for k in on) <= 0 or any(
             sub_launches[k] for k in every if k not in on):
@@ -2660,17 +1966,10 @@ def _tap_batch_phase(torch, dev, card, every):
                              f"and no other kernel: {sub_launches}")
     print(f"tap batch: subdivided Cornell (subdivide_max_diag={SUBDIV_DIAG}):"
           f" {n_tri} triangles in {chunks} chunks (unsplit "
-          f"{scene.num_triangles} in {scene.chunk_aabb.shape[0]}), built in "
-          f"{t_build:.2f} s; K1 on its {po.shape[1]} primary rays ({hit:.3f} "
-          f"hit) tri equal on every lane and t bit-equal to plain, K2 "
-          f"occlusion equal; {SUBDIV_TIMED} replayed frames: "
-          f"{SUBDIV_TIMED / dt:.4f} fps, {sum(rays) / dt / 1e6:.4f} Mrays/s; "
-          f"launches a frame "
-          f"{ {k: sub_launches[k] / s_frames for k in on} } [{card}]",
-          flush=True)
-    print(f"tap batch: phase 27 took {time.time() - t_phase:.1f} s [{card}]",
-          flush=True)
-    return b_launches, frames, k2_stream, sub_launches, s_frames
+          f"{scene.num_triangles} in {scene.chunk_aabb.shape[0]}); K1 on its "
+          f"{po.shape[1]} primary rays tri equal on every lane and t "
+          f"bit-equal to plain, K2 occlusion equal; {SUBDIV_FRAMES} replayed "
+          f"frames, {on} launched and no other kernel", flush=True)
 
 
 def _band(scene, dev, width, height, reorder):
@@ -2711,29 +2010,20 @@ def _word_diff(torch, got, want):
 
 def _mode_frames(torch, scene, dev, seq, what, on, every):
     """seq's frames through _band under each of REORDER_MODES: per mode
-    (seconds of the frames after REORDER_WARMUP or None, launches, the
-    frames' words); raises where a mode launches a kernel outside `on`
-    or leaves one of `on` out."""
+    the frames' outputs; raises where a mode launches a kernel outside
+    `on` or leaves one of `on` out."""
     from tpu_raytracer_torch.ops import trace_api
 
     runs, on = {}, [*on, *FRAME_SHADE]
     for m in REORDER_MODES:
         render = _band(scene, dev, WIDTH, HEIGHT, m)
         trace_api.reset_launch_counts()
-        frames, t0 = [], None
-        for i, inputs in enumerate(seq):
-            if i == REORDER_WARMUP:
-                torch.cuda.synchronize()
-                t0 = time.time()
-            frames.append(render(*inputs))
-        torch.cuda.synchronize()
-        dt = time.time() - t0 if t0 is not None else None
+        runs[m] = [render(*inputs) for inputs in seq]
         launched = dict(trace_api.LAUNCHES)
         if min(launched[k] for k in on) <= 0 or any(
                 launched[k] for k in every if k not in on):
             raise AssertionError(f"{what} reorder={m}: want {on} launched "
                                  f"and no other kernel: {launched}")
-        runs[m] = (dt, launched, frames)
     return runs
 
 
@@ -2765,21 +2055,18 @@ def _recorded_streams(torch, scene, dev, seq):
     return seen
 
 
-def _stream_times(torch, scene, mxu_scene, streams, card):
+def _stream_checks(torch, scene, mxu_scene, streams):
     """REORDER_STREAMS through K1/K2, K5 and K6 under each mode, each
-    restored result held to "none", each timed, and the permutation timed
-    apart. Returns {(label, mode): {"lanes", "live", "k", "perm", "k5",
-    "k6", "k6_diff"}}."""
+    restored result held to "none": K1/K2/K5 every word equal, K6 at most
+    2 x PLAIN_DIFF words differing."""
     from tpu_raytracer_torch.ops import compaction, trace_api, trace_mxu
     from tpu_raytracer_torch.ops import trace_vpu
 
     planes, boxes = scene.tri_planes, scene.chunk_aabb
-    out = {}
     for label, i in REORDER_STREAMS:
         _, any_hit, o, d, t_min, t_max = streams[i]
         n = t_max.shape[0]
-        live = float((t_max > 0).float().mean())
-        base = {}
+        base, k6_diff = {}, {}
         for m in REORDER_MODES:
             if m == "none":
                 src = dest = torch.arange(n, device=o.device)
@@ -2787,42 +2074,28 @@ def _stream_times(torch, scene, mxu_scene, streams, card):
                 src, dest = compaction.permutation(m, tuple(d), t_max)
             po, pd = o[:, src].contiguous(), d[:, src].contiguous()
             p0, p1 = t_min[src].contiguous(), t_max[src].contiguous()
-
-            def k(po=po, pd=pd, p0=p0, p1=p1):
-                return trace_api.trace_kernel(planes, boxes, po, pd, p0, p1,
-                                              any_hit=any_hit)
-
-            def k5(po=po, pd=pd, p0=p0, p1=p1):
-                return trace_vpu.vpu_kernel(planes, boxes, po, pd, p0, p1)
-
-            def k6(po=po, pd=pd, p0=p0, p1=p1):
-                return trace_mxu.mxu_kernel(mxu_scene.coef48_t, boxes, po,
-                                            pd, p0, p1, 1, 3, False, False)
-
-            def perm(m=m, k_out=None):
-                s, dst = compaction.permutation(m, tuple(d), t_max)
-                ys = [x[s] for x in (*o, *d, t_min, t_max)]
-                return ys, [y[dst] for y in k_out]
-
-            got = {"k": k(), "k5": k5()}
+            got = {"k": trace_api.trace_kernel(planes, boxes, po, pd, p0, p1,
+                                               any_hit=any_hit),
+                   "k5": trace_vpu.vpu_kernel(planes, boxes, po, pd, p0, p1)}
             if not any_hit:
-                got["k6"] = k6()
+                got["k6"] = trace_mxu.mxu_kernel(mxu_scene.coef48_t, boxes,
+                                                 po, pd, p0, p1, 1, 3, False,
+                                                 False)
             got = {key: {f: v[dest] for f, v in r.items()}
                    for key, r in got.items()}
-            row = {"lanes": n, "live": live}
             if m == "none":
                 base = got
             for key, r in got.items():
                 if key == "k6":
-                    row["k6_diff"] = int(
+                    k6_diff[m] = int(
                         ((r["tri"] >= 0) != (base[key]["tri"] >= 0)).sum()
                         + (r["tri"] != base[key]["tri"]).sum()
                         + (r["t"].view(torch.int32)
                            != base[key]["t"].view(torch.int32)).sum())
-                    if row["k6_diff"] > 2 * PLAIN_DIFF:
+                    if k6_diff[m] > 2 * PLAIN_DIFF:
                         raise AssertionError(f"K6 on {label} reorder={m}: "
-                                             f"{row['k6_diff']} words differ"
-                                             f" from none")
+                                             f"{k6_diff[m]} words differ "
+                                             f"from none")
                     continue
                 want = base["k"]
                 if key == "k5" and any_hit:
@@ -2835,76 +2108,11 @@ def _stream_times(torch, scene, mxu_scene, streams, card):
                     raise AssertionError(f"{key} on {label} reorder={m}: "
                                          f"the restored result differs from "
                                          f"K1/K2's in order")
-            row["k"] = _time_ms(torch, k, REORDER_REPS)
-            row["k5"] = _time_ms(torch, k5, REORDER_REPS)
-            if not any_hit:
-                row["k6"] = _time_ms(torch, k6, REORDER_REPS)
-            if m != "none":
-                sample = (got["k"]["t"], got["k"]["tri"])
-                row["perm"] = _time_ms(
-                    torch, lambda m=m: perm(m, sample), REORDER_REPS)
-                row["perm_graph"] = _replayed_ms(
-                    torch, lambda m=m: perm(m, sample), REORDER_REPS)
-            out[(label, m)] = row
-            print(f"reorder: {label} ({n} rays, {live:.4f} live, "
-                  f"{'any' if any_hit else 'closest'} hit) {m}: "
-                  f"K{'2' if any_hit else '1'} {row['k']:.4f} ms, K5 "
-                  f"{row['k5']:.4f} ms"
-                  + (f", K6 {row['k6']:.4f} ms ({row['k6_diff']} words "
-                     f"differ from none)" if not any_hit else "")
-                  + (f", permutation {row['perm']:.4f} ms eager, "
-                     f"{row['perm_graph']:.4f} ms replayed" if m != "none"
-                     else "") + f"; restored results equal [{card}]",
-                  flush=True)
-    return out
-
-
-def _replayed_ms(torch, fn, reps):
-    """fn's device time: fn captured once in a CUDA graph, the graph
-    replayed `reps` times between CUDA events (no host launch between
-    its kernels)."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    ms = _time_ms(torch, graph.replay, reps)
-    del graph
-    return ms
-
-
-def _profiled_modes(torch, scene, dev, seq):
-    """Per mode of REORDER_MODES: (device ms a frame, K1 + K2 device ms a
-    frame) of the eager frames of seq[1:] under torch.profiler, after
-    seq[0] unprofiled."""
-    import re
-
-    from tpu_raytracer_torch.profile_frame import _device_us
-
-    sweep = re.compile(r"^(?:void )?\(anonymous namespace\)::"
-                       r"(?:closest_hit|any_hit)_kernel")
-    cuda = torch.autograd.DeviceType.CUDA
-    out = {}
-    for m in REORDER_MODES:
-        render = _band(scene, dev, WIDTH, HEIGHT, m)
-        render(*seq[0])
-        torch.cuda.synchronize()
-        # the device's activity alone: its kernels' times are all this
-        # reads, and the host's 30k ops a frame cost seconds to record
-        acts = [torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            for inputs in seq[1:]:
-                render(*inputs)
-            torch.cuda.synchronize()
-        avgs = [e for e in prof.key_averages() if e.device_type == cuda]
-        n = len(seq) - 1
-        out[m] = (sum(_device_us(e) for e in avgs) / 1e3 / n,
-                  sum(_device_us(e) for e in avgs if sweep.match(e.key))
-                  / 1e3 / n)
-        if not out[m][1] > 0.0:
-            raise AssertionError(f"torch.profiler shows no K1/K2 time in "
-                                 f"the reorder={m} frame: {out[m]}")
-    return out
+        print(f"reorder: {label} ({n} rays, {'any' if any_hit else 'closest'}"
+              f" hit): K{'2' if any_hit else '1'} and K5 restored results "
+              f"equal to none's under {REORDER_MODES[1:]}"
+              + (f", K6 words differing {k6_diff}" if k6_diff else ""),
+              flush=True)
 
 
 def _captured_band(torch, scene, dev, seq):
@@ -2957,43 +2165,29 @@ def _captured_band(torch, scene, dev, seq):
     return launched, gap
 
 
-def _reorder_phase(torch, dev, card, every):
+def _reorder_phase(torch, dev, every):
     """28. the ray-stream reorder: make_ctx(reorder=) through render_band
     on the Cornell box (K1, K2), under vpu (K5) and mxu3 (K6), on the
     knot (K3); one frame's streams through K1/K2, K5 and K6 under each
-    mode beside the permutation's own time; the device time of a frame
-    a mode; a captured "bins" frame. Returns (the Cornell frames'
-    launches a mode, their frames)."""
+    mode; a captured "bins" frame."""
     from tpu_raytracer_torch.models import scenes
 
-    t_phase = time.time()
     scene = scenes.create_cornell_box(dev)
-    frames = REORDER_WARMUP + REORDER_TIMED
-    seq = _camera_seq(dev, frames, scene.num_lights)
+    seq = _camera_seq(dev, REORDER_FRAMES, scene.num_lights)
     on = ["closest_hit", "any_hit", "table_gather"]
     runs = _mode_frames(torch, scene, dev, seq, "Cornell", on, every)
     for m in REORDER_MODES:
-        dt, launched, got = runs[m]
-        for i, (g, w) in enumerate(zip(got, runs["none"][2])):
+        for i, (g, w) in enumerate(zip(runs[m], runs["none"])):
             diff, gap = _word_diff(torch, g, w)
             if diff:
                 raise AssertionError(f"Cornell reorder={m} frame {i}: {diff} "
                                      f"words differ from none (max abs "
                                      f"{gap:.3g})")
-        rays = sum(float(out[3]["rays"]) for out in got[REORDER_WARMUP:])
-        print(f"reorder: Cornell {WIDTH}x{HEIGHT} through render_band with "
-              f"make_ctx(reorder={m!r}), {frames} eager frames: every word "
-              f"equal to none's; {REORDER_TIMED} timed: "
-              f"{REORDER_TIMED / dt:.4f} fps, {rays / dt / 1e6:.4f} Mrays/s; "
-              f"K1/K2/K7 launches a frame "
-              f"{launched['closest_hit'] / frames:.2f} / "
-              f"{launched['any_hit'] / frames:.2f} / "
-              f"{launched['table_gather'] / frames:.2f} [{card}]",
-              flush=True)
-    c_launches = {m: runs[m][1] for m in REORDER_MODES}
+    print(f"reorder: Cornell {WIDTH}x{HEIGHT} through render_band with "
+          f"make_ctx(reorder=m), m in {REORDER_MODES}, {REORDER_FRAMES} eager "
+          f"frames a mode: every word equal to none's, {on} launched and no "
+          f"other trace kernel", flush=True)
     del runs
-    print(f"reorder: the Cornell frames took {time.time() - t_phase:.1f} s",
-          flush=True)
 
     # one frame a mode on K5 (vpu), K3 (the knot) and K6 (mxu3)
     mxu_scene = scenes.create_cornell_box(dev, kernel="mxu3")
@@ -3005,43 +2199,28 @@ def _reorder_phase(torch, dev, card, every):
              ["stream_closest_hit", "stream_any_hit", "table_gather"], True),
             ("Cornell mxu3 (K6)", lambda: mxu_scene,
              ["mxu_closest_hit", "any_hit", "table_gather"], False)):
-        t0 = time.time()
         s = build()
         one = _camera_seq(dev, 1, s.num_lights)
         runs = _mode_frames(torch, s, dev, one, what, kernels, every)
-        notes = []
-        for m in ("live", "bins"):
-            diff, gap = _word_diff(torch, runs[m][2][0], runs["none"][2][0])
-            ldr_px = int((runs[m][2][0][0] != runs["none"][2][0][0])
-                         .any(dim=-1).sum())
-            if exact and diff:
-                raise AssertionError(f"{what} reorder={m}: {diff} words "
-                                     f"differ from none (max abs {gap:.3g})")
-            notes.append(f"{m}: {diff} words, {ldr_px} LDR pixels differ "
-                         f"(max abs {gap:.3g})")
-        print(f"reorder: {what} {WIDTH}x{HEIGHT}, 1 eager frame a mode "
-              f"(launches {kernels} only) against none: "
-              f"{'; '.join(notes)} ({time.time() - t0:.1f} s with the "
-              f"build) [{card}]", flush=True)
+        if exact:
+            for m in ("live", "bins"):
+                diff, gap = _word_diff(torch, runs[m][0], runs["none"][0])
+                if diff:
+                    raise AssertionError(f"{what} reorder={m}: {diff} words "
+                                         f"differ from none (max abs "
+                                         f"{gap:.3g})")
+        print(f"reorder: {what} {WIDTH}x{HEIGHT}, 1 eager frame a mode: "
+              f"{kernels} launched and no other trace kernel"
+              + ("; every word equal to none's" if exact else ""),
+              flush=True)
         del s, runs
 
-    # one frame's streams: the kernels a mode, the permutation apart
-    t0 = time.time()
+    # one frame's streams: the kernels a mode
     streams = _recorded_streams(torch, scene, dev, seq)
-    times = _stream_times(torch, scene, mxu_scene, streams, card)
+    _stream_checks(torch, scene, mxu_scene, streams)
     del streams
-    print(f"reorder: the streams took {time.time() - t0:.1f} s", flush=True)
 
-    # device time a frame a mode, and the captured bins frame
-    t0 = time.time()
-    prof = _profiled_modes(torch, scene, dev, _camera_seq(
-        dev, 2, scene.num_lights))
-    for m, (dev_ms, sweep_ms) in prof.items():
-        print(f"reorder: Cornell {WIDTH}x{HEIGHT} reorder={m}, 1 eager "
-              f"frame under torch.profiler: device {dev_ms:.4f} ms/frame, "
-              f"K1 + K2 {sweep_ms:.4f} ms/frame [{card}]", flush=True)
-    print(f"reorder: the profiled frames took {time.time() - t0:.1f} s",
-          flush=True)
+    # the captured bins frame
     launched, gap = _captured_band(torch, scene, dev, seq)
     print(f"reorder: one render_band call with make_ctx(reorder='bins') "
           f"captured in a CUDA graph under set_sync_debug_mode('error') "
@@ -3049,25 +2228,11 @@ def _reorder_phase(torch, dev, card, every):
           f"{launched['any_hit']} K2, {launched['table_gather']} K7); its "
           f"replay equals the eager call in every word (max abs {gap:.3g})",
           flush=True)
-    print(f"reorder: phase 28 took {time.time() - t_phase:.1f} s [{card}]",
-          flush=True)
-    return c_launches, frames, times, prof
 
 
 PATH_K9 = ("path_prime", "path_bounce", "path_finish")
 # the shading kernels of every ReSTIR frame: K9's and K10 ("post")
 FRAME_SHADE = (*PATH_K9, "post")
-# K9's bytes a lane at the least (csrc/path_trace.cu; table rows and
-# texels come from L2 and are not counted): prime, every lane (the
-# G-buffer row and seed in, the lane state, two rays with t_min, the last
-# depth's zeroed shadow ray and the reconnection vertex out); a bounce, a
-# live lane (flags, radiance, RNG, throughput, pdf, its ray and hit, its
-# shadow answer in; its state, NEE term and two rays out), a lane with
-# only a shadow answer pending, and an idle one (its flags); finish, every
-# lane (flags, radiance, RNG in; radiance and state out) and a shadow lane
-# (its NEE term and answer)
-K9_PRIME_B, K9_LIVE_B, K9_SHADOW_B, K9_IDLE_B = 219, 176, 52, 4
-K9_FINISH_B, K9_FINISH_SHADOW_B = 40, 16
 PATH_SIZES = ((1280, 720),)
 # K9's launches a trace_path call, by kind
 K9_CALL = {"path_prime": 1, "path_bounce": 7, "path_finish": 1}
@@ -3106,18 +2271,15 @@ def _spied_path_calls(torch, scene, dev, width, height, frames):
 
 
 def _k9_queries(torch, scene, call):
-    """K9's call with its queries spied: (outputs, [(live rays of the
-    query's first half, of its second half)] in order; a query of one
-    half gives (its live rays, 0))."""
+    """K9's call with its queries counted: (outputs, the scene_trace
+    calls it made)."""
     from tpu_raytracer_torch.ops import path_trace
 
-    real, live = path_trace.scene_trace, []
+    real, queries = path_trace.scene_trace, []
 
-    def spy(scene_, o, d, t_min, t_max, any_hit=False, **kw):
-        r = call[2].shape[0]
-        lv = t_max > 0
-        live.append((int(lv[:r].sum()), int(lv[r:].sum())))
-        return real(scene_, o, d, t_min, t_max, any_hit=any_hit, **kw)
+    def spy(*args, **kw):
+        queries.append(1)
+        return real(*args, **kw)
 
     path_trace.scene_trace = spy
     try:
@@ -3125,21 +2287,7 @@ def _k9_queries(torch, scene, call):
         torch.cuda.synchronize()
     finally:
         path_trace.scene_trace = real
-    return out, live
-
-
-def _k9_bound_ms(r, live, lights):
-    """K9's bytes for one call at HBM_PEAK, from its queries' live rays:
-    bounce d reads what query d - 1 left (live bounce lanes, pending
-    shadow answers)."""
-    nbytes = r * (K9_PRIME_B + K9_FINISH_B)
-    for first, second in live[:-1] if lights else live:
-        shadow, bounce = (first, second) if lights else (0, first)
-        pending = max(shadow - bounce, 0)      # at the least
-        nbytes += bounce * K9_LIVE_B + pending * K9_SHADOW_B \
-            + (r - bounce - pending) * K9_IDLE_B
-    nbytes += (live[-1][0] if lights else 0) * K9_FINISH_SHADOW_B
-    return nbytes / HBM_PEAK * 1e3, nbytes
+    return out, len(queries)
 
 
 def _k9_diff(torch, got, want):
@@ -3161,50 +2309,21 @@ def _k9_diff(torch, got, want):
     return out
 
 
-def _k9_ptxas():
-    """{kernel: (registers, spill stores, spill loads)} of K9's entries
-    from the build's ptxas lines, when this process built the library."""
-    import re
-
-    from tpu_raytracer_torch.runtime.build import BUILD_LOGS
-
-    out, entry = {}, None
-    for ln in BUILD_LOGS.get("trace_kernels", "").splitlines():
-        if "Compiling entry" in ln:
-            entry = next((k for k in PATH_K9 if k in ln), None)
-        elif entry and "spill stores" in ln:
-            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)
-            out[entry] = (out.get(entry, (0,))[0], int(st), int(ld))
-        elif entry and "registers" in ln:
-            regs = int(re.search(r"Used (\d+) registers", ln).group(1))
-            out[entry] = (regs, *out.get(entry, (0, 0, 0))[1:])
-    return out
-
-
-def _path_kernel_phase(torch, dev, card):
+def _path_kernel_phase(torch, dev):
     """29. K9, the path tracer's shading (csrc/path_trace.cu), against the
     eager route on the card: both trace_path calls of a Cornell and a
     knot ReSTIR frame at 1280x720 (spied, the second frame's), through
-    trace_path_kernel and trace_path_plain on the same CUDA inputs;
-    launches a frame, only K9, the trace kernels and the stage mark in a
-    call's device trace, K9 ms a launch beside its bytes bound, the eager
-    route's ms, ptxas."""
-    from tpu_raytracer_torch.models import scenes
-    from tpu_raytracer_torch.ops import path_trace, trace_api
-    from tpu_raytracer_torch.profile_frame import _device_us
-    from tpu_raytracer_torch.render import camera, pipeline, renderer
+    trace_path_kernel and trace_path_plain on the same CUDA inputs; its
+    queries a call; only K9, the trace kernels and the stage mark in a
+    call's device trace; launches a frame."""
     import re
 
-    t_phase = time.time()
+    from tpu_raytracer_torch.models import scenes
+    from tpu_raytracer_torch.ops import path_trace, trace_api
+    from tpu_raytracer_torch.render import camera, pipeline, renderer
+
     trace_names = re.compile(r"\b(closest_hit|any_hit|stream|inst|vpu|mxu|"
                              r"bvh)_kernel\b")
-    ptx = _k9_ptxas()
-    for k, (regs, st, ld) in ptx.items():
-        blocks = 65536 // (((regs * 32 + 255) // 256) * 256 * 4)
-        print(f"K9 ptxas {k}: {regs} registers, {st} B spill stores, {ld} B "
-              f"spill loads; {min(blocks, 16)} blocks of 128 an SM by "
-              f"registers [{card}]", flush=True)
-    results = {}
     for what, make in (("Cornell", lambda: scenes.create_cornell_box(dev)),
                        ("knot", lambda: scenes.create_dense_knot_scene(dev))):
         scene = make()
@@ -3215,7 +2334,7 @@ def _path_kernel_phase(torch, dev, card):
                 raise AssertionError(f"{what}: {len(calls)} trace_path "
                                      f"calls in a frame, want 2")
             for name, call in zip(("candidates", "spatial replay"), calls):
-                got, live = _k9_queries(torch, scene, call)
+                got, queries = _k9_queries(torch, scene, call)
                 want = path_trace.trace_path_plain(scene, *call)
                 torch.cuda.synchronize()
                 diff = _k9_diff(torch, got, want)
@@ -3233,59 +2352,36 @@ def _path_kernel_phase(torch, dev, card):
                                              f"{r} lanes (max abs "
                                              f"{diff[k][2]:.3g}, "
                                              f"{diff[k][3]} ulps)")
-                if len(live) != path_trace.MAX_DEPTH - (
-                        scene.num_lights == 0):
-                    raise AssertionError(f"K9 made {len(live)} queries")
-                bound_ms, nbytes = _k9_bound_ms(r, live,
-                                                scene.num_lights > 0)
+                if queries != path_trace.MAX_DEPTH - (scene.num_lights == 0):
+                    raise AssertionError(f"K9 made {queries} queries")
 
                 # one call under the profiler: only K9, the trace kernels
-                # and the stage mark, and K9's device time by launch kind
-                ops = _profile_call(torch, lambda: path_trace.trace_path(
-                    scene, *call))
-                ms, other = dict.fromkeys(PATH_K9, 0.0), []
-                seen = dict.fromkeys(PATH_K9, 0)
-                for e in ops:
-                    if _device_us(e) <= 0:
-                        continue
-                    kind = next((k for k in PATH_K9 if k in e.key), None)
+                # and the stage mark; a session that drops events reads
+                # too few K9 launches
+                seen, other = dict.fromkeys(PATH_K9, 0), []
+                for key, count in _device_ops(torch, lambda: path_trace
+                                              .trace_path(scene,
+                                                          *call)).items():
+                    kind = next((k for k in PATH_K9 if k in key), None)
                     if kind:
-                        ms[kind] += _device_us(e) / 1e3
-                        seen[kind] += e.count
-                    elif not (trace_names.search(e.key)
-                              or "tpurt_mark_" in e.key):
-                        other.append(e.key)
+                        seen[kind] += count
+                    elif not (trace_names.search(key)
+                              or "tpurt_mark_" in key):
+                        other.append(key)
                 if other:
                     raise AssertionError(f"K9 {what} {name}: a trace_path "
                                          f"call ran other device work: "
                                          f"{other}")
-                k9_ms = sum(ms.values())
-                # a session that drops events reads too few launches, or
-                # less time than the bytes take
-                if seen != K9_CALL or k9_ms < bound_ms:
-                    raise AssertionError(
-                        f"K9 {what} {name}: the profile holds {seen} "
-                        f"launches in {k9_ms:.4f} ms, want {K9_CALL} in "
-                        f"{bound_ms:.4f} ms (the bytes bound) at the least")
-                _, plain_ms = _time_once(torch, lambda: path_trace
-                                         .trace_path_plain(scene, *call))
-                err = max(diff[k][2] for k in ("radiance", "v1_pos",
-                                               "v1_normal"))
-                results[(what, name)] = (k9_ms, bound_ms, plain_ms, err)
+                if seen != K9_CALL:
+                    raise AssertionError(f"K9 {what} {name}: the profile "
+                                         f"holds {seen} launches, want "
+                                         f"{K9_CALL}")
                 print(f"K9 {what} {width}x{height} {name}: state and "
                       f"valid_v1 equal on {r} of {r} lanes, rays "
-                      f"{float(got['rays']):.0f} equal; bit-equal lanes "
-                      + ", ".join(f"{k} {diff[k][0]} (max abs "
-                                  f"{diff[k][2]:.3g}, {diff[k][3]} ulps)"
-                                  for k in ("radiance", "v1_pos",
-                                            "v1_normal"))
-                      + f"; K9 {k9_ms:.3f} ms a call (prime "
-                      f"{ms['path_prime']:.3f}, bounces "
-                      f"{ms['path_bounce']:.3f} over 7, finish "
-                      f"{ms['path_finish']:.3f}), bound {bound_ms:.3f} ms "
-                      f"({nbytes / 1e6:.1f} MB at HBM_PEAK); queries' live "
-                      f"rays {live}; eager route {plain_ms:.2f} ms a call; "
-                      f"no other device work [{card}]", flush=True)
+                      f"{float(got['rays']):.0f} equal; radiance, v1_pos and "
+                      f"v1_normal bit-equal on every lane; {queries} queries; "
+                      f"a call's device trace holds {seen} and no other "
+                      f"device work", flush=True)
 
         # launches a frame of the eager frames
         cam = camera.CameraController()
@@ -3302,19 +2398,13 @@ def _path_kernel_phase(torch, dev, card):
         if per_frame != {k: 2 * n for k, n in K9_CALL.items()}:
             raise AssertionError(f"K9 launches a {what} frame: {per_frame}")
         print(f"K9 {what}: {sum(per_frame.values()):.0f} launches a frame "
-              f"{per_frame} [{card}]", flush=True)
-    print(f"phase 29 (K9) took {time.time() - t_phase:.1f} s", flush=True)
-    return results
+              f"{per_frame}", flush=True)
 
 
-# 30. K10, the post pass (csrc/post.cu): the bytes a pixel needs, HDR 12 +
-# the G-buffer row's position, oct normal, albedo and motion 40 + an
-# accumulation word 12 in, LDR and accumulation 24 out (the packed rows
-# being adjacent, DRAM moves all 56 B of each: 104 B in this layout)
-K10_PX_B = 88
-POST_SIZES = ((1280, 720), (1920, 1080))     # the one-card cells' sizes
-POST_BANDS, POST_HALO = 4, 16                # the bands cell's split
-POST_TIMED = 50                              # K10 launches timed a case
+# 30. K10, the post pass (csrc/post.cu): the one-card cells' frame sizes
+# and the bands cell's split
+POST_SIZES = ((1280, 720), (1920, 1080))
+POST_BANDS, POST_HALO = 4, 16
 
 
 def _post_call(torch, scene, dev, width, height, frames, move=False):
@@ -3390,49 +2480,23 @@ def _k10_diff(torch, got, want):
     return out
 
 
-def _k10_ptxas():
-    """ptxas's lines for K10's entry, when this process built the
-    library."""
-    from tpu_raytracer_torch.runtime.build import BUILD_LOGS
-
-    out, entry = [], False
-    for ln in BUILD_LOGS.get("trace_kernels", "").splitlines():
-        if "Compiling entry" in ln:
-            entry = "post_pass" in ln
-        elif entry and ("registers" in ln or "spill" in ln):
-            out.append(ln.split(":", 1)[-1].strip())
-    return out
-
-
-def _post_kernel_phase(torch, dev, card):
+def _post_kernel_phase(torch, dev):
     """30. K10, the post pass (csrc/post.cu), against the eager route
     (post_process_plain on the card) on live frame inputs: a Cornell and a
     truffle 1280x720 still frame, a Cornell 1920x1080 frame under a moving
     camera (as rendered, counter 0, and with the counter at 5, so the
     clipped-history branch runs), and every band of a 4-band split (halo
     16) of the Cornell still and the moving frame; every word of ldr and
-    accum, max abs and ulps. The bands' K10 words against the one-device
-    call's on the still frame; a call's device trace holds K10 alone; K10's
-    ms beside its bytes bound and the eager route's; ptxas and occupancy;
-    "post" launches a replayed frame, one device and 4 bands."""
-    import ctypes
-
+    accum. The bands' K10 words against the one-device call's on the
+    still frame; a call's device trace holds K10 alone; "post" launches a
+    replayed frame, one device and 4 bands."""
     from tpu_raytracer_torch.app import interactive
     from tpu_raytracer_torch.models import scenes
     from tpu_raytracer_torch.ops import post, trace_api
     from tpu_raytracer_torch.parallel import tiles
-    from tpu_raytracer_torch.profile_frame import _device_us
     from tpu_raytracer_torch.render import graph as graph_mod
     from tpu_raytracer_torch.render import pipeline
 
-    t_phase = time.time()
-    lib = trace_api.load_kernels()
-    blocks = ctypes.c_int(0)
-    err = lib.tpurt_post_occupancy(ctypes.byref(blocks))
-    print(f"K10 ptxas post_pass: {' | '.join(_k10_ptxas()) or 'cached'}; "
-          f"{blocks.value} blocks of 32 x 8 threads an SM "
-          f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor, error {err}) "
-          f"[{card}]", flush=True)
     cornell = scenes.create_cornell_box(dev)
     truffle = interactive.load_scene("truffle", dev)
     (w1, h1), (w2, h2) = POST_SIZES
@@ -3446,10 +2510,8 @@ def _post_kernel_phase(torch, dev, card):
                _post_band(torch, still, b)) for b in range(POST_BANDS)]
     cases += [(f"Cornell moving, counter 5, band {b} of {POST_BANDS}",
                _post_band(torch, cases[3][1], b)) for b in range(POST_BANDS)]
-    results, outs, worst, alone = {}, {}, [0.0, 0], ""
+    outs = {}
     for what, args in cases:
-        ctx = args[5]
-        n = ctx["band_h"] * ctx["width"]
         trace_api.reset_launch_counts()
         got = post.post_process(*args)
         torch.cuda.synchronize()
@@ -3465,40 +2527,15 @@ def _post_kernel_phase(torch, dev, card):
                          for k, d in zip(("ldr", "accum"), diff))
         if any(d[0] != d[1] for d in diff):
             raise AssertionError(f"K10 {what}: {line}")
-        worst = [max(worst[0], *(d[2] for d in diff)),
-                 max(worst[1], *(d[3] for d in diff))]
-        motion = args[1]["motion"]
-        speed = (motion * torch.tensor([ctx["width"], ctx["height"]],
-                                       device=dev)).norm(dim=-1)
-        moving_px = int((speed >= 0.5).sum())
-        if "band" in what:
-            print(f"K10 {what}: {line} [{card}]", flush=True)
-            continue
+        print(f"K10 {what}: {line}", flush=True)
 
-        # the first case's call under the profiler: K10 alone (one
-        # session, so as to meet the profiler's lost events once at most)
-        if not results:
-            kernels = {e.key: e.count for e in _profile_call(
-                torch, lambda: post.post_process(*args)) if _device_us(e) > 0}
-            if list(kernels.values()) != [1] or "post_pass" not in \
-                    next(iter(kernels)):
-                raise AssertionError(f"K10 {what}: a post_process call ran "
-                                     f"{kernels} on the card")
-            alone = f"; the trace of a call holds {kernels} alone"
-        k10_ms = _time_ms(torch, lambda: post.post_process(*args),
-                          POST_TIMED)
-        _, plain_ms = _time_once(torch, lambda: post.post_process_plain(
-            *args))
-        bound_ms = K10_PX_B * n / HBM_PEAK * 1e3
-        results[what] = (k10_ms, bound_ms, plain_ms)
-        print(f"K10 {what} {ctx['width']}x{ctx['height']} (counter "
-              f"{int(args[4])}, {moving_px} of {n} pixels moving >= 0.5 px): "
-              f"{line}; K10 {k10_ms:.4f} ms a call ({POST_TIMED} launches, "
-              f"CUDA events), bound {bound_ms:.4f} ms ({K10_PX_B} B a pixel "
-              f"at HBM_PEAK, {k10_ms / bound_ms:.1f}x), eager route "
-              f"{plain_ms:.2f} ms a call, timed once{alone} [{card}]",
-              flush=True)
-        alone = ""
+    # the first case's call under the profiler: K10 alone
+    kernels = _device_ops(torch, lambda: post.post_process(*cases[0][1]))
+    if list(kernels.values()) != [1] or "post_pass" not in next(iter(kernels)):
+        raise AssertionError(f"K10 {cases[0][0]}: a post_process call ran "
+                             f"{kernels} on the card")
+    print(f"K10: the device trace of a post_process call holds {kernels} "
+          f"alone", flush=True)
 
     # the still frame's bands, put together, are the one-device call's
     for k in (0, 1):
@@ -3509,8 +2546,7 @@ def _post_kernel_phase(torch, dev, card):
             raise AssertionError("K10's 4 bands of the still frame differ "
                                  "from its one-device call")
     print(f"K10: the still frame's {POST_BANDS} bands put together equal "
-          f"its one-device call in every ldr and accum word [{card}]",
-          flush=True)
+          f"its one-device call in every ldr and accum word", flush=True)
 
     # "post" launches a replayed frame: one device, then 4 bands
     seq = _camera_seq(dev, 6, cornell.num_lights)
@@ -3533,14 +2569,8 @@ def _post_kernel_phase(torch, dev, card):
         raise AssertionError(f"K10 launches a replayed frame {per_frame}, "
                              f"want [1, {POST_BANDS}]")
     print(f"K10: {per_frame[0]:.0f} launch a replayed one-device frame, "
-          f"{per_frame[1]:.0f} a replayed frame of {POST_BANDS} bands "
-          f"[{card}]", flush=True)
-    print(f"K10: every ldr and accum word of the {len(cases)} cases equal "
-          f"to the eager route's (max abs {worst[0]:.3g}, {worst[1]} ulps) "
-          f"[{card}]", flush=True)
-    print(f"phase 30 (K10) took {time.time() - t_phase:.1f} s", flush=True)
-    return {"times": results, "per_frame": per_frame,
-            "max_abs_err": worst[0], "max_ulps": worst[1]}
+          f"{per_frame[1]:.0f} a replayed frame of {POST_BANDS} bands",
+          flush=True)
 
 
 def main() -> int:
@@ -3550,8 +2580,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    card = _card()
-    print(f"device: {card} ({torch.cuda.get_device_name(0)}, torch "
+    print(f"device: {_card()} ({torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda})", flush=True)
     dev = torch.device(DEVICE)
 
@@ -3562,7 +2591,6 @@ def main() -> int:
                                          trace_mxu, trace_stream, trace_vpu,
                                          worklist)
     from tpu_raytracer_torch.render import camera, renderer
-    from tpu_raytracer_torch.runtime.build import BUILD_LOGS
     from tpu_raytracer_torch.utils.vec3 import V3
 
     flat_kernels = ["closest_hit", "any_hit"]
@@ -3575,14 +2603,10 @@ def main() -> int:
              + mxu_kernels + bvh_kernels + list(FRAME_SHADE))
 
     # 2. build
-    t0 = time.time()
     trace_api.load_kernels()
-    ptxas = [ln.strip() for ln in BUILD_LOGS.get("trace_kernels", "")
-             .splitlines() if "registers" in ln or "Compiling entry" in ln]
-    print(f"build: K1-K8 from csrc/{{trace,trace_stream,trace_inst,"
-          f"trace_vpu,trace_mxu,gather,trace_bvh}}.cu in "
-          f"{time.time() - t0:.2f} s (one nvcc call, sm_90a); ptxas: "
-          f"{' | '.join(ptxas) or 'cached'}", flush=True)
+    print("build: K1-K10 and the stage marks from csrc/{trace,trace_stream,"
+          "trace_inst,trace_vpu,trace_mxu,gather,trace_bvh,marks,path_trace,"
+          "post}.cu (one nvcc call, sm_90a)", flush=True)
 
     scene = scenes.create_cornell_box(dev)
     cam = camera.CameraController()
@@ -3605,10 +2629,10 @@ def main() -> int:
     # 29. K9, the path tracer's shading, against the eager route: first,
     # as a process's later torch.profiler sessions can drop events (the
     # phase checks its launch count and fails on such a session; its
-    # sessions, and phase 30's, record after a warm-up step, _profile_call)
-    k9 = _path_kernel_phase(torch, dev, card)
+    # sessions, and phase 30's, record after a warm-up step, _device_ops)
+    _path_kernel_phase(torch, dev)
     # 30. K10, the post pass, against the eager route
-    k10 = _post_kernel_phase(torch, dev, card)
+    _post_kernel_phase(torch, dev)
 
     # 3. K1 against plain
     primary = primary_rays(scene)
@@ -3619,21 +2643,18 @@ def main() -> int:
     r_tmin = torch.full((RANDOM_RAYS,), 1e-3, device=dev)
     r_plain = plain(ro, rd, r_tmin, rt_max)
     p_plain = plain(*primary, *p_win)
-    k1_err, k1_ulps = 0.0, 0
     for name, (o, d), (t_min, t_max) in (
             ("primary 512^2", primary, p_win),
             ("random", (ro, rd), (r_tmin, rt_max))):
         got = kernel(o, d, t_min, t_max)
         want = r_plain if o is ro else p_plain
         torch.cuda.synchronize()
-        ulps, err, _ = _check_closest(f"K1 {name}", got, want)
-        k1_ulps, k1_err = max(k1_ulps, ulps), max(k1_err, err)
+        ulps = _check_closest(f"K1 {name}", got, want)
         if ulps:        # K1 runs the plain version's arithmetic
             raise AssertionError(f"K1 {name}: t differs from plain by "
                                  f"{ulps} ulps")
     print(f"K1: closest-hit equals plain on {n_p} primary + {RANDOM_RAYS} "
-          f"random rays: tri equal on every lane, t bit-equal (max "
-          f"{k1_ulps} ulps), max |dt| {k1_err:.3g}", flush=True)
+          f"random rays: tri equal on every lane, t bit-equal", flush=True)
 
     # 4. K2 against plain closest-hit tri >= 0
     for name, (o, d), (t_min, t_max), closest in (
@@ -3649,95 +2670,32 @@ def main() -> int:
         if not torch.equal(got["t"], t_max):
             raise AssertionError(f"K2 {name}: t is not t_max")
         print(f"K2: any-hit equals plain closest-hit tri>=0 on the {name} "
-              f"rays ({float(want.float().mean()):.3f} occluded), t = t_max",
-              flush=True)
-    k2_err = 0.0     # max |flag difference|
+              f"rays, t = t_max", flush=True)
 
     # 5. frame: the Cornell path
-    dt, rays, launches, c_ldrs = _run_frames(
-        torch, scene, dev, WARMUP, TIMED, "Cornell", on=flat_kernels,
+    c_ldrs = _run_frames(
+        torch, scene, dev, FRAMES, "Cornell", on=flat_kernels,
         off=[k for k in every if k not in (*flat_kernels, *FRAME_SHADE)])
-    c_fps = TIMED / dt                            # for phase 24
-    print("frame: " + _frame_line("Cornell ReSTIR", TIMED, dt, rays,
-                                  launches, card, WARMUP + TIMED),
-          flush=True)
-
-    timings = {}
-    for n in TIMED_RAYS:
-        o, d, t_min, t_max = ro[:, :n], rd[:, :n], r_tmin[:n], rt_max[:n]
-        o, d = o.contiguous(), d.contiguous()
-        t_k1 = _time_ms(torch, lambda: kernel(o, d, t_min, t_max), 20)
-        t_k2 = _time_ms(torch, lambda: kernel(o, d, t_min, t_max, True), 20)
-        t_plain = _time_ms(torch, lambda: plain(o, d, t_min, t_max), 3)
-        # the plain any-hit is closest-hit followed by `tri >= 0`
-        t_plain2 = _time_ms(
-            torch, lambda: plain(o, d, t_min, t_max)["tri"] >= 0, 3)
-        timings[n] = (t_k1, t_plain, t_k2, t_plain2)
-        print(f"timing {n} random rays: K1 {t_k1:.4f} ms vs plain "
-              f"{t_plain:.4f} ms; K2 {t_k2:.4f} ms vs plain {t_plain2:.4f} ms "
-              f"[{card}]", flush=True)
-
-    # bounds at the last timed size, which is all of the random rays
-    flat_io = _nbytes(ro, rd, r_tmin, rt_max, scene.tri_planes,
-                      scene.chunk_aabb) + RANDOM_RAYS * 8
-    k1_tests, k1_pairs = _flat_tests(trace_api, scene, ro, rd, r_tmin,
-                                     _window(torch, r_plain, rt_max))
-    occ = r_plain["tri"] >= 0
-    k2_tests, k2_pairs = (x + int(occ.sum()) for x in _flat_tests(
-        trace_api, scene, ro, rd, r_tmin, torch.where(occ, 0.0, rt_max)))
-    k1_bound = _bound(k1_tests * MT_FLOPS, flat_io)
-    k2_bound = _bound(k2_tests * MT_FLOPS, flat_io)
-    print(f"bound {RANDOM_RAYS} random rays: K1 {k1_tests} tests, "
-          f"{k1_bound[0]:.4f} ms ({k1_bound[1]}); K2 {k2_tests} tests, "
-          f"{k2_bound[0]:.4f} ms ({k2_bound[1]})", flush=True)
-
-    # K1/K2 on the primary rays beside the random rays, with their build
-    t_p1 = _time_ms(torch, lambda: kernel(*primary, *p_win), 20)
-    t_p2 = _time_ms(torch, lambda: kernel(*primary, *p_win, True), 20)
-    p_io = _nbytes(*primary, *p_win, scene.tri_planes,
-                   scene.chunk_aabb) + n_p * 8
-    p_tests = _flat_tests(trace_api, scene, *primary, p_win[0],
-                          _window(torch, p_plain, p_win[1]))[0]
-    p_occ = p_plain["tri"] >= 0
-    p2_tests = int(p_occ.sum()) + _flat_tests(
-        trace_api, scene, *primary, p_win[0],
-        torch.where(p_occ, 0.0, p_win[1]))[0]
-    p1_bound = _bound(p_tests * MT_FLOPS, p_io)
-    p2_bound = _bound(p2_tests * MT_FLOPS, p_io)
-    c_grp, c_units = trace_stream.stream_units(
-        scene.chunk_aabb.shape[0], trace_api.SWEPT_MAX_UNITS)
-    print(f"timing Cornell primary 512^2 rays: K1 {t_p1:.4f} ms against "
-          f"{p_tests} tests, bound {p1_bound[0]:.4f} ms ({p1_bound[1]}); K2 "
-          f"{t_p2:.4f} ms against {p2_tests} tests, bound "
-          f"{p2_bound[0]:.4f} ms ({p2_bound[1]}); SWEPT_MAX_UNITS "
-          f"{trace_api.SWEPT_MAX_UNITS}: {c_units} units of {c_grp} "
-          f"chunk(s); ptxas K1/K2 "
-          f"{' | '.join(_ptxas_of(ptxas, 'hit_kernel')) or 'cached'} "
-          f"[{card}]", flush=True)
+    print(f"frame: Cornell ReSTIR {WIDTH}x{HEIGHT}, {FRAMES} frames: "
+          f"{flat_kernels}, K7, K9 and K10 launched and no other trace "
+          f"kernel", flush=True)
 
     # 6. golden
     golden_dir = os.path.join(root, "tests", "golden")
-    psnr, gl_launches = _golden_psnr(
-        torch, scene, dev, 64, 8,
-        os.path.join(golden_dir, "cornell_64_f8_ldr.npy"))
+    psnr = _golden_psnr(torch, scene, dev, 64, 8,
+                        os.path.join(golden_dir, "cornell_64_f8_ldr.npy"))
     restir = scenes.create_restir_scene(dev)
-    r_psnr, rl_launches = _golden_psnr(
-        torch, restir, dev, 48, 4,
-        os.path.join(golden_dir, "restir_48_f4_ldr.npy"))
+    r_psnr = _golden_psnr(torch, restir, dev, 48, 4,
+                          os.path.join(golden_dir, "restir_48_f4_ldr.npy"))
     print(f"golden: 64x64 Cornell, 8 frames: PSNR {psnr:.2f} dB vs "
-          f"tests/golden/cornell_64_f8_ldr.npy, {_k7_line(gl_launches, 8)}; "
-          f"48x48 restir ({restir.num_lights} lights, "
-          f"{restir.num_triangles} triangles), 4 frames: PSNR "
-          f"{r_psnr:.2f} dB vs tests/golden/restir_48_f4_ldr.npy, "
-          f"{_k7_line(rl_launches, 4)} (floor {GOLDEN_DB})", flush=True)
+          f"tests/golden/cornell_64_f8_ldr.npy; 48x48 restir "
+          f"({restir.num_lights} lights, {restir.num_triangles} triangles), "
+          f"4 frames: PSNR {r_psnr:.2f} dB vs "
+          f"tests/golden/restir_48_f4_ldr.npy (floor {GOLDEN_DB})",
+          flush=True)
 
     # 7. K4 against plain on the full-width gallery
-    t0 = time.time()
     gal = scenes.create_instancing_gallery_scene(dev)
-    print(f"gallery: {gal.num_instances} instances, {gal.num_triangles} "
-          f"world triangles in {gal.tri_planes.shape[2]} object slots, "
-          f"{gal.unit_inst.numel()} (instance, group) units, built in "
-          f"{time.time() - t0:.2f} s", flush=True)
 
     def k4(o, d, t_min, t_max, any_hit=False):
         return trace_inst.trace_instanced_kernel(
@@ -3754,21 +2712,16 @@ def main() -> int:
     g_primary = primary_rays(gal)
     go, gd, gt_max = _random_rays(torch, RANDOM_RAYS, dev, seed=1, lo=-7.0,
                                   hi=7.0, y=(-0.9, 3.0), t_far=20.0)
-    g_plain = k4_plain(go, gd, r_tmin, gt_max)
-    gp_plain = k4_plain(*g_primary, *p_win)
-    k4_err, k4_ulps, k4a_bad = 0.0, 0, 0
-    for name, (o, d), (t_min, t_max), want in (
-            ("primary 512^2", g_primary, p_win, gp_plain),
-            ("random", (go, gd), (r_tmin, gt_max), g_plain)):
+    for name, (o, d), (t_min, t_max) in (
+            ("primary 512^2", g_primary, p_win),
+            ("random", (go, gd), (r_tmin, gt_max))):
+        want = k4_plain(o, d, t_min, t_max)
         got = k4(o, d, t_min, t_max)
         got_a = k4(o, d, t_min, t_max, any_hit=True)
         torch.cuda.synchronize()
-        ulps, err, hit = _check_closest(f"K4 {name}", got, want,
-                                        ("tri", "inst"))
-        k4_ulps, k4_err = max(k4_ulps, ulps), max(k4_err, err)
+        ulps = _check_closest(f"K4 {name}", got, want, ("tri", "inst"))
         occ = want["tri"] >= 0
         bad = int(((got_a["tri"] >= 0) != occ).sum())
-        k4a_bad = max(k4a_bad, bad)
         if bad:
             raise AssertionError(f"K4 any-hit {name}: occlusion differs on "
                                  f"{bad} lanes")
@@ -3778,88 +2731,27 @@ def main() -> int:
             raise AssertionError(f"K4 any-hit {name}: inst is not set "
                                  f"exactly on the occluded lanes")
         print(f"K4: closest-hit equals plain on the gallery's {name} rays "
-              f"({hit:.3f} hit): tri and inst equal on every lane, "
-              f"t max {k4_ulps} ulps (bound {T_ULPS}), max |dt| "
-              f"{k4_err:.3g}; any-hit equals plain closest-hit tri>=0 "
-              f"({float(occ.float().mean()):.3f} occluded), t = t_max, inst "
-              f"set exactly on the occluded lanes", flush=True)
-    k4a_err = float(k4a_bad > 0)   # max |flag difference|
+              f"({gal.num_instances} instances, {gal.num_triangles} world "
+              f"triangles): tri and inst equal on every lane, t max {ulps} "
+              f"ulps (bound {T_ULPS}); any-hit equals plain closest-hit "
+              f"tri>=0, t = t_max, inst set exactly on the occluded lanes",
+              flush=True)
 
     # 8. gallery frame: the instanced path
-    dt, rays, g_launches, _ = _run_frames(
-        torch, gal, dev, GALLERY_WARMUP, GALLERY_TIMED, "gallery",
-        on=inst_kernels, off=flat_kernels + stream_kernels)
-    print("gallery frame: " + _frame_line("instanced ReSTIR", GALLERY_TIMED,
-                                          dt, rays, g_launches, card,
-                                          GALLERY_WARMUP + GALLERY_TIMED),
+    _run_frames(torch, gal, dev, SCENE_FRAMES, "gallery", on=inst_kernels,
+                off=flat_kernels + stream_kernels)
+    print(f"gallery frame: instanced ReSTIR {WIDTH}x{HEIGHT}, {SCENE_FRAMES} "
+          f"frames: {inst_kernels}, K7, K9 and K10 launched, not K1-K3",
           flush=True)
-
-    for n in TIMED_RAYS:
-        o, d, t_min, t_max = go[:, :n], gd[:, :n], r_tmin[:n], gt_max[:n]
-        o, d = o.contiguous(), d.contiguous()
-        t_k = _time_ms(torch, lambda: k4(o, d, t_min, t_max), 10)
-        t_ka = _time_ms(torch, lambda: k4(o, d, t_min, t_max, True), 10)
-        t_p = _time_ms(torch, lambda: k4_plain(o, d, t_min, t_max), 2)
-        t_pa = _time_ms(
-            torch, lambda: k4_plain(o, d, t_min, t_max)["tri"] >= 0, 2)
-        timings[("k4", n)] = (t_k, t_p, t_ka, t_pa)
-        print(f"timing {n} random gallery rays: K4 closest {t_k:.4f} ms vs "
-              f"plain {t_p:.4f} ms; K4 any {t_ka:.4f} ms vs plain "
-              f"{t_pa:.4f} ms [{card}]", flush=True)
-
-    def k4_bounds(o, d, t_min, t_max, closest):
-        """K4's closest- and any-hit (tests, transforms, bound) on these
-        rays and their plain closest hits."""
-        io = _nbytes(o, d, t_min, t_max, gal.tri_planes,
-                     gal.obj_group_aabb, gal.inst_table, gal.inst_aabb,
-                     gal.inst_group_span) + o.shape[1] * 12
-        occ = closest["tri"] >= 0
-        out = []
-        for t_hi, extra in ((_window(torch, closest, t_max), 0),
-                            (torch.where(occ, 0.0, t_max), int(occ.sum()))):
-            tests, xf = _inst_tests(torch, trace_api, trace_inst, gal, o, d,
-                                    t_min, t_hi)
-            tests += extra
-            out.append((tests, xf, _bound(tests * MT_FLOPS
-                                          + xf * XFORM_FLOPS, io)))
-        return out
-
-    # K4 on the primary rays beside the random rays, with its build
-    t_pk = _time_ms(torch, lambda: k4(*g_primary, *p_win), 10)
-    t_pka = _time_ms(torch, lambda: k4(*g_primary, *p_win, True), 10)
-    i_grp, i_units = trace_inst.inst_units(gal.num_instances)
-    k4_ptxas = _ptxas_of(ptxas, "inst_kernel")
-    for name, rays, closest, t in (
-            ("primary 512^2", (*g_primary, *p_win), gp_plain, (t_pk, t_pka)),
-            (f"{RANDOM_RAYS} random", (go, gd, r_tmin, gt_max), g_plain,
-             timings[("k4", RANDOM_RAYS)][::2])):
-        (k4_tests, k4_xf, k4_bound), (k4a_tests, k4a_xf, k4a_bound) = \
-            k4_bounds(*rays, closest)
-        print(f"bound gallery {name} rays: K4 closest {t[0]:.4f} ms against "
-              f"{k4_tests} tests + {k4_xf} transforms, {k4_bound[0]:.4f} ms "
-              f"({k4_bound[1]}); K4 any {t[1]:.4f} ms against {k4a_tests} "
-              f"tests + {k4a_xf} transforms, {k4a_bound[0]:.4f} ms "
-              f"({k4a_bound[1]}); MAX_UNITS {trace_inst.MAX_UNITS}: "
-              f"{i_units} units of {i_grp} instance(s); ptxas K4 "
-              f"{' | '.join(k4_ptxas) or 'cached'} [{card}]", flush=True)
-    # k4_bound and k4a_bound stay at the random rays, for the kernels line
     gal_inst_table = gal.inst_table     # for phase 16
-    del gal, g_plain, gp_plain, go, gd, gt_max
+    del gal, go, gd, gt_max
 
     # 9. K3 against the plain versions on the full-width knot
-    t0 = time.time()
     knot = scenes.create_dense_knot_scene(dev)
     if knot.num_triangles != KNOT_TRIANGLES:
         raise AssertionError(f"the knot scene holds {knot.num_triangles} "
                              f"world triangles, not {KNOT_TRIANGLES}: did "
                              f"the .glb load?")
-    tp = knot.tri_planes.shape[2]
-    grp, units = trace_stream.stream_units(tp // trace_api.CT)
-    print(f"knot: {knot.num_triangles} world triangles in {tp} slots "
-          f"(> MXUF_MAX_TP {trace_api.MXUF_MAX_TP}: K3's route), "
-          f"MAX_UNITS {trace_stream.MAX_UNITS}: {units} units of {grp} "
-          f"chunk(s), textures {sorted(knot.tex_channels)}, built in "
-          f"{time.time() - t0:.2f} s", flush=True)
 
     def k3(o, d, t_min, t_max, any_hit=False):
         return trace_stream.trace_stream_kernel(
@@ -3875,108 +2767,43 @@ def main() -> int:
         return trace_api.trace_plain(knot.tri_planes, knot.chunk_aabb,
                                      V3(*o), V3(*d), t_min, t_max)
 
-    def k1_knot(o, d, t_min, t_max, any_hit=False):
-        return trace_api.trace_kernel(knot.tri_planes, knot.chunk_aabb, o, d,
-                                      t_min, t_max, any_hit=any_hit)
-
     k_primary = primary_rays(knot)
     pos = dense_asset.knot_mesh()[0] * 1.1 + np.float32([0.0, 1.2, 0.0])
     lo, hi = pos.min(0)[:, None], pos.max(0)[:, None]
     ko, kd, kt_max = _random_rays(torch, RANDOM_RAYS, dev, seed=2, lo=lo,
                                   hi=hi, t_far=float(np.linalg.norm(hi - lo)))
-    k3_plain_r, k3_plain_ms = _time_once(
-        torch, lambda: k3_plain(ko, kd, r_tmin, kt_max))
-    k3a_plain_r, k3a_plain_ms = _time_once(
-        torch, lambda: k3_plain(ko, kd, r_tmin, kt_max, True))
-    k3_err, k3_ulps, k3a_bad = 0.0, 0, 0
     for name, (o, d), (t_min, t_max) in (
             ("primary 512^2", k_primary, p_win),
             ("random", (ko, kd), (r_tmin, kt_max))):
         got = k3(o, d, t_min, t_max)
         got_a = k3(o, d, t_min, t_max, any_hit=True)
-        if o is ko:
-            want, want_a = k3_plain_r, k3a_plain_r
-        else:
-            want = k3_plain(o, d, t_min, t_max)
-            want_a = k3_plain(o, d, t_min, t_max, any_hit=True)
+        want = k3_plain(o, d, t_min, t_max)
+        want_a = k3_plain(o, d, t_min, t_max, any_hit=True)
         scan = knot_scan(o, d, t_min, t_max)
         torch.cuda.synchronize()
-        for ref_name, ref in (("streamed twin", want), ("chunk scan", scan)):
-            ulps, err, hit = _check_closest(f"K3 {name} vs {ref_name}", got,
-                                            ref)
-            k3_ulps, k3_err = max(k3_ulps, ulps), max(k3_err, err)
+        ulps = max(_check_closest(f"K3 {name} vs {ref_name}", got, ref)
+                   for ref_name, ref in (("streamed twin", want),
+                                         ("chunk scan", scan)))
         for ref_name, ref in (("streamed twin", want_a["tri"] >= 0),
                               ("chunk scan", scan["tri"] >= 0)):
             bad = int(((got_a["tri"] >= 0) != ref).sum())
-            k3a_bad = max(k3a_bad, bad)
             if bad:
                 raise AssertionError(f"K3 any-hit {name} vs {ref_name}: "
                                      f"occlusion differs on {bad} lanes")
         if not torch.equal(got_a["t"], t_max):
             raise AssertionError(f"K3 any-hit {name}: t is not t_max")
-        print(f"K3: on the knot's {name} rays ({hit:.3f} hit) closest-hit "
-              f"equals the streamed twin and the chunk scan: tri equal on "
-              f"every lane, t max {k3_ulps} ulps (bound {T_ULPS}), max "
-              f"|dt| {k3_err:.3g}; any-hit occlusion equal, t = t_max",
-              flush=True)
-    k3a_err = float(k3a_bad > 0)   # max |flag difference|
-
-    # K3 beside K1 on the same scene and rays
-    for name, (o, d), (t_min, t_max) in (
-            ("primary 512^2", k_primary, p_win),
-            (f"{TIMED_RAYS[0]} random", (ko[:, :TIMED_RAYS[0]].contiguous(),
-                                        kd[:, :TIMED_RAYS[0]].contiguous()),
-             (r_tmin[:TIMED_RAYS[0]], kt_max[:TIMED_RAYS[0]])),
-            (f"{RANDOM_RAYS} random", (ko, kd), (r_tmin, kt_max))):
-        t = [_time_ms(torch, lambda a=a: fn(o, d, t_min, t_max, a), 10)
-             for fn in (k3, k1_knot) for a in (False, True)]
-        timings[("k3", name)] = t
-        print(f"timing knot {name} rays: closest K3 {t[0]:.4f} ms vs K1 "
-              f"{t[2]:.4f} ms; any K3 {t[1]:.4f} ms vs K2 {t[3]:.4f} ms "
-              f"[{card}]", flush=True)
-    print(f"timing knot {RANDOM_RAYS} random rays, plain: streamed twin "
-          f"closest {k3_plain_ms:.4f} ms, any {k3a_plain_ms:.4f} ms [{card}]",
-          flush=True)
-
-    def k3_bounds(o, d, t_min, t_max, closest, occluded):
-        """K3's closest- and any-hit bounds on these rays and answers."""
-        io = _nbytes(o, d, t_min, t_max, knot.tri_planes,
-                     knot.chunk_aabb) + o.shape[1] * 8
-        tests = _flat_tests(trace_api, knot, o, d, t_min,
-                            _window(torch, closest, t_max))[0]
-        tests_a = int(occluded.sum()) + _flat_tests(
-            trace_api, knot, o, d, t_min,
-            torch.where(occluded, 0.0, t_max))[0]
-        return (tests, _bound(tests * MT_FLOPS, io),
-                tests_a, _bound(tests_a * MT_FLOPS, io))
-
-    k3_ptxas = _ptxas_of(ptxas, "stream_kernel")
-    p_scan = knot_scan(*k_primary, *p_win)
-    for name, rays, closest, occluded in (
-            ("primary 512^2", (*k_primary, *p_win), p_scan,
-             p_scan["tri"] >= 0),
-            (f"{RANDOM_RAYS} random", (ko, kd, r_tmin, kt_max), k3_plain_r,
-             k3a_plain_r["tri"] >= 0)):
-        tests, bound, tests_a, bound_a = k3_bounds(*rays, closest, occluded)
-        t = timings[("k3", name)]
-        print(f"bound knot {name} rays: K3 closest {t[0]:.4f} ms (K1 "
-              f"{t[2]:.4f}) against {tests} tests, {bound[0]:.4f} ms "
-              f"({bound[1]}); K3 any {t[1]:.4f} ms (K2 {t[3]:.4f}) against "
-              f"{tests_a} tests, {bound_a[0]:.4f} ms ({bound_a[1]}); "
-              f"MAX_UNITS {trace_stream.MAX_UNITS}, grp {grp}; ptxas K3 "
-              f"{' | '.join(k3_ptxas) or 'cached'} [{card}]",
-              flush=True)
-    k3_bound, k3a_bound = bound, bound_a     # at the random rays
-    del k3_plain_r, k3a_plain_r, p_scan
+        print(f"K3: on the knot's {name} rays closest-hit equals the "
+              f"streamed twin and the chunk scan: tri equal on every lane, "
+              f"t max {ulps} ulps (bound {T_ULPS}); any-hit occlusion equal, "
+              f"t = t_max", flush=True)
+    del ko, kd, kt_max, want, want_a, scan
 
     # 10. knot frame: the streamed path
-    dt, rays, k_launches, k_ldrs = _run_frames(
-        torch, knot, dev, GALLERY_WARMUP, GALLERY_TIMED, "knot",
-        on=stream_kernels, off=flat_kernels + inst_kernels)
-    print("knot frame: " + _frame_line("dense knot ReSTIR", GALLERY_TIMED,
-                                       dt, rays, k_launches, card,
-                                       GALLERY_WARMUP + GALLERY_TIMED),
-          flush=True)
+    k_ldrs = _run_frames(torch, knot, dev, SCENE_FRAMES, "knot",
+                         on=stream_kernels, off=flat_kernels + inst_kernels)
+    print(f"knot frame: dense knot ReSTIR {WIDTH}x{HEIGHT}, {SCENE_FRAMES} "
+          f"frames: {stream_kernels}, K7, K9 and K10 launched, not K1, K2 "
+          f"or K4", flush=True)
 
     # 10b. the first knot frames through K1/K2, against K3's
     _swept_knot_phase(knot, dev, [x.cpu() for x in k_ldrs[:2]])
@@ -3985,15 +2812,14 @@ def main() -> int:
 
     # 11. bunny frame: a second flattened scene on K1/K2's route
     bunny = scenes.create_bunny_scene(dev)
-    dt, rays, b_launches, _ = _run_frames(
-        torch, bunny, dev, GALLERY_WARMUP, GALLERY_TIMED, "bunny",
-        on=flat_kernels, off=stream_kernels + inst_kernels)
-    print(f"bunny frame ({bunny.num_triangles} triangles): "
-          + _frame_line("bunny ReSTIR", GALLERY_TIMED, dt, rays, b_launches,
-                        card, GALLERY_WARMUP + GALLERY_TIMED), flush=True)
+    _run_frames(torch, bunny, dev, SCENE_FRAMES, "bunny", on=flat_kernels,
+                off=stream_kernels + inst_kernels)
+    print(f"bunny frame ({bunny.num_triangles} triangles): ReSTIR "
+          f"{WIDTH}x{HEIGHT}, {SCENE_FRAMES} frames: {flat_kernels}, K7, K9 "
+          f"and K10 launched, not K3 or K4", flush=True)
 
-    # K3 beside K1/K2 on the bunny and Cornell (data for MXUF_MAX_TP; the
-    # route keeps both on K1/K2)
+    # K3 against K1/K2 on the bunny and Cornell (the route keeps both on
+    # K1/K2)
     bo, bd, bt_max = _random_rays(torch, RANDOM_RAYS, dev, seed=3)
     for sname, s, (o, d), (t_min, t_max) in (
             ("bunny", bunny, primary_rays(bunny), p_win),
@@ -4002,9 +2828,6 @@ def main() -> int:
             ("Cornell", scene, (ro, rd), (r_tmin, rt_max))):
         name = ("primary 512^2" if o.shape[1] == n_p
                 else f"{RANDOM_RAYS} random")
-        nc = s.chunk_aabb.shape[0]
-        units = [trace_stream.stream_units(nc, m) for m in (
-            trace_stream.MAX_UNITS, trace_api.SWEPT_MAX_UNITS)]
         args = (s.tri_planes, s.chunk_aabb, o, d, t_min, t_max)
         k1 = trace_api.trace_kernel(*args)
         got = trace_stream.trace_stream_kernel(*args)
@@ -4015,14 +2838,8 @@ def main() -> int:
         if bad:
             raise AssertionError(f"K3 any-hit {sname} {name} vs K1: "
                                  f"occlusion differs on {bad} lanes")
-        t = [_time_ms(torch, lambda a=a: fn(*args, any_hit=a), 10)
-             for fn in (trace_stream.trace_stream_kernel,
-                        trace_api.trace_kernel) for a in (False, True)]
-        print(f"timing {sname} {name} rays ({nc} chunks: K3 {units[0][1]} "
-              f"units of {units[0][0]}, K1 {units[1][1]} units of "
-              f"{units[1][0]}), K3 equal to K1/K2 on every lane: closest K3 "
-              f"{t[0]:.4f} ms vs K1 {t[2]:.4f} ms; any K3 {t[1]:.4f} ms vs "
-              f"K2 {t[3]:.4f} ms [{card}]", flush=True)
+        print(f"K3 on the {sname} {name} rays equals K1/K2 on every lane",
+              flush=True)
 
     # 12. K5 against its plain version and K1
     ray_sets = [("Cornell primary 512^2", scene, primary, p_win),
@@ -4033,7 +2850,6 @@ def main() -> int:
     k1_ref = {name: trace_api.trace_kernel(s.tri_planes, s.chunk_aabb, o, d,
                                            t_min, t_max)
               for name, s, (o, d), (t_min, t_max) in ray_sets}
-    k5_ulps, k5_err = 0, 0.0
     for name, s, (o, d), (t_min, t_max) in ray_sets:
         got = trace_vpu.vpu_kernel(s.tri_planes, s.chunk_aabb, o, d, t_min,
                                    t_max)
@@ -4042,39 +2858,27 @@ def main() -> int:
                 s.chunk_aabb, V3(*o), V3(*d), t_min, t_max),
             V3(*o), V3(*d), t_min, t_max)
         torch.cuda.synchronize()
-        for ref_name, ref in (("plain", want), ("K1", k1_ref[name])):
-            ulps, err, hit = _check_closest(f"K5 {name} vs {ref_name}", got,
-                                            ref)
-            k5_ulps, k5_err = max(k5_ulps, ulps), max(k5_err, err)
+        ulps = max(_check_closest(f"K5 {name} vs {ref_name}", got, ref)
+                   for ref_name, ref in (("plain", want),
+                                         ("K1", k1_ref[name])))
         if not torch.equal(got["t"], k1_ref[name]["t"]):
             raise AssertionError(f"K5 {name}: t is not K1's bit for bit")
-        units = trace_stream.stream_units(
-            s.chunk_aabb.shape[0],
-            32 if s.tri_planes.shape[2] <= trace_api.MXUF_MAX_TP else 64)
-        print(f"K5: on {name} rays ({hit:.3f} hit, {units[1]} units of "
-              f"{units[0]} chunks) equals its plain version and K1: tri "
-              f"equal on every lane, t bit-equal to K1's, max "
-              f"{k5_ulps} ulps from plain (bound {T_ULPS}), max |dt| "
-              f"{k5_err:.3g}", flush=True)
+        print(f"K5: on {name} rays equals its plain version and K1: tri "
+              f"equal on every lane, t bit-equal to K1's, max {ulps} ulps "
+              f"from plain (bound {T_ULPS})", flush=True)
 
     # 13. K6, each variant, against its plain version and K1
     tables = {"Cornell": trace_mxu.kernel_table(scene.tri_planes),
               "bunny": trace_mxu.kernel_table(bunny.tri_planes)}
-
-    def k6_chunks(s, grp, incull, o, d, t_min, t_max):
-        """The (lane, chunk) set the kernel tests, for the plain version."""
-        return trace_mxu.lane_chunks(s.chunk_aabb, grp, incull, V3(*o),
-                                     V3(*d), t_min, t_max)
-
-    k6 = {}     # (variant, any_hit) -> max |dt| or flag error, timings
-    for vname, _, grp, passes, incull, _ in MXU_VARIANTS:
+    for vname, grp, passes, incull in MXU_VARIANTS:
         for any_hit in ((False, True) if incull else (False,)):
-            key = (vname, any_hit)
-            err = 0.0
             for name, s, (o, d), (t_min, t_max) in ray_sets:
                 table = tables[name.split()[0]]
                 g = grp or (2 if s.chunk_aabb.shape[0] <= 48 else 4)
-                chunks = k6_chunks(s, g, incull, o, d, t_min, t_max)
+                # the (lane, chunk) set the kernel tests, for the plain
+                # version
+                chunks = trace_mxu.lane_chunks(s.chunk_aabb, g, incull,
+                                               V3(*o), V3(*d), t_min, t_max)
                 got = trace_mxu.mxu_kernel(table, s.chunk_aabb, o, d, t_min,
                                            t_max, g, passes, incull, any_hit)
                 want = trace_mxu.trace_mxu_plain(table, chunks, V3(*o),
@@ -4089,79 +2893,23 @@ def main() -> int:
                     raise AssertionError(f"K6 {vname} any-hit: t is not "
                                          f"t_max")
                 cmp = _compare(got, want)
-                cmp_k1 = _compare(got, k1)
                 _check_plain(f"K6 {vname} {name} vs plain", cmp, any_hit)
                 if vname != "mxu1":
-                    _check_agree(f"K6 {vname} {name} vs K1", cmp_k1, any_hit)
-                err = max(err, float(cmp["hit_diff"] > 0) if any_hit
-                          else cmp["abs"])
+                    _check_agree(f"K6 {vname} {name} vs K1",
+                                 _compare(got, k1), any_hit)
                 print(f"K6 {vname}{' any-hit' if any_hit else ''} (grp {g}, "
-                      f"{passes} pass{'es' if passes > 1 else ''}, "
-                      f"{float(chunks.sum()) / chunks.shape[0]:.3f} chunks "
-                      f"a lane) on {name} "
-                      f"rays: vs plain hit {cmp['hit']:.6f} "
-                      f"({cmp['hit_diff']} lanes), tri {cmp['tri']:.6f} "
-                      f"({cmp['tri_diff']} lanes, margin "
-                      f"{cmp['margin']:.3g}), t rel median "
-                      f"{cmp['median']:.3g} max {cmp['max']:.3g}; vs K1 hit "
-                      f"{cmp_k1['hit']:.6f} ({cmp_k1['hit_diff']} lanes), "
-                      f"tri {cmp_k1['tri']:.6f} ({cmp_k1['tri_diff']} "
-                      f"lanes, margin {cmp_k1['margin']:.3g})", flush=True)
-            k6[key] = [err]
-
-    # timing at all of Cornell's random rays, where K1's bound is taken:
-    # each kernel, its plain version, and its route's whole call as
-    # scene_trace makes it (no prepass on the card)
-    c_rays = (ro, rd, r_tmin, rt_max)
-    c_v3 = (V3(*ro), V3(*rd), r_tmin, rt_max)
-
-    def route_ms(kernel, incull, any_hit=False):
-        s = scenes.create_cornell_box(dev, kernel=kernel, incull=incull)
-        return _time_ms(torch, lambda: trace_api.scene_trace(
-            s, *c_v3, any_hit=any_hit), 20)
-
-    k5_ms = _time_ms(torch, lambda: trace_vpu.vpu_kernel(
-        scene.tri_planes, scene.chunk_aabb, *c_rays), 20)
-    wl = trace_vpu.vpu_worklists(scene.chunk_aabb, *c_v3)
-    k5_plain_ms = _time_ms(torch, lambda: trace_vpu.trace_vpu_plain(
-        scene.tri_planes, *wl, *c_v3), 3)
-    print(f"timing {RANDOM_RAYS} random Cornell rays: K5 {k5_ms:.4f} ms vs "
-          f"K1 {timings[RANDOM_RAYS][0]:.4f} ms; vpu route (scene_trace) "
-          f"{route_ms('vpu', False):.4f} ms; plain {k5_plain_ms:.4f} ms; "
-          f"ptxas {' | '.join(_ptxas_entries(ptxas, 'vpu_kernel'))} "
-          f"[{card}]", flush=True)
-    c_io = (_nbytes(ro, rd, r_tmin, rt_max, tables["Cornell"],
-                    scene.chunk_aabb) + RANDOM_RAYS * 8)
-    for vname, mode, grp, passes, incull, _ in MXU_VARIANTS:
-        g = grp or 2
-        chunks = k6_chunks(scene, g, incull, *c_rays)
-        for any_hit in ((False, True) if incull else (False,)):
-            ms = _time_ms(torch, lambda: trace_mxu.mxu_kernel(
-                tables["Cornell"], scene.chunk_aabb, *c_rays, g, passes,
-                incull, any_hit), 20)
-            plain_ms = _time_ms(torch, lambda: trace_mxu.trace_mxu_plain(
-                tables["Cornell"], chunks, *c_v3, passes, any_hit), 3)
-            tests, pairs = ((k2_tests, k2_pairs) if any_hit
-                            else (k1_tests, k1_pairs))
-            bound = _mxu_bound(tests, pairs, passes, c_io)
-            k6[(vname, any_hit)] += [ms, plain_ms, bound]
-            print(f"timing {RANDOM_RAYS} random Cornell rays: K6 {vname}"
-                  f"{' any-hit' if any_hit else ''} {ms:.4f} ms vs "
-                  f"{'K2' if any_hit else 'K1'} "
-                  f"{timings[RANDOM_RAYS][2 if any_hit else 0]:.4f} ms; "
-                  f"{mode}{' + cull' if incull else ''} route (scene_trace) "
-                  f"{route_ms(mode, incull, any_hit):.4f} ms; plain "
-                  f"{plain_ms:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}) "
-                  f"[{card}]", flush=True)
-    print(f"ptxas K6: {' | '.join(_ptxas_entries(ptxas, 'mxu_kernel'))} "
-          f"[{card}]", flush=True)
+                      f"{passes} pass{'es' if passes > 1 else ''}) on {name} "
+                      f"rays: vs plain {cmp['hit_diff']} lanes differ in "
+                      f"hit/miss, {cmp['tri_diff']} in tri (at most "
+                      f"{PLAIN_DIFF}), t rel max {cmp['max']:.3g}"
+                      + ("" if vname == "mxu1" else "; within the bf16 "
+                         "tolerance of K1"), flush=True)
 
     # 14. the Cornell frame under each mode, against the same frame of
     # phase 5's default run
-    ldr_default = c_ldrs[MODE_WARMUP + MODE_TIMED - 1].cpu().numpy()
+    ldr_default = c_ldrs[MODE_FRAMES - 1].cpu().numpy()
     c_first = [x.cpu() for x in c_ldrs[:2]]      # for phase 17
     del c_ldrs
-    mode_launches = {}
 
     def no_prepass(*args, **kwargs):
         raise AssertionError("a mode's CUDA route ran the worklist prepass")
@@ -4170,7 +2918,7 @@ def main() -> int:
     # phase the prepass (ops/worklist.py) raises if anything calls it
     prepass = worklist.block_entry, worklist.worklists
     worklist.block_entry = worklist.worklists = no_prepass
-    for mode, kernel, incull, any_hit, want in (
+    for mode, kernel_mode, incull, any_hit, want in (
             ("vpu", "vpu", False, False, "vpu_closest_hit"),
             ("vpu", "vpu", False, True, "vpu_closest_hit"),
             ("mxu3", "mxu3", False, False, "mxu_closest_hit"),
@@ -4179,7 +2927,7 @@ def main() -> int:
             ("incull", "mxuf2", True, False, "mxu_closest_hit"),
             ("incull", "mxuf2", True, True, "mxu_any_hit")):
         # one trace call, one kernel launch
-        s = scenes.create_cornell_box(dev, kernel=kernel, incull=incull)
+        s = scenes.create_cornell_box(dev, kernel=kernel_mode, incull=incull)
         trace_api.reset_launch_counts()
         trace_api.scene_trace(s, V3(*primary[0]), V3(*primary[1]), *p_win,
                               any_hit=any_hit)
@@ -4189,48 +2937,41 @@ def main() -> int:
             raise AssertionError(f"{mode} {'any' if any_hit else 'closest'}"
                                  f"-hit scene_trace launched {got}, not "
                                  f"{{{want!r}: 1}}")
-        if mode == "mxu1":
-            # mxu1 renders no frame (the reference's own note: broken for
-            # rendering); its launches are those of one scene_trace call
-            mode_launches["mxu1"] = dict(trace_api.LAUNCHES)
     print(f"modes: one scene_trace call under vpu, mxu3, mxu1, mxuw and the "
           f"cull (closest and any) launches its kernel once and nothing "
           f"else, with no prepass", flush=True)
-    for mode, kernel, incull, on, floor in (
+    for mode, kernel_mode, incull, on, floor in (
             ("vpu", "vpu", False, vpu_kernels, VPU_DB),
             ("mxu3", "mxu3", False, ["mxu_closest_hit", "any_hit"],
              GOLDEN_DB),
             ("mxuw8", "mxuw", False, ["mxu_closest_hit", "any_hit"],
              GOLDEN_DB),
             ("incull", "mxuf2", True, mxu_kernels, GOLDEN_DB)):
-        s = scenes.create_cornell_box(dev, kernel=kernel, incull=incull)
-        dt, rays, m_launches, ldrs = _run_frames(
-            torch, s, dev, MODE_WARMUP, MODE_TIMED, f"Cornell {mode}", on=on,
+        s = scenes.create_cornell_box(dev, kernel=kernel_mode, incull=incull)
+        ldrs = _run_frames(
+            torch, s, dev, MODE_FRAMES, f"Cornell {mode}", on=on,
             off=[k for k in every if k not in (*on, *FRAME_SHADE)])
         p = _psnr(ldrs[-1].cpu().numpy(), ldr_default)
         if not p >= floor:
             raise AssertionError(f"Cornell {mode} frame: PSNR {p:.2f} dB "
                                  f"against the default frame < {floor}")
-        mode_launches[mode] = m_launches
-        print(f"mode frame {mode}: "
-              + _frame_line(f"Cornell ReSTIR under {kernel}"
-                            f"{' + in-kernel cull' if incull else ''}",
-                            MODE_TIMED, dt, rays, m_launches, card,
-                            MODE_WARMUP + MODE_TIMED)
-              + f"; PSNR {p:.2f} dB against the default frame (floor "
+        print(f"mode frame {mode}: Cornell ReSTIR under {kernel_mode}"
+              f"{' + in-kernel cull' if incull else ''}, {MODE_FRAMES} "
+              f"frames: {on}, K7, K9 and K10 launched and no other trace "
+              f"kernel; PSNR {p:.2f} dB against the default frame (floor "
               f"{floor})", flush=True)
     worklist.block_entry, worklist.worklists = prepass
 
     # 15. the 64^2 golden under mxu3
-    m_psnr, ml_launches = _golden_psnr(
-        torch, scenes.create_cornell_box(dev, kernel="mxu3"), dev, 64, 8,
-        os.path.join(golden_dir, "cornell_64_f8_ldr.npy"))
+    m_psnr = _golden_psnr(torch, scenes.create_cornell_box(dev, kernel="mxu3"),
+                          dev, 64, 8,
+                          os.path.join(golden_dir, "cornell_64_f8_ldr.npy"))
     print(f"golden under mxu3: 64x64 Cornell, 8 frames: PSNR {m_psnr:.2f} dB "
-          f"vs tests/golden/cornell_64_f8_ldr.npy, {_k7_line(ml_launches, 8)} "
-          f"(floor {GOLDEN_DB})", flush=True)
+          f"vs tests/golden/cornell_64_f8_ldr.npy (floor {GOLDEN_DB})",
+          flush=True)
 
-    # 16. K7 against its plain version, beside one index_select call
-    k7 = _gather_phase(torch, dev, card, (
+    # 16. K7 against its plain version
+    _gather_phase(torch, dev, (
         ("Cornell tri_table", scene.tri_table),
         ("Cornell mat_table", scene.mat_table),
         ("knot tri_table", knot_tri_table),
@@ -4241,189 +2982,42 @@ def main() -> int:
     _fetch_phase(torch, scene, dev, c_first)
 
     # 18. config 1: the 1-spp progressive diffuse Cornell box
-    p_launches = _progressive_phase(torch, dev, card, WIDTH, HEIGHT,
-                                    PROGRESSIVE_FRAMES)
+    _progressive_phase(torch, dev, WIDTH, HEIGHT, PROGRESSIVE_FRAMES)
 
     # 19. config 5: the denoised 3840 x 2160 screenshot as one frame
-    s_launches = _screenshot_phase(torch, scene, dev, card, SHOT_W, SHOT_H,
-                                   SHOT_FRAMES)
+    _screenshot_phase(torch, scene, dev, SHOT_W, SHOT_H, SHOT_FRAMES)
 
     # 20. config 4: the 1080p fly-through with the crystal refit each frame
-    f_launches, f_frames = _flythrough_phase(torch, dev, card)
+    _flythrough_phase(torch, dev)
 
     # 21. the app, its screenshot, checkpoint and resume
-    _app_phase(torch, root, dev, card)
+    _app_phase(torch, root, dev)
 
     # 22. the procedural glTF stand-ins and the truffle app
-    standins = _standins_phase(
-        torch, root, dev, card,
+    _standins_phase(
+        torch, root, dev,
         (flat_kernels, [k for k in every if k not in (*flat_kernels,
                                                       *FRAME_SHADE)]))
 
     # 23. the BVH walk: K8 past the cap and on the Cornell box forced to it
-    k8, w_launches, w_frames, cw_launches, cw_frames = _walk_phase(
-        torch, dev, card, every, c_first, ptxas)
+    _walk_phase(torch, dev, every, c_first)
 
     # 24. the frame over 4 row bands, against the one-device frame
-    t_launches = _tiles_phase(torch, dev, card, every, c_fps, launches)
+    _tiles_phase(torch, dev, every)
 
     # 25. the frame as CUDA graphs, against the eager frames
-    gr_launches, gr_frames = _graph_phase(torch, dev, card, every)
+    _graph_phase(torch, dev, every)
 
     # 26. config 4 and the row bands replayed, against their eager frames
-    (gf_launches, gf_frames), (gt_launches, gt_frames) = _graphs2_phase(
-        torch, root, dev, card, every)
+    _refit_graph(torch, dev, every)
+    _tiled_graph(torch, root, dev, every)
 
     # 27. batched spatial taps, and the subdivided Cornell box
-    tb_launches, tb_frames, k2_stream, sd_launches, sd_frames = \
-        _tap_batch_phase(torch, dev, card, every)
+    _tap_batch_phase(torch, dev, every)
 
     # 28. the ray-stream reorder through render_band's ctx
-    ro_launches, ro_frames, _, _ = _reorder_phase(torch, dev, card, every)
+    _reorder_phase(torch, dev, every)
 
-
-    n = TIMED_RAYS[-1]
-
-    def entry(name, src, line, launched, err, times, bound):
-        return {"name": name, "route": "cuda",
-                "source": f"tpu_raytracer_torch/csrc/{src}",
-                "replaces": f"tpu_raytracer/ops/pallas_trace.py:{line}",
-                "launches": launched, "max_abs_err": err, "ms": times[0],
-                "plain_ms": times[1], "bound_ms": bound[0],
-                "bound_by": bound[1], "library_ms": None}
-
-    k4_times = timings[("k4", n)]
-    k3_times = timings[("k3", f"{RANDOM_RAYS} random")]
-    k7_err, k7_ms, k7_plain, k7_lib, k7_bound = k7[("Cornell tri_table", n)]
-    k7_frames = {
-        "Cornell": (launches, WARMUP + TIMED), "golden Cornell": (gl_launches, 8),
-        "golden restir": (rl_launches, 4),
-        "gallery": (g_launches, GALLERY_WARMUP + GALLERY_TIMED),
-        "knot": (k_launches, GALLERY_WARMUP + GALLERY_TIMED),
-        "bunny": (b_launches, GALLERY_WARMUP + GALLERY_TIMED),
-        **{f"mode {m}": (mode_launches[m], MODE_WARMUP + MODE_TIMED)
-           for m in ("vpu", "mxu3", "mxuw8", "incull")},
-        "golden mxu3": (ml_launches, 8),
-        "config 1": (p_launches, PROGRESSIVE_FRAMES),
-        "config 5": (s_launches, SHOT_FRAMES),
-        "config 4": (f_launches, f_frames),
-        **{f"stand-in {k}": v for k, v in standins.items()},
-        "tiled Cornell (4 bands)": (t_launches, WARMUP + TIMED),
-        "replayed Cornell (CUDA graph)": (gr_launches, gr_frames),
-        "replayed config 4": (gf_launches, gf_frames),
-        "replayed tiled Cornell (4 bands)": (gt_launches, gt_frames),
-        "replayed Cornell, tap_batch": (tb_launches, tb_frames),
-        "replayed subdivided Cornell": (sd_launches, sd_frames),
-        **{f"Cornell reorder={m}": (ro_launches[m], ro_frames)
-           for m in REORDER_MODES}}
-    per_frame = {k: {"config 4": f_launches[k] / f_frames,
-                     **{f"stand-in {n}": v[k] / f
-                        for n, (v, f) in standins.items()},
-                     "tiled Cornell (4 bands)": t_launches[k]
-                     / (WARMUP + TIMED),
-                     "replayed Cornell (CUDA graph)": gr_launches[k]
-                     / gr_frames,
-                     "replayed config 4": gf_launches[k] / gf_frames,
-                     "replayed tiled Cornell (4 bands)": gt_launches[k]
-                     / gt_frames,
-                     "replayed Cornell, tap_batch": tb_launches[k]
-                     / tb_frames,
-                     "replayed subdivided Cornell": sd_launches[k]
-                     / sd_frames,
-                     **{f"Cornell reorder={m}": ro_launches[m][k] / ro_frames
-                        for m in REORDER_MODES}}
-                 for k in ("closest_hit", "any_hit")}
-    print(json.dumps({"kernels": [
-        {**entry("closest_hit", "trace.cu", 392, launches["closest_hit"],
-                 k1_err, timings[n][:2], k1_bound),
-         "launches_per_frame": per_frame["closest_hit"]},
-        {**entry("any_hit", "trace.cu", 611, launches["any_hit"], k2_err,
-                 timings[n][2:], k2_bound),
-         "launches_per_frame": per_frame["any_hit"],
-         "tap_stream": {"rays": k2_stream[0], "ms": k2_stream[1],
-                        "plain_ms": k2_stream[2],
-                        "bound_ms": k2_stream[3][0],
-                        "bound_by": k2_stream[3][1],
-                        "launches": tb_launches["any_hit"]}},
-        entry("inst_closest_hit", "trace_inst.cu", 1916,
-              g_launches["inst_closest_hit"], k4_err, k4_times[:2],
-              k4_bound),
-        entry("inst_any_hit", "trace_inst.cu", 1916,
-              g_launches["inst_any_hit"], k4a_err, k4_times[2:], k4a_bound),
-        entry("stream_closest_hit", "trace_stream.cu", 800,
-              k_launches["stream_closest_hit"], k3_err,
-              (k3_times[0], k3_plain_ms), k3_bound),
-        entry("stream_any_hit", "trace_stream.cu", 800,
-              k_launches["stream_any_hit"], k3a_err,
-              (k3_times[1], k3a_plain_ms), k3a_bound),
-        entry("vpu_closest_hit", "trace_vpu.cu", 1257,
-              mode_launches["vpu"]["vpu_closest_hit"], k5_err,
-              (k5_ms, k5_plain_ms), k1_bound),
-        *(entry(f"mxu_{'any' if a else 'closest'}_hit[{v}]", "trace_mxu.cu",
-                line, mode_launches[v][f"mxu_{'any' if a else 'closest'}_hit"],
-                k6[(v, a)][0], k6[(v, a)][1:3], k6[(v, a)][3])
-          for v, _, _, _, incull, line in MXU_VARIANTS
-          for a in ((False, True) if incull else (False,))),
-        *({"name": f"bvh_{q}_hit", "route": "cuda",
-           "source": "tpu_raytracer_torch/csrc/trace_bvh.cu",
-           "replaces": "tpu_raytracer/ops/traversal.py:28",
-           "note": "the reference's walk is an XLA while_loop, not a "
-                   "pallas_call",
-           "launches": w_launches[f"bvh_{q}_hit"], "max_abs_err": 0.0,
-           "ms": k8[("incoherent", a)][0],
-           "plain_ms": k8[("incoherent", a)][1],
-           "bound_ms": k8[("incoherent", a)][2][0],
-           "bound_by": k8[("incoherent", a)][2][1], "library_ms": None,
-           "walk_steps": k8[("incoherent", a)][3],
-           "launches_per_frame": {
-               "big scene": w_launches[f"bvh_{q}_hit"] / w_frames,
-               "Cornell brute_max=1": cw_launches[f"bvh_{q}_hit"]
-               / cw_frames}}
-          for q, a in (("closest", False), ("any", True))),
-        {"name": "path_shade", "route": "cuda",
-         "source": "tpu_raytracer_torch/csrc/path_trace.cu",
-         "replaces": None,
-         "note": "K9 replaces no TPU kernel: the reference's path tracer "
-                 "is XLA elementwise code; plain_ms is the port's eager "
-                 "route, trace_path_plain, on the card",
-         "launches": sum(launches[k] for k in PATH_K9),
-         "launches_per_frame": {
-             what: {k: v[k] / f for k in PATH_K9}
-             for what, (v, f) in (
-                 ("replayed Cornell (CUDA graph)", (gr_launches, gr_frames)),
-                 ("replayed config 4", (gf_launches, gf_frames)),
-                 ("replayed tiled Cornell (4 bands)",
-                  (gt_launches, gt_frames)))},
-         "max_abs_err": max(v[3] for v in k9.values()),
-         "ms": k9[("Cornell", "candidates")][0],
-         "plain_ms": k9[("Cornell", "candidates")][2],
-         "bound_ms": k9[("Cornell", "candidates")][1], "bound_by": "bytes",
-         "library_ms": None},
-        {"name": "post", "route": "cuda",
-         "source": "tpu_raytracer_torch/csrc/post.cu",
-         "replaces": None,
-         "note": "K10 replaces no TPU kernel: the reference's post pass is "
-                 "XLA elementwise and roll code; plain_ms is the port's "
-                 "eager route, post_process_plain, on the card",
-         "launches": launches["post"],
-         "launches_per_frame": {
-             "replayed Cornell (CUDA graph)": k10["per_frame"][0],
-             "replayed tiled Cornell (4 bands)": k10["per_frame"][1]},
-         "max_abs_err": k10["max_abs_err"],
-         "ms": k10["times"]["Cornell still"][0],
-         "plain_ms": k10["times"]["Cornell still"][2],
-         "bound_ms": k10["times"]["Cornell still"][1], "bound_by": "bytes",
-         "library_ms": None},
-        {"name": "table_gather", "route": "cuda",
-         "source": "tpu_raytracer_torch/csrc/gather.cu",
-         "replaces": "tpu_raytracer/ops/pallas_gather.py:51",
-         "launches": launches["table_gather"],
-         "max_abs_err": max(v[0] for v in k7.values()), "ms": k7_ms,
-         "plain_ms": k7_plain, "bound_ms": k7_bound[0],
-         "bound_by": k7_bound[1], "library_ms": k7_lib,
-         "launches_per_frame": {k: v["table_gather"] / f
-                                for k, (v, f) in k7_frames.items()}},
-    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

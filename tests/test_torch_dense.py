@@ -752,10 +752,8 @@ def test_new_modules_leave_jax_and_pil_out():
             "tpu_raytracer_torch.models.dense_asset, "
             "tpu_raytracer_torch.scene.loader, "
             "tpu_raytracer_torch.ops.trace_stream, "
-            "tpu_raytracer_torch.stream_variants, "
-            "tpu_raytracer_torch.swept_variants, "
-            "tpu_raytracer_torch.mxu_variants, "
-            "tpu_raytracer_torch.profile_frame, "
+            "tpu_raytracer_torch.bvh_variants, "
+            "tpu_raytracer_torch.bigscene, "
             "tpu_raytracer_torch.utils.png;"
             " bad = [m for m in sys.modules if m in ('jax', 'PIL') or "
             "m.startswith(('jax.', 'PIL.', 'tpu_raytracer.'))"

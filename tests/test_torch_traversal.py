@@ -340,9 +340,10 @@ def test_step_stats(walk_cases):
 
 
 def test_big_scene_and_walk_rays_small():
-    """bigscene.big_scene (phase 23's scene, and profile_frame.py's
-    `big`) at subdivision 1 with the cap at 1: 2 x 80 + 4 triangles, every
-    query routed to the walk; walk_rays' two sets with unit directions."""
+    """bigscene.big_scene (chip_smoke.py phase 23's scene, and
+    bvh_variants.py's) at subdivision 1 with the cap at 1: 2 x 80 + 4
+    triangles, every query routed to the walk; walk_rays' two sets with
+    unit directions."""
     from tpu_raytracer_torch import bigscene
 
     scene = bigscene.big_scene("cpu", 1, (-0.3, 0.3), brute_max=1)
@@ -363,26 +364,6 @@ def test_big_scene_and_walk_rays_small():
                                 scene.bvh_tri, V3(*rays["coherent"][0]),
                                 V3(*rays["coherent"][1]), 1e-3, 100.0)
     assert (res["tri"] >= 0).any()
-
-
-def test_profile_frame_names_k8():
-    """profile_frame.py lists K8's two entries among the port's kernels,
-    and builds its two walked scenes: the big scene at phase 23's
-    arguments, and the Cornell box with the cap at 1."""
-    from tpu_raytracer_torch import bigscene, profile_frame
-
-    for flag in ("false", "true"):
-        name = (f"void (anonymous namespace)::bvh_kernel<{flag}>(float "
-                f"const*, float const*, int, int, float*, int*, int*)")
-        m = profile_frame.PORT_KERNEL.match(name)
-        assert m and m.group(1) == f"bvh_kernel<{flag}>"
-    assert all(map(callable, profile_frame.SCENES.values()))
-    big = profile_frame.SCENES["big"]
-    assert big.func is bigscene.big_scene
-    assert big.keywords == {"subdiv": 8, "xs": (-0.3, 0.3)}
-    walked = profile_frame.SCENES["cornell-walk"]
-    assert walked.func is scenes.create_cornell_box
-    assert walked.keywords == {"brute_max": 1}
 
 
 # --- the route ----------------------------------------------------------------

@@ -1,6 +1,6 @@
 """The big scene past the BVH walk's cap, its ray sets, and the walk's
-step statistics: what `chip_smoke.py` phase 23, `bvh_variants.py` and
-`profile_frame.py --scene big` run and print.
+step statistics: `chip_smoke.py` phase 23 checks K8 on the scene and
+rays, and `bvh_variants.py` runs all three.
 """
 
 from __future__ import annotations

@@ -40,6 +40,7 @@ import ctypes
 import json
 import os
 import statistics
+import subprocess
 import threading
 import time
 
@@ -47,10 +48,9 @@ import numpy as np
 import torch
 
 from .bigscene import big_scene, stats_text, step_stats, walk_rays
-from .ops import gbuffer, traversal
+from .ops import gbuffer, trace_api, traversal
 from .render import camera, renderer
-from .runtime.build import CSRC_DIR
-from .stream_variants import REPS, _build_all, _card, _time_ms
+from .runtime.build import BUILD_DIR, CSRC_DIR
 from .utils.vec3 import V3
 
 # name -> TPURT_BVH_WINDOW
@@ -61,6 +61,61 @@ CORNELL_SIZE = 512
 # launches a frame of a walked scene (PERF.md §6): closest- and any-hit
 WEIGHTS = {"closest": 15, "any": 7}
 TAIL = 0.01       # the diagnostic's share of rays made dead
+REPS = 10         # launches a timed turn
+
+
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def _build_all(source, variants, entries, argtypes):
+    """Start one nvcc per (name, csrc dir, defines) at once, each building
+    <csrc dir>/<source>; bind each library's `entries` with `argtypes`.
+    Returns {name: (ctypes library, ptxas lines)}; a build that fails
+    raises."""
+    out_dir = os.path.join(BUILD_DIR, "variants")
+    os.makedirs(out_dir, exist_ok=True)
+    stem = os.path.splitext(source)[0]
+    procs = {}
+    for name, csrc, defines in variants:
+        so = os.path.join(out_dir, f"{stem}_{name}.so")
+        cmd = [trace_api._nvcc(), *trace_api.NVCC_FLAGS,
+               *(f"-D{x}" for x in defines), "-o", so,
+               os.path.join(csrc, source)]
+        procs[name] = (so, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        log = proc.communicate(timeout=600)[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"building {name} failed:\n{log}")
+        lib = ctypes.CDLL(so)
+        for entry in entries:
+            fn = getattr(lib, entry)
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
+        libs[name] = (lib, [ln.strip() for ln in log.splitlines()
+                            if "registers" in ln or "Compiling entry" in ln])
+    return libs
+
+
+def _time_ms(fn):
+    """fn's time on the card: CUDA events over REPS launches, after one
+    launch unrecorded."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(REPS):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / REPS
 
 
 def _cornell_rays(scene, dev):

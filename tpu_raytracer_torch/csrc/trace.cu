@@ -52,7 +52,7 @@ using namespace tpurt;
 
 constexpr int BLOCK = SWEEP_BLOCK;
 // unit capacity (ops/trace_api.py:SWEPT_MAX_UNITS); the g++ emulation's
-// tests also build 8, swept_variants.py times 16 to 128
+// tests also build 8
 #ifndef TPURT_SWEPT_MAX_UNITS
 #define TPURT_SWEPT_MAX_UNITS 32
 #endif

@@ -1,5 +1,5 @@
 """Frame telemetry (`tpu_raytracer/utils/profiling.py`, less its JAX
-profiler trace; `profile_frame.py` traces a frame with torch.profiler).
+profiler trace; `rtbench --trace 1` traces a frame with torch.profiler).
 
   * `FrameStats`: rolling fps and Mrays/s from the pipeline's exact ray
     counts (the reference app's window-title telemetry, main.rs:81-95);
