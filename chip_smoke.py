@@ -17,11 +17,12 @@ code is non-zero):
                 and any-hit), K5 (the vpu sweep), K6 (the tensor-core
                 test), K7 (the table gather of the row fetches), K8 (the
                 BVH walk, closest- and any-hit), K9 (the path tracer's
-                shading), K10 (the post pass) and the stage marks, from
+                shading), K10 (the post pass), K11 (ReSTIR's spatial
+                reuse) and the stage marks, from
                 tpu_raytracer_torch/csrc/{trace,trace_stream,trace_inst,
                 trace_vpu,trace_mxu,gather,trace_bvh,marks,path_trace,
-                post}.cu for sm_90a with one nvcc call. Phases 29 and 30
-                run next.
+                post,spatial}.cu for sm_90a with one nvcc call. Phases 29,
+                30 and 31 run next.
   3. K1       - against its plain PyTorch version on the card: Cornell
                 512^2 primary rays and 524,288 random rays (random t_max,
                 30% dead lanes). tri equal on every lane, t bit-equal.
@@ -288,9 +289,23 @@ code is non-zero):
                 together equal to its one-device call; one call under
                 torch.profiler holds K10 alone; "post" launches a replayed
                 frame, 1 on one device and 4 on 4 bands.
+ 31. K11      - run after phase 30: ReSTIR's spatial reuse
+                (csrc/spatial.cu) against the eager route
+                (restir_spatial_plain on the card) on live restir_spatial
+                arguments of a Cornell and a truffle 1280x720 still frame,
+                a Cornell 1920x1080 frame under a moving camera (its
+                counter 0, and 5) and every band of a 4-band split (halo
+                16) of the Cornell still frame: every word of the output
+                reservoirs, hdr, rays and diag equal, K11_CALL's launches a
+                call; the bands together equal to the one-device call; a
+                call's device trace holds K11_CALL, the trace kernels, K9,
+                the stage marks and at most SPATIAL_EAGER other operations
+                (the any-hit calls' fills, mask and compare); K11 launches a
+                replayed frame, K11_CALL on one device and 4 x K11_CALL on
+                4 bands.
 Every ReSTIR frame phase but the goldens' (5, 8, 10, 11, 14, 20-28) also
-checks that K7, K9 and K10 launched; the goldens and configs 1 and 5
-check K7. Last it prints the device line {"ok": true, "device": {...}}.
+checks that K7, K9, K10 and K11 launched (the batched taps' frames of 27
+that K11 did not); the goldens and configs 1 and 5 check K7. Last it prints the device line {"ok": true, "device": {...}}.
 Without a CUDA device it exits with 1 and prints no result.
 """
 
@@ -1844,10 +1859,12 @@ def _tap_batch_phase(torch, dev, every):
         runs[what] = dict(trace_api.LAUNCHES)
     b_launches, s_launches = (runs[k] for k in ("batched, replayed",
                                                 "sequential, replayed"))
+    # the batched taps keep the eager spatial reuse: no K11
     on = ["closest_hit", "any_hit", "table_gather", *FRAME_SHADE]
-    if min(b_launches[k] for k in on) <= 0 or any(
-            b_launches[k] for k in every if k not in on):
-        raise AssertionError(f"the batched Cornell frames must launch {on} "
+    b_on = [k for k in on if k not in SPATIAL_K11]
+    if min(b_launches[k] for k in b_on) <= 0 or any(
+            b_launches[k] for k in every if k not in b_on):
+        raise AssertionError(f"the batched Cornell frames must launch {b_on} "
                              f"and no other kernel: {b_launches}")
     saved = s_launches["any_hit"] - b_launches["any_hit"]
     if saved != (restir.TAPS - 1) * TAP_FRAMES:
@@ -2231,8 +2248,10 @@ def _reorder_phase(torch, dev, every):
 
 
 PATH_K9 = ("path_prime", "path_bounce", "path_finish")
-# the shading kernels of every ReSTIR frame: K9's and K10 ("post")
-FRAME_SHADE = (*PATH_K9, "post")
+SPATIAL_K11 = ("spatial_tap", "spatial_close", "spatial_finish")
+# the shading kernels of every ReSTIR frame: K9's, K10 ("post") and K11's
+# (every frame of sequential spatial taps, the default)
+FRAME_SHADE = (*PATH_K9, "post", *SPATIAL_K11)
 PATH_SIZES = ((1280, 720),)
 # K9's launches a trace_path call, by kind
 K9_CALL = {"path_prime": 1, "path_bounce": 7, "path_finish": 1}
@@ -2407,16 +2426,17 @@ POST_SIZES = ((1280, 720), (1920, 1080))
 POST_BANDS, POST_HALO = 4, 16
 
 
-def _post_call(torch, scene, dev, width, height, frames, move=False):
-    """The post_process arguments of the last of `frames` eager ReSTIR
-    frames of `scene` at width x height, live: a still camera with the
-    counter at the frame's index, static_ok and gb_reuse from the second
-    frame on, as the app renders; with `move`, a camera moving each frame
-    (the counter 0, as the app resets it)."""
-    from tpu_raytracer_torch.ops import post
+def _live_call(torch, module, name, scene, dev, width, height, frames,
+               move=False):
+    """The arguments of `module.name`'s call (post.post_process,
+    restir.restir_spatial) in the last of `frames` eager ReSTIR frames of
+    `scene` at width x height, live: a still camera with the counter at
+    the frame's index, static_ok and gb_reuse from the second frame on, as
+    the app renders; with `move`, a camera moving each frame (the counter
+    0, as the app resets it)."""
     from tpu_raytracer_torch.render import camera, pipeline, renderer
 
-    real, calls = post.post_process, []
+    real, calls = getattr(module, name), []
 
     def spy(*args):
         calls[:] = [args]
@@ -2424,7 +2444,7 @@ def _post_call(torch, scene, dev, width, height, frames, move=False):
 
     cam = camera.CameraController()
     state = pipeline.init_state(width, height, dev)
-    post.post_process = spy
+    setattr(module, name, spy)
     try:
         for i in range(frames):
             fc = 0 if move else i
@@ -2438,34 +2458,38 @@ def _post_call(torch, scene, dev, width, height, frames, move=False):
                 scene, uniform, fc, state, width, height, static_ok=fc > 0,
                 gb_reuse=True)
     finally:
-        post.post_process = real
+        setattr(module, name, real)
     torch.cuda.synchronize()
     return calls[0]
+
+
+def _band_view(view, ctx, band):
+    """The BandView halo_exchange gives band `band` of POST_BANDS, halo
+    POST_HALO, of a one-device view (zero rows outside the image)."""
+    from tpu_raytracer_torch.parallel.views import BandView
+
+    width, height = ctx["width"], ctx["height"]
+    band_h = height // POST_BANDS
+    y0 = band * band_h
+    rows = view.data.reshape(height, width, -1)
+    ext = rows.new_zeros((band_h + 2 * POST_HALO, width, rows.shape[2]))
+    lo, hi = max(y0 - POST_HALO, 0), min(y0 + band_h + POST_HALO, height)
+    ext[lo - y0 + POST_HALO:hi - y0 + POST_HALO] = rows[lo:hi]
+    return BandView(ext.reshape(-1, rows.shape[2]), y0, width, height,
+                    band_h, POST_HALO)
 
 
 def _post_band(torch, args, band):
     """The post_process arguments of band `band` of POST_BANDS, halo
     POST_HALO, cut from a one-device call's: the views halo_exchange
-    gives (zero rows outside the image), the band's motion rows."""
-    from tpu_raytracer_torch.parallel.views import BandView
-
+    gives, the band's motion rows."""
     hdr_view, gb, gb_view, hist_view, fc, ctx = args
-    width, height = ctx["width"], ctx["height"]
-    band_h = height // POST_BANDS
-    y0 = band * band_h
-
-    def view(v):
-        rows = v.data.reshape(height, width, -1)
-        ext = rows.new_zeros((band_h + 2 * POST_HALO, width, rows.shape[2]))
-        lo, hi = max(y0 - POST_HALO, 0), min(y0 + band_h + POST_HALO, height)
-        ext[lo - y0 + POST_HALO:hi - y0 + POST_HALO] = rows[lo:hi]
-        return BandView(ext.reshape(-1, rows.shape[2]), y0, width, height,
-                        band_h, POST_HALO)
-
-    return (view(hdr_view), {"motion": gb["motion"][y0 * width:
-                                                    (y0 + band_h) * width]},
-            view(gb_view), view(hist_view), fc,
-            dict(ctx, y0=y0, band_h=band_h))
+    band_h = ctx["height"] // POST_BANDS
+    own = slice(band * band_h * ctx["width"],
+                (band + 1) * band_h * ctx["width"])
+    return (_band_view(hdr_view, ctx, band), {"motion": gb["motion"][own]},
+            _band_view(gb_view, ctx, band), _band_view(hist_view, ctx, band),
+            fc, dict(ctx, y0=band * band_h, band_h=band_h))
 
 
 def _k10_diff(torch, got, want):
@@ -2500,10 +2524,12 @@ def _post_kernel_phase(torch, dev):
     cornell = scenes.create_cornell_box(dev)
     truffle = interactive.load_scene("truffle", dev)
     (w1, h1), (w2, h2) = POST_SIZES
-    still = _post_call(torch, cornell, dev, w1, h1, 4)
-    moving = _post_call(torch, cornell, dev, w2, h2, 3, move=True)
+    still = _live_call(torch, post, "post_process", cornell, dev, w1, h1, 4)
+    moving = _live_call(torch, post, "post_process", cornell, dev, w2, h2, 3,
+                        move=True)
     cases = [("Cornell still", still),
-             ("truffle still", _post_call(torch, truffle, dev, w1, h1, 4)),
+             ("truffle still", _live_call(torch, post, "post_process",
+                                          truffle, dev, w1, h1, 4)),
              ("Cornell moving", moving),
              ("Cornell moving, counter 5", moving[:4] + (5,) + moving[5:])]
     cases += [(f"Cornell still, band {b} of {POST_BANDS}",
@@ -2573,6 +2599,186 @@ def _post_kernel_phase(torch, dev):
           flush=True)
 
 
+# 31. K11, ReSTIR's spatial reuse (csrc/spatial.cu): the one-card cells'
+# frame sizes and the bands cell's split (POST_SIZES, POST_BANDS,
+# POST_HALO), its launches a call, and the other device operations a call
+# may make: each tap any-hit call's two fills, its mask's where and its
+# answer's compare (ops/trace_api.py:scene_trace, scene_occluded; measured
+# on the card)
+K11_CALL = {"spatial_tap": 5, "spatial_close": 1, "spatial_finish": 1}
+SPATIAL_EAGER = 4 * 5
+
+
+def _spatial_band(torch, args, band):
+    """The restir_spatial arguments of band `band` of POST_BANDS, halo
+    POST_HALO, cut from a one-device call's: the comb view halo_exchange
+    gives, the band's G-buffer and reservoir rows."""
+    from tpu_raytracer_torch.utils.vec3 import V3
+
+    scene, gb, view, res, cam, fc, ctx = args
+    band_h = ctx["height"] // POST_BANDS
+    own = slice(band * band_h * ctx["width"],
+                (band + 1) * band_h * ctx["width"])
+
+    def cut(x):
+        return V3(*(c[own] for c in x)) if isinstance(x, V3) else x[own]
+    return (scene, {k: cut(x) for k, x in gb.items()},
+            _band_view(view, ctx, band), {k: cut(x) for k, x in res.items()},
+            cam, fc, dict(ctx, y0=band * band_h, band_h=band_h))
+
+
+def _spatial_words(out):
+    """restir_spatial's outputs as {name: tensor}."""
+    res, hdr, rays, diag = out
+    words = {}
+    for k, v in res.items():
+        if isinstance(v, tuple):
+            words.update((f"{k}.{c}", x) for c, x in zip("xyz", v))
+        else:
+            words[k] = v
+    return {**words, "hdr": hdr, "rays": rays, **diag}
+
+
+def _k11_diff(torch, got, want):
+    """Per output: (words equal, words, max abs difference)."""
+    out, want = {}, _spatial_words(want)
+    for name, a in _spatial_words(got).items():
+        b = want[name]
+        if a.dtype == torch.float32:
+            same = a.view(torch.int32) == b.view(torch.int32)
+        else:
+            same = a == b
+        err = float((a.double() - b.double()).abs().max()) \
+            if a.numel() else 0.0
+        out[name] = (int(same.sum()), a.numel(), err)
+    return out
+
+
+def _spatial_kernel_phase(torch, dev):
+    """31. K11, ReSTIR's spatial reuse (csrc/spatial.cu), against the eager
+    route (restir_spatial_plain on the card) on live frame inputs: a
+    Cornell and a truffle 1280x720 still frame, a Cornell 1920x1080 frame
+    under a moving camera (as rendered, counter 0, and with the counter
+    at 5), and every band of a 4-band split (halo 16) of the Cornell still
+    frame; every output word. The bands' K11 words against the
+    one-device call's; a call's device trace; K11 launches a replayed
+    frame, one device and 4 bands."""
+    import re
+
+    from tpu_raytracer_torch.app import interactive
+    from tpu_raytracer_torch.models import scenes
+    from tpu_raytracer_torch.ops import restir, trace_api
+    from tpu_raytracer_torch.parallel import tiles
+    from tpu_raytracer_torch.render import graph as graph_mod
+    from tpu_raytracer_torch.render import pipeline
+
+    cornell = scenes.create_cornell_box(dev)
+    truffle = interactive.load_scene("truffle", dev)
+    (w1, h1), (w2, h2) = POST_SIZES
+    still = _live_call(torch, restir, "restir_spatial", cornell, dev, w1, h1,
+                       4)
+    moving = _live_call(torch, restir, "restir_spatial", cornell, dev, w2, h2,
+                        3, move=True)
+    bands = [f"Cornell still, band {b} of {POST_BANDS}"
+             for b in range(POST_BANDS)]
+    cases = [("Cornell still", still),
+             ("truffle still", _live_call(torch, restir, "restir_spatial",
+                                          truffle, dev, w1, h1, 4)),
+             ("Cornell moving", moving),
+             ("Cornell moving, counter 5", moving[:5] + (5,) + moving[6:])]
+    cases += [(name, _spatial_band(torch, still, b))
+              for b, name in enumerate(bands)]
+    outs = {}
+    for what, args in cases:
+        trace_api.reset_launch_counts()
+        got = restir.restir_spatial(*args)
+        torch.cuda.synchronize()
+        launched = {k: trace_api.LAUNCHES[k] for k in K11_CALL}
+        if launched != K11_CALL:
+            raise AssertionError(f"K11 {what}: restir_spatial launched "
+                                 f"{launched}, want {K11_CALL}")
+        want = restir.restir_spatial_plain(*args)
+        torch.cuda.synchronize()
+        outs[what] = _spatial_words(got)
+        diff = _k11_diff(torch, got, want)
+        bad = {k: d for k, d in diff.items() if d[0] != d[1]}
+        if bad:
+            raise AssertionError(f"K11 {what}: words differ from the eager "
+                                 f"route's (equal, words, max abs): {bad}")
+        print(f"K11 {what}: every word of {list(diff)} equal "
+              f"({sum(d[1] for d in diff.values())} words; rays "
+              f"{float(got[2]):.0f}, cached {float(got[3]['cached']):.0f} "
+              f"of {float(got[3]['lanes']):.0f} lanes)", flush=True)
+
+    # the still frame's bands, put together, are the one-device call's;
+    # their counts add up to its
+    for name, whole in outs["Cornell still"].items():
+        parts = [outs[b][name] for b in bands]
+        if name == "rays":      # each an f32 sum, rounded past 2^24
+            continue
+        if name in ("cached", "lanes"):
+            same = float(sum(p.double() for p in parts)) == float(whole)
+        elif whole.dtype == torch.float32:
+            same = torch.equal(torch.cat(parts).view(torch.int32),
+                               whole.view(torch.int32))
+        else:
+            same = torch.equal(torch.cat(parts), whole)
+        if not same:
+            raise AssertionError(f"K11's {POST_BANDS} bands of the still "
+                                 f"frame differ from its one-device call in "
+                                 f"{name}")
+    print(f"K11: the still frame's {POST_BANDS} bands put together equal its "
+          f"one-device call in every word, and their lane counts add up to "
+          f"its",
+          flush=True)
+
+    # the first case's call under the profiler: K11, the trace kernels, K9,
+    # the stage marks and the any-hit calls' few eager operations
+    known = re.compile(r"\b(closest_hit|any_hit|stream|inst|vpu|mxu|bvh)"
+                       r"_kernel\b|tpurt_mark_|path_(prime|bounce|finish)")
+    seen, other = dict.fromkeys(K11_CALL, 0), {}
+    for key, count in _device_ops(torch, lambda: restir.restir_spatial(
+            *cases[0][1])).items():
+        kind = next((k for k in K11_CALL if k in key), None)
+        if kind:
+            seen[kind] += count
+        elif not known.search(key):
+            other[key] = count
+    if seen != K11_CALL or sum(other.values()) > SPATIAL_EAGER:
+        raise AssertionError(f"K11 {cases[0][0]}: a restir_spatial call ran "
+                             f"{seen} K11 launches and {other} besides the "
+                             f"trace kernels, K9 and the marks")
+    print(f"K11: the device trace of a restir_spatial call holds {seen}, the "
+          f"trace kernels, K9, the stage marks and {sum(other.values())} "
+          f"other operations {other}", flush=True)
+
+    # K11 launches a replayed frame: one device, then 4 bands
+    seq = _camera_seq(dev, 6, cornell.num_lights)
+    one = graph_mod.FrameGraph(cornell, w1, h1, dev)
+    mesh = tiles.make_mesh([DEVICE] * POST_BANDS)
+    banded = tiles.TiledFrameGraph(mesh, tiles.replicate(cornell, mesh), w1,
+                                   h1)
+    banded.load_state(pipeline.init_state(w1, h1, dev))
+    per_frame = []
+    for render in (lambda u, fc, st: one(u, fc, st, gb_reuse=True),
+                   lambda u, fc, st: banded(u, fc, st)):
+        for u, fc, st in seq[:4]:
+            render(u, fc, st)
+        trace_api.reset_launch_counts()
+        for u, fc, st in seq[4:]:
+            render(u, fc, st)
+        torch.cuda.synchronize()
+        per_frame.append({k: trace_api.LAUNCHES[k] / (len(seq) - 4)
+                          for k in K11_CALL})
+    want = [K11_CALL, {k: POST_BANDS * n for k, n in K11_CALL.items()}]
+    if per_frame != want:
+        raise AssertionError(f"K11 launches a replayed frame {per_frame}, "
+                             f"want {want}")
+    print(f"K11: {per_frame[0]} launches a replayed one-device frame, "
+          f"{per_frame[1]} a replayed frame of {POST_BANDS} bands",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2633,6 +2839,8 @@ def main() -> int:
     _path_kernel_phase(torch, dev)
     # 30. K10, the post pass, against the eager route
     _post_kernel_phase(torch, dev)
+    # 31. K11, ReSTIR's spatial reuse, against the eager route
+    _spatial_kernel_phase(torch, dev)
 
     # 3. K1 against plain
     primary = primary_rays(scene)

@@ -185,6 +185,31 @@ def _k10_diff():
     assert accum[0] == 3 * R - 1 and accum[2] > 0.0 and accum[3] == 1
 
 
+def _k11_diff():
+    res = {"y": torch.arange(R, dtype=torch.int64), "w_sum": _f32(11, R),
+           "s_path": tuple(_f32(12 + k, R) for k in range(3)),
+           "rad_ok": torch.ones(R, dtype=torch.bool)}
+    want = (res, _f32(15, R, 3), _f32(16), {"cached": _f32(17)})
+
+    def copy(out):
+        r, hdr, rays, diag = out
+        return ({k: tuple(c.clone() for c in v) if isinstance(v, tuple)
+                 else v.clone() for k, v in r.items()}, hdr.clone(),
+                rays.clone(), {k: v.clone() for k, v in diag.items()})
+    diff = smoke._k11_diff(torch, copy(want), want)
+    assert all(d[0] == d[1] and d[2] == 0.0 for d in diff.values())
+    got = copy(want)
+    got[0]["s_path"] = (got[0]["s_path"][0], _nudged(got[0]["s_path"][1],
+                                                     (3,)),
+                        got[0]["s_path"][2])
+    got[0]["y"][5] += 1
+    diff = smoke._k11_diff(torch, got, want)
+    assert diff["s_path.y"][:2] == (R - 1, R) and diff["s_path.y"][2] > 0.0
+    assert diff["y"][:2] == (R - 1, R)
+    assert all(d[0] == d[1] for k, d in diff.items()
+               if k not in ("s_path.y", "y"))
+
+
 def _psnr():
     a = _f32(10, 16, 16, 3).numpy() / 5.0
     assert smoke._psnr(a, a.copy()) == float("inf")
@@ -195,7 +220,7 @@ def _psnr():
 
 CASES = {f.__name__.lstrip("_"): f for f in (
     _ulps, _check_closest, _compare_plain, _compare_agree, _occlusion_check,
-    _word_gap, _word_diff, _k9_diff, _k10_diff, _psnr)}
+    _word_gap, _word_diff, _k9_diff, _k10_diff, _k11_diff, _psnr)}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

@@ -53,9 +53,11 @@ RAYS = 1024
 torch.set_num_threads(1)
 
 
-def _build(out, names, defines=()):
+def _build(out, names, defines=(), edits=None):
     """g++ build of csrc/<name>.cu for each name, the launches rewritten
-    for the emulation, into one library in `out`."""
+    for the emulation, into one library in `out`. edits: name -> (old,
+    new), a text that occurs once in that source and its replacement (a
+    mutant for a test to catch)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build the emulated kernels")
@@ -63,6 +65,10 @@ def _build(out, names, defines=()):
     for name in names:
         with open(os.path.join(CSRC_DIR, f"{name}.cu")) as f:
             src = f.read()
+        if edits and name in edits:
+            old, new = edits[name]
+            assert src.count(old) == 1, (name, old)
+            src = src.replace(old, new)
         src, n = re.subn(r"(\w+)<<<([^,]+),\s*(\w+),\s*0,.*?>>>\(",
                          r"emu_launch(\1, \2, \3)(", src, flags=re.S)
         assert n == 1, name
@@ -95,6 +101,9 @@ def _build(out, names, defines=()):
         "tpurt_path_bounce": [ptr, i32, ptr],
         "tpurt_path_finish": [ptr] * 2,
         "tpurt_post": [ptr] * 2,
+        "tpurt_spatial_tap": [ptr, i32, ptr],
+        "tpurt_spatial_close": [ptr] * 2,
+        "tpurt_spatial_finish": [ptr] * 2,
     }
     for name, argtypes in signatures.items():
         if hasattr(lib, name):

@@ -14,6 +14,8 @@ ctypes:
   K8       the BVH walk past a scene's brute_max (trace_bvh.cu)
   K9       the path tracer's shading, a launch per depth (path_trace.cu)
   K10      the post pass, one launch a frame or band (post.cu)
+  K11      ReSTIR's spatial reuse, 7 launches a frame or band around its
+           tap any-hit calls and the replay (spatial.cu)
 A CPU tensor takes each kernel's plain PyTorch version instead, so the
 package runs (slowly) on a machine without a GPU; a CUDA tensor always
 takes the kernel.

@@ -9,7 +9,11 @@ decisions draw from the separate raw-LCG stream. Spatial taps run in the
 reference's sequential order (tap i+1's draws depend on tap i's
 visibility result), or with `make_ctx(tap_batch=True)` as the reference's
 batched taps: all five prepared first, their visibility in one any-hit
-call over a pixel-interleaved stream of 5R rays (`_tap_stream`).
+call over a pixel-interleaved stream of 5R rays (`_tap_stream`). On CUDA
+tensors the sequential taps' preparation, merges and finalize run as
+kernel K11 (`csrc/spatial.cu`, `restir_spatial_kernel`) between the same
+queries; CPU tensors and the batched taps run the eager version,
+`restir_spatial_plain`.
 
 Seeds are int64 tensors holding uint32 values; in the packed [N, 12]
 reservoir rows the seed rides as the f32 bit pattern of its uint32, as in
@@ -18,15 +22,18 @@ the reference, so packed rows compare bit for bit.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
+from ..parallel.views import BandView, PairBandView
 from ..utils import rng, vec3
 from ..utils.vec3 import V3
 from . import path_trace
 from .gbuffer import GB_ALBEDO, GB_COLS, GB_MAT, GB_OCT, GB_POS, GB_VALID
-from .trace_api import REORDERS, scene_occluded
+from .post import _rows
+from .trace_api import REORDERS, count_launch, load_kernels, scene_occluded
 
 MAX_M_TEMPORAL = 16   # restir.wgsl:851
 MAX_M_SPATIAL = 20    # restir_spatial.wgsl:893,989
@@ -430,7 +437,25 @@ def restir_spatial(scene, gb, comb_view, in_reservoirs, camera,
     `_tap_stream`'s 5R rays; otherwise each tap traces in turn.
 
     comb_view: view over this frame's packed G-buffer + temporal
-    reservoirs. Returns (out_reservoirs, hdr [n, 3], ray_count, diag)."""
+    reservoirs (a BandView, or a PairBandView of the two). Returns
+    (out_reservoirs, hdr [n, 3], ray_count, diag).
+
+    Route by device, as every kernel of the port: CPU tensors and the
+    batched taps take `restir_spatial_plain`, the eager PyTorch version;
+    CUDA tensors take kernel K11 (`restir_spatial_kernel`) around the
+    same queries, or the call raises."""
+    if tap_batch_on(ctx) or gb["valid"].device.type == "cpu":
+        return restir_spatial_plain(scene, gb, comb_view, in_reservoirs,
+                                    camera, frame_count, ctx)
+    return restir_spatial_kernel(scene, gb, comb_view, in_reservoirs, camera,
+                                 frame_count, ctx)
+
+
+def restir_spatial_plain(scene, gb, comb_view, in_reservoirs, camera,
+                         frame_count, ctx):
+    """`restir_spatial` in eager PyTorch ops, on any device: the CPU
+    route, the batched taps' route, and on the card the yardstick K11 is
+    held to."""
     valid = gb["valid"]
     camera_pos = camera["view_pos"][:3]
     reorder = ctx.get("reorder", "none")
@@ -504,3 +529,200 @@ def _spatial_finalize(scene, gb, res, camera_pos, valid, ray_count,
     diag = {"cached": (cached & valid).to(torch.float32).sum(),
             "lanes": valid.to(torch.float32).sum()}
     return res, hdr, ray_count + final["rays"], diag
+
+
+# ---------------------------------------------------------------------------
+# K11 (CUDA tensors)
+# ---------------------------------------------------------------------------
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+K11_COUNTS = TAPS + 2      # csrc/spatial.cu: N_COUNTS
+
+
+class SpatialArgs(ctypes.Structure):
+    """csrc/spatial.cu:SpatialArgs, field for field."""
+    _fields_ = [
+        *((n, _P) for n in ("gb_pos", "gb_oct", "gb_albedo", "gb_mat",
+                            "gb_valid", "in_y", "in_w_sum", "in_m", "in_sx",
+                            "in_sy", "in_sz", "in_rx", "in_ry", "in_rz",
+                            "in_rad_ok", "mat_table", "view", "frame",
+                            "nb_gb", "nb_res")),
+        *((n, _L) for n in ("pos_s0", "pos_s1", "oct_s0", "oct_s1", "alb_s0",
+                            "alb_s1", "mat_s", "valid_s", "y_s", "w_sum_s",
+                            "m_s", "sx_s", "sy_s", "sz_s", "rx_s", "ry_s",
+                            "rz_s", "rad_ok_s", "view_s", "nb_gb_s",
+                            "nb_res_s", "frame_value")),
+        *((n, _I) for n in ("n_mat", "mat_cols", "width", "height", "y0",
+                            "band_h", "R", "v_y0", "v_width", "v_height",
+                            "v_band_h", "v_halo", "gb_pos_c", "gb_oct_c",
+                            "gb_albedo_c", "gb_mat_c", "gb_valid_c")),
+        *((n, _P) for n in ("rng", "w_sum", "m", "y", "flags", "tw", "tm",
+                            "ty", "counts", "ray_o", "ray_d", "t_max",
+                            "active", "blocked", "seed", "replay",
+                            "radiance", "v1_pos", "path_rays", "out_w_sum",
+                            "out_m", "out_w", "out_p_hat", "out_spath",
+                            "out_rad", "out_rad_ok", "hdr", "rays", "cached",
+                            "lanes")),
+    ]
+
+
+def restir_spatial_kernel(scene, gb, comb_view, in_reservoirs, camera,
+                          frame_count, ctx):
+    """`restir_spatial` on CUDA tensors (sequential taps): K11's 7
+    launches around the same queries as the eager version's, each counted
+    in `trace_api.LAUNCHES`. The scene's material table, gb, the view's
+    rows, in_reservoirs, the camera and frame_count (an int, or a 0-dim
+    int64 tensor) must lie on one CUDA device; raises on anything else."""
+    device = gb["valid"].device
+    if device.type != "cuda":
+        raise ValueError(f"restir_spatial_kernel needs CUDA tensors, got "
+                         f"{device}")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        return run_k11(load_kernels(), stream, count_launch, scene, gb,
+                       comb_view, in_reservoirs, camera, frame_count, ctx)
+
+
+def _comb_rows(view, device):
+    """(G-buffer rows, their stride, reservoir rows, their stride, rows)
+    of a comb view as K11 reads them: pointers to each table's first
+    column, strides in elements."""
+    if isinstance(view, BandView):
+        rows = (view.band_h + 2 * view.halo) * view.width
+        ptr, stride = _rows(view.data, "comb_view", rows, GB_COLS + RES_COLS,
+                            device)
+        return ptr, stride, ptr + 4 * GB_COLS, stride, rows
+    if isinstance(view, PairBandView):
+        rows = (view.band_h + 2 * view.halo) * view.width
+        a, a_s = _rows(view.a, "comb_view.a", rows, GB_COLS, device)
+        b, b_s = _rows(view.b, "comb_view.b", rows, RES_COLS, device)
+        return a, a_s, b, b_s, rows
+    raise ValueError(f"comb_view: want a BandView or a PairBandView, got "
+                     f"{type(view).__name__}")
+
+
+def run_k11(lib, stream, launched, scene, gb, comb_view, in_reservoirs,
+            camera, frame_count, ctx):
+    """K11's launches from `lib` on `stream` (a handle, or None for the
+    host emulation of the tests), `launched(name)` after each, around the
+    five tap any-hit calls (`scene_occluded`) and the winners' replay
+    (`path_trace.trace_path`). Lane state lives in SoA buffers allocated
+    once a call; nothing is read back to the host, so the call captures
+    into a CUDA graph."""
+    device = gb["valid"].device
+    width, band_h = ctx["width"], ctx["band_h"]
+    r = band_h * width
+    if r == 0 or r >= 2 ** 31:
+        raise ValueError(f"K11 needs a band of 1 to 2^31 - 1 lanes, got {r}")
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    reorder = ctx.get("reorder", "none")
+    camera_pos = camera["view_pos"][:3]
+
+    nb_gb, nb_gb_s, nb_res, nb_res_s, rows = _comb_rows(comb_view, device)
+    if rows >= 2 ** 31:
+        raise ValueError("the comb view exceeds K11's int32 row indices")
+    mat, n_mat, mat_cols = path_trace._table(scene.mat_table, "mat_table")
+    if scene.mat_table.device != device or n_mat == 0 or mat_cols < 10:
+        raise ValueError(f"mat_table: want rows of roughness, metallic and "
+                         f"transmission (columns 7-9) on {device}")
+    args = SpatialArgs(
+        mat_table=mat, n_mat=n_mat, mat_cols=mat_cols,
+        nb_gb=nb_gb, nb_gb_s=nb_gb_s, nb_res=nb_res, nb_res_s=nb_res_s,
+        width=width, height=ctx["height"], y0=ctx["y0"], band_h=band_h, R=r,
+        v_y0=comb_view.y0, v_width=comb_view.width,
+        v_height=comb_view.height, v_band_h=comb_view.band_h,
+        v_halo=comb_view.halo, gb_pos_c=GB_POS.start, gb_oct_c=GB_OCT.start,
+        gb_albedo_c=GB_ALBEDO.start, gb_mat_c=GB_MAT, gb_valid_c=GB_VALID)
+
+    # the call's inputs, read in place through their element strides
+    res = in_reservoirs
+    for field, x, dtype, shape, strides in (
+            ("gb_pos", gb["pos"], f32, (r, 3), ("pos_s0", "pos_s1")),
+            ("gb_oct", gb["oct_normal"], f32, (r, 2), ("oct_s0", "oct_s1")),
+            ("gb_albedo", gb["albedo"], f32, (r, 3), ("alb_s0", "alb_s1")),
+            ("gb_mat", gb["mat_id"], i32, (r,), ("mat_s",)),
+            ("gb_valid", gb["valid"], b8, (r,), ("valid_s",)),
+            ("in_y", res["y"], torch.int64, (r,), ("y_s",)),
+            ("in_w_sum", res["w_sum"], f32, (r,), ("w_sum_s",)),
+            ("in_m", res["M"], i32, (r,), ("m_s",)),
+            ("in_sx", res["s_path"].x, f32, (r,), ("sx_s",)),
+            ("in_sy", res["s_path"].y, f32, (r,), ("sy_s",)),
+            ("in_sz", res["s_path"].z, f32, (r,), ("sz_s",)),
+            ("in_rx", res["rad"].x, f32, (r,), ("rx_s",)),
+            ("in_ry", res["rad"].y, f32, (r,), ("ry_s",)),
+            ("in_rz", res["rad"].z, f32, (r,), ("rz_s",)),
+            ("in_rad_ok", res["rad_ok"], b8, (r,), ("rad_ok_s",)),
+            ("view", camera_pos, f32, (3,), ("view_s",))):
+        if x.device != device or x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"{field}: want {dtype} {shape} on {device}, "
+                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+        setattr(args, field, x.data_ptr())
+        for name, stride in zip(strides, x.stride()):
+            setattr(args, name, stride)
+    if isinstance(frame_count, torch.Tensor):
+        if frame_count.device != device or frame_count.dtype != torch.int64 \
+                or frame_count.dim() != 0:
+            raise ValueError(f"frame_count: want a 0-dim int64 tensor on "
+                             f"{device}, got {frame_count.dtype} "
+                             f"{tuple(frame_count.shape)} on "
+                             f"{frame_count.device}")
+        args.frame = frame_count.data_ptr()
+    else:
+        args.frame_value = int(frame_count)
+
+    def empty(*shape, dtype=f32):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    # lane state, the taps' rays, the replay's inputs and the outputs
+    bufs = {"rng": empty(r, dtype=i32), "w_sum": empty(r),
+            "m": empty(r, dtype=i32), "y": empty(r, dtype=i32),
+            "flags": empty(r, dtype=i32), "tw": empty(r),
+            "tm": empty(r, dtype=i32), "ty": empty(r, dtype=i32),
+            "counts": empty(K11_COUNTS, dtype=i32), "ray_o": empty(3, r),
+            "ray_d": empty(3, r), "t_max": empty(r),
+            "active": empty(r, dtype=b8), "seed": empty(r, dtype=torch.int64),
+            "replay": empty(r, dtype=b8), "out_w_sum": empty(r),
+            "out_m": empty(r, dtype=i32), "out_w": empty(r),
+            "out_p_hat": empty(r), "out_spath": empty(3, r),
+            "out_rad": empty(3, r), "out_rad_ok": empty(r, dtype=b8),
+            "hdr": empty(r, 3), "rays": empty(), "cached": empty(),
+            "lanes": empty()}
+    for k, v in bufs.items():
+        setattr(args, k, v.data_ptr())
+
+    def launch(fn, name, *extra):
+        err = fn(ctypes.addressof(args), *extra, stream)
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        launched(name)
+
+    launch(lib.tpurt_spatial_tap, "spatial_tap", 0)
+    for t in range(TAPS):
+        blocked = scene_occluded(scene, bufs["ray_o"], bufs["ray_d"], 1e-3,
+                                 bufs["t_max"], active=bufs["active"],
+                                 reorder=reorder)
+        args.blocked = blocked.data_ptr()
+        if t + 1 < TAPS:
+            launch(lib.tpurt_spatial_tap, "spatial_tap", t + 1)
+        else:
+            launch(lib.tpurt_spatial_close, "spatial_close")
+    final = path_trace.trace_path(scene, gb, camera_pos, bufs["seed"],
+                                  active=bufs["replay"], reorder=reorder)
+    for field, k, shape in (("radiance", "radiance", (r, 3)),
+                            ("v1_pos", "v1_pos", (r, 3)),
+                            ("path_rays", "rays", ())):
+        x = final[k]
+        if x.dtype != f32 or tuple(x.shape) != shape \
+                or not x.is_contiguous():
+            raise ValueError(f"the replay's {k}: want contiguous f32 {shape}, "
+                             f"got {x.dtype} {tuple(x.shape)}")
+        setattr(args, field, x.data_ptr())
+    launch(lib.tpurt_spatial_finish, "spatial_finish")
+
+    out = {"y": bufs["seed"], "w_sum": bufs["out_w_sum"], "M": bufs["out_m"],
+           "W": bufs["out_w"], "p_hat": bufs["out_p_hat"],
+           "s_path": V3(*bufs["out_spath"].unbind(0)),
+           "rad": V3(*bufs["out_rad"].unbind(0)),
+           "rad_ok": bufs["out_rad_ok"]}
+    return out, bufs["hdr"], bufs["rays"], {"cached": bufs["cached"],
+                                            "lanes": bufs["lanes"]}

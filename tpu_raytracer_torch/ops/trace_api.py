@@ -84,7 +84,8 @@ LAUNCHES = {"closest_hit": 0, "any_hit": 0, "inst_closest_hit": 0,
             "inst_any_hit": 0, "stream_closest_hit": 0, "stream_any_hit": 0,
             "vpu_closest_hit": 0, "mxu_closest_hit": 0, "mxu_any_hit": 0,
             "table_gather": 0, "bvh_closest_hit": 0, "bvh_any_hit": 0,
-            "path_prime": 0, "path_bounce": 0, "path_finish": 0, "post": 0}
+            "path_prime": 0, "path_bounce": 0, "path_finish": 0, "post": 0,
+            "spatial_tap": 0, "spatial_close": 0, "spatial_finish": 0}
 
 
 # row bands (parallel/tiles.py) launch from one thread each
@@ -328,7 +329,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-Xptxas", "-v"]
 KERNEL_SOURCES = ("trace.cu", "trace_stream.cu", "trace_inst.cu",
                   "trace_vpu.cu", "trace_mxu.cu", "gather.cu",
-                  "trace_bvh.cu", "marks.cu", "path_trace.cu", "post.cu")
+                  "trace_bvh.cu", "marks.cu", "path_trace.cu", "post.cu",
+                  "spatial.cu")
 
 
 def _nvcc() -> str:
@@ -347,8 +349,9 @@ def load_kernels() -> ctypes.CDLL:
     `csrc/trace_bvh.cu`, wrapped by `ops/traversal.py`), the table
     gather K7 (`csrc/gather.cu`, wrapped by `ops/table_gather.py`) and the
     path tracer's shading K9 (`csrc/path_trace.cu`, wrapped by
-    `ops/path_trace.py`) and the post pass K10 (`csrc/post.cu`, wrapped by
-    `ops/post.py`), with
+    `ops/path_trace.py`), the post pass K10 (`csrc/post.cu`, wrapped by
+    `ops/post.py`) and ReSTIR's spatial reuse K11 (`csrc/spatial.cu`,
+    wrapped by `ops/restir.py`), with
     the frame's stage marks (`csrc/marks.cu`, launched by
     `utils/profiling.py:stage`), into one library with one nvcc call for
     sm_90a (at first use, cached by source hash) and bind them. Once per
@@ -385,7 +388,10 @@ def load_kernels() -> ctypes.CDLL:
                      (lib.tpurt_path_bounce, [ptr, i32, ptr]),
                      (lib.tpurt_path_finish, [ptr] * 2),
                      (lib.tpurt_post, [ptr] * 2),
-                     (lib.tpurt_post_occupancy, [ptr])):
+                     (lib.tpurt_post_occupancy, [ptr]),
+                     (lib.tpurt_spatial_tap, [ptr, i32, ptr]),
+                     (lib.tpurt_spatial_close, [ptr] * 2),
+                     (lib.tpurt_spatial_finish, [ptr] * 2)):
         fn.restype = i32
         fn.argtypes = args
     return lib
