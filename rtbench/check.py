@@ -24,18 +24,31 @@ larger is worse:
                  boxes, the shading rows' geometry, the instances'
                  transforms and normal matrices; largest gap over the
                  scene's extent
-Each is the largest over the compared frames.
+Each is the largest over the compared frames. Cells that take
+screenshots (`shots.py`) add, on the one shot the seed picks:
+  shot_gap       sum |denoised image - reference's| / sum |reference's|;
+                 the reference (`reference/denoise.py`) denoises the
+                 program's own HDR and G-buffer rows of that frame, so
+                 this checks the denoiser alone
+  png_px_pct     % of pixels whose byte in the written PNG (read by
+                 `png.py`) differs by more than 1 in a channel from the
+                 reference's sRGB bytes of its own denoised image; a PNG
+                 that does not decode, or is not the frame's size in
+                 8-bit RGB, reads infinite
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+import zlib
 
 import numpy as np
 import torch
 
+from . import png
 from .reference import camera as ref_camera
+from .reference import denoise as ref_denoise
 from .reference import lower
 from .reference import pipeline as ref_pipeline
 from .reference import tables
@@ -176,6 +189,42 @@ def reference_frame(desc, device, width, height, uniform, frame_count,
 def judge(numbers: dict, limits: dict) -> bool:
     """Every number within its limit (a number with no limit fails)."""
     return all(k in limits and v <= limits[k] for k, v in numbers.items())
+
+
+def shot_gaps(shot, width: int, height: int, iterations: int,
+              control=None) -> dict:
+    """shot_gap and png_px_pct of the checked screenshot (`shot`: the
+    frame's G-buffer rows and HDR, the program's denoised image and its
+    PNG's bytes, or None where the shot was never taken). With
+    `control`, the reference's denoise in that precision and its sRGB
+    bytes stand in the program's place."""
+    if shot is None:
+        return {"shot_gap": math.inf, "png_px_pct": math.inf}
+    with torch.no_grad():
+        ref = ref_denoise.denoised_screenshot(shot["gb"], shot["hdr"], width,
+                                              height, iterations)
+        if control:
+            with lower.CONTROLS[control]():
+                prog = ref_denoise.denoised_screenshot(
+                    shot["gb"], shot["hdr"], width, height, iterations)
+        else:
+            prog = shot["img"]
+        ref_d = ref.double()
+        gap = float((prog.double().to(ref.device) - ref_d).abs().sum()
+                    / ref_d.abs().sum().clamp(min=1e-30))
+    ref_u8 = ref_denoise.srgb_u8(ref.cpu().numpy())
+    got = ref_denoise.srgb_u8(prog.cpu().numpy()) if control else None
+    if not control and shot.get("png") is not None:
+        try:
+            got = png.read_rgb8(shot["png"])
+        except (ValueError, zlib.error):
+            got = None
+    if got is None or got.shape != ref_u8.shape:
+        px = math.inf
+    else:
+        off = np.abs(got.astype(np.int16) - ref_u8.astype(np.int16)) > 1
+        px = 100.0 * float(off.any(axis=-1).mean())
+    return _finite({"shot_gap": gap, "png_px_pct": px})
 
 
 

@@ -12,7 +12,10 @@ prints the cell's per-layer metrics. Either way the frames the seed
 picks are compared with the reference once the window has closed
 (`check.py`), and the last line on standard output is one JSON object:
 correct, attempted, failed, metrics, device, breakdown (traced runs)
-and, last, each compared number beside its limit.
+and, last, each compared number beside its limit. A traffic mix whose
+frame path is `screenshot` also takes the app's denoised screenshots on
+its schedule (`shots.py`): one untimed in set-up, then the window's, and
+a shot the saver drops or does not write counts as failed.
 
 The run exits with code 2 and prints no result where there is no CUDA
 device, or fewer than the cell asks for, and with code 3 where a module
@@ -34,7 +37,7 @@ import json
 import sys
 import time
 
-from . import cells, drive, stats
+from . import cells, drive, shots, stats
 from .reference import lower
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "tpu_raytracer")
@@ -134,7 +137,25 @@ class BandsFrame:
         return self.tiles.gather_state(state)
 
 
-FRAME_PATHS = {"graph": GraphFrame, "bands": BandsFrame}
+class ScreenshotFrame:
+    """The app's frame path with `--denoise` screenshots: `GraphFrame`
+    (or `inner`, a frame path of the same call shape) at the traffic's
+    size, and the app's screenshot step (`shots.Shots`) after the frames
+    the traffic's `screenshot` schedule names."""
+
+    def __init__(self, scene, traffic, devices, inner=GraphFrame):
+        self.inner = inner(scene, traffic, devices)
+        self.shots = shots.Shots(traffic)
+
+    def __call__(self, uniform, frame_count, static_ok, transforms):
+        return self.inner(uniform, frame_count, static_ok, transforms)
+
+    def whole(self, state) -> dict:
+        return self.inner.whole(state)
+
+
+FRAME_PATHS = {"graph": GraphFrame, "bands": BandsFrame,
+               "screenshot": ScreenshotFrame}
 
 
 def _snapshot(frame, out, input_state):
@@ -200,11 +221,20 @@ def measure(cell, seed: int, seconds: float, trace: bool, devices,
             snaps.append(_snapshot(frame, out, None))
         last = out
     spans["capture_s"] = time.perf_counter() - t
+    # the screenshot step of the frame path that takes screenshots
+    shot = getattr(frame, "shots", None)
+    last_frame = max(seq.check)
+    if shot is not None:
+        shot.pick(seed)
+        shot.warm(last)
+        last_frame = max(last_frame, shot.check_frame())
     # the state each compared window frame starts from, copied as it
     # begins
     pending = [frame.whole(last[3])] if 0 in seq.check else []
 
     def on_frame(j, out):
+        if shot is not None:
+            shot.after_frame(j, out)
         if j in seq.check:
             snaps.append(_snapshot(frame, out, pending.pop()))
         if j + 1 in seq.check:
@@ -225,23 +255,27 @@ def measure(cell, seed: int, seconds: float, trace: bool, devices,
         tr = got[0]
         log("traced frames, ms: " + " ".join(
             f"{1e3 * sum(part):.1f}" for part in driver.host[-n:]))
-        for j in range(n, max(seq.check) + 1):
+        for j in range(n, last_frame + 1):
             on_frame(j, driver.step())
         result["attempted"] = n
     else:
         done, window_s = drive.run_window(driver, seconds, on_frame)
         # a compared frame the window did not reach is rendered after it,
         # untimed: late, not missing
-        for j in range(len(done), max(seq.check) + 1):
+        for j in range(len(done), last_frame + 1):
             on_frame(j, driver.step())
         times = stats.frame_times(done)
         result["attempted"] = len(done)
         e2e = {"fps": (len(done) / window_s, "frames/s"),
                "frame_ms_p90": (1e3 * stats.percentile(times, 90), "ms"),
                "setup_s": (setup_s, "s")}
+        if shot is not None:
+            shot.wait()
+            e2e["screenshot_s"] = (shot.screenshot_s(len(done)), "s")
         result["metrics"] = {m["name"]: {"value": e2e[m["name"]][0],
                                          "unit": m["unit"]}
-                             for m in cell.end_to_end}
+                             for m in cell.end_to_end
+                             if e2e[m["name"]][0] is not None}
         log(f"window {window_s:.4f} s, {len(done)} frames, frame ms "
             + " ".join(f"p{q} {1e3 * stats.percentile(times, q):.4f}"
                        for q in (10, 25, 50, 75, 90, 100)))
@@ -252,6 +286,18 @@ def measure(cell, seed: int, seconds: float, trace: bool, devices,
             f"{1e3 * stats.percentile(part[0], 50):.4f}, frame call "
             f"{1e3 * stats.percentile(part[1], 50):.4f}, wait for the "
             f"device {1e3 * stats.percentile(part[2], 50):.4f}")
+    checked_shot = None
+    if shot is not None:
+        shot.wait()
+        result["failed"] = shot.failed()
+        spans["png_save_s"] = shot.png_save_s()
+        log(f"screenshots: {len(shot.taken)} taken, {result['failed']} "
+            f"dropped or not written; s from the step's start to the file "
+            f"written: " + " ".join(
+                f"{s['written'] - s['start']:.4f}" for s in shot.taken
+                if s.get("written") is not None))
+        checked_shot = shot.checked
+        shot.close()
     peak = max(torch.cuda.max_memory_allocated(d) for d in devices) \
         if devices[0].type == "cuda" else 0
     log(f"memory peak {peak} bytes allocated (fullest device)")
@@ -259,18 +305,26 @@ def measure(cell, seed: int, seconds: float, trace: bool, devices,
     last_tf = driver.seq.frame(driver.index - 1, moves).transforms \
         if refit else None
     frames_run = driver.index
-    del frame, driver, scene, last, pending
+    del frame, driver, scene, last, pending, shot
     gc.collect()
     if devices[0].type == "cuda":
         torch.cuda.empty_cache()
+        for d in devices:
+            torch.cuda.reset_peak_memory_stats(d)
 
     # the check, once the window has closed and the program's state is
     # freed
     t = time.perf_counter()
     numbers, counts = check.compare(snaps, desc, dev, seq, frames_run,
                                     traffic, fields, last_tf, control)
+    if "screenshot" in traffic:
+        numbers.update(check.shot_gaps(
+            checked_shot, traffic["width"], traffic["height"],
+            traffic["screenshot"]["denoise_iterations"], control))
+    ref_peak = torch.cuda.max_memory_allocated(dev) \
+        if dev.type == "cuda" else 0
     log(f"check: {len(snaps)} frames against the reference in "
-        f"{time.perf_counter() - t:.2f} s")
+        f"{time.perf_counter() - t:.2f} s, reference peak {ref_peak} bytes")
     result["correct"] = check.judge(numbers, cell.limits)
 
     kind = (torch.cuda.get_device_name(devices[0])
